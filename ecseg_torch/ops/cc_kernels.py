@@ -1,0 +1,284 @@
+"""The metaseg path's CUDA kernels, their plain PyTorch twins, and launch
+counters.
+
+| B  | wrapper             | CUDA source          | replaces (ecseg_tpu/ops/...)          |
+|----|---------------------|----------------------|---------------------------------------|
+| B1 | stitch_labels       | csrc/stitch.cu       | cc_pallas.stitch_labels_pallas        |
+| B2 | label               | csrc/cc_label.cu     | cc_pallas.label_pallas (+ banded)     |
+| B3 | flood_from_border   | csrc/cc_flood.cu     | cc_pallas.flood_from_border_pallas    |
+| B4 | flood_from_seeds    | csrc/cc_flood.cu     | cc_pallas.flood_from_seeds_pallas (+ banded) |
+
+Dispatch is by where the input lies: a CPU tensor goes to the plain twin
+(``*_plain``), a CUDA tensor to the kernel, anything else raises.  There is
+no fallback from a failing kernel to its twin.  ``LAUNCHES`` counts kernel
+launches per wrapper (never twin calls), so a run can show that it went
+through the kernels.  The twins are plain torch on any device and are the
+reference the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .tiling import SCW, stitch_plan
+
+LAUNCHES: Dict[str, int] = {
+    "stitch": 0,
+    "label": 0,
+    "flood_border": 0,
+    "flood_seeds": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------
+# plain twins
+# --------------------------------------------------------------------------
+
+
+def stitch_plain(label_patches: torch.Tensor, positions) -> torch.Tensor:
+    """B1 twin: replay the copy plan with slicing; (H, W) int32."""
+    copies, H, W = stitch_plan(tuple(map(tuple, positions)))
+    canvas = torch.zeros((H, W), dtype=torch.int32, device=label_patches.device)
+    for (i, sy, sx, dy, dx, sh, sw) in copies:
+        canvas[dy : dy + sh, dx : dx + sw] = label_patches[i, sy : sy + sh, sx : sx + sw]
+    return canvas
+
+
+def _neighbour_min(lab: torch.Tensor, big: int, connectivity: int) -> torch.Tensor:
+    p = F.pad(lab, (1, 1, 1, 1), value=big)
+    if connectivity == 2:  # separable 3x3 window
+        m = torch.minimum(torch.minimum(p[:, :-2], p[:, 1:-1]), p[:, 2:])
+        return torch.minimum(torch.minimum(m[:-2], m[1:-1]), m[2:])
+    m = torch.minimum(lab, p[:-2, 1:-1])
+    m = torch.minimum(m, p[2:, 1:-1])
+    m = torch.minimum(m, p[1:-1, :-2])
+    return torch.minimum(m, p[1:-1, 2:])
+
+
+def _run_min_rows(lab: torch.Tensor, mask: torch.Tensor, big: int) -> torch.Tensor:
+    """Min of ``lab`` over each horizontal run of ``mask`` (one step for any
+    run length)."""
+    n = lab.numel()
+    start = mask.clone()
+    start[:, 1:] &= ~mask[:, :-1]
+    run = torch.cumsum(start.reshape(-1), 0) - 1
+    run = torch.where(mask.reshape(-1), run, n)  # background -> spare slot
+    mins = torch.full((n + 1,), big, dtype=lab.dtype, device=lab.device)
+    mins.scatter_reduce_(0, run, lab.reshape(-1), "amin")
+    return torch.where(mask, mins[run].view_as(lab), big)
+
+
+def _pointer_jump(lab: torch.Tensor, big: int) -> torch.Tensor:
+    """``lab = lab.flatten()[lab]`` to its fixpoint (log-depth rounds)."""
+    flat = torch.cat([lab.reshape(-1), lab.new_full((1,), big)])
+    while True:
+        nxt = flat[flat]
+        if torch.equal(nxt, flat):
+            return flat[:-1].view_as(lab)
+        flat = nxt
+
+
+def label_plain(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
+    """B2 twin: canonical labels (min flat index of the component, -1 on
+    background) by min-propagation -- 3x3 (or cross) window, row and column
+    run minima -- plus pointer jumping, to a fixpoint.  Every label is always
+    the index of a pixel of the same component and only decreases, so the
+    fixpoint is the component minimum; runs and jumps keep snakes and
+    spirals from costing one iteration per pixel of their length."""
+    h, w = mask.shape
+    n = h * w
+    if n == 0:
+        return torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    mask = mask.bool()
+    mask_t = mask.t().contiguous()
+    idx = torch.arange(n, device=mask.device).view(h, w)
+    lab = torch.where(mask, idx, n)
+    while True:
+        new = torch.where(mask, _neighbour_min(lab, n, connectivity), n)
+        new = _run_min_rows(new, mask, n)
+        new = _run_min_rows(new.t().contiguous(), mask_t, n).t()
+        new = _pointer_jump(new, n)
+        if torch.equal(new, lab):
+            break
+        lab = new
+    return torch.where(mask, lab, -1).to(torch.int32)
+
+
+def _flood_plain(trav: torch.Tensor, seeds: torch.Tensor, connectivity: int) -> torch.Tensor:
+    h, w = trav.shape
+    n = h * w
+    trav = trav.bool()
+    lab = label_plain(trav, connectivity).reshape(-1).long()
+    flat = torch.where(lab < 0, n, lab)
+    marks = torch.zeros(n + 1, dtype=torch.bool, device=trav.device)
+    marks[torch.where((seeds.bool() & trav).reshape(-1), flat, n)] = True
+    marks[n] = False
+    return marks[flat].view(h, w)
+
+
+def _border_mask(h: int, w: int, device) -> torch.Tensor:
+    b = torch.zeros((h, w), dtype=torch.bool, device=device)
+    b[0, :] = b[-1, :] = True
+    b[:, 0] = b[:, -1] = True
+    return b
+
+
+def flood_from_border_plain(trav: torch.Tensor) -> torch.Tensor:
+    """B3 twin: traversable pixels 4-connected to the image border."""
+    h, w = trav.shape
+    if h * w == 0:
+        return torch.zeros((h, w), dtype=torch.bool, device=trav.device)
+    return _flood_plain(trav, _border_mask(h, w, trav.device), 1)
+
+
+def flood_from_seeds_plain(
+    trav: torch.Tensor, seeds: torch.Tensor, connectivity: int = 2
+) -> torch.Tensor:
+    """B4 twin: traversable pixels connected to a seed through traversable
+    pixels (seeds off the mask are ignored)."""
+    if trav.numel() == 0:
+        return torch.zeros(trav.shape, dtype=torch.bool, device=trav.device)
+    return _flood_plain(trav, seeds, connectivity)
+
+
+# --------------------------------------------------------------------------
+# kernels
+# --------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "ecseg_stitch": ("stitch.cu", [_P, _P, _P, _I, _P]),
+    "ecseg_label": ("cc_label.cu", [_P, _P, _I, _I, _I, _P]),
+    "ecseg_flood": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+}
+_cfuncs: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def _cfunc(name: str):
+    fn = _cfuncs.get(name)
+    if fn is None:
+        from .._build import library
+
+        source, argtypes = _SIGNATURES[name]
+        fn = getattr(library(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _cfuncs[name] = fn
+    return fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _cfunc(name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed to launch: CUDA error {rc}")
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{what}: {t.numel()} elements overflow the kernels' int32 indices")
+
+
+@functools.lru_cache(maxsize=8)
+def _source_map(positions: Tuple[Tuple[int, int], ...], device: torch.device) -> torch.Tensor:
+    """int32 (H, W): flat index into the (N, SCW, SCW) patch stack of the
+    plan's LAST copy onto each pixel, -1 where no copy lands."""
+    copies, H, W = stitch_plan(positions)
+    src = np.full((H, W), -1, np.int32)
+    for (i, sy, sx, dy, dx, sh, sw) in copies:
+        rows = (sy + np.arange(sh, dtype=np.int32))[:, None] * SCW
+        cols = (sx + np.arange(sw, dtype=np.int32))[None, :]
+        src[dy : dy + sh, dx : dx + sw] = i * SCW * SCW + rows + cols
+    return torch.from_numpy(src).to(device)
+
+
+def stitch_labels(label_patches: torch.Tensor, positions: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """B1: (N, SCW, SCW) uint8 patch labels -> (H, W) int32 canvas."""
+    if label_patches.device.type == "cpu":
+        return stitch_plain(label_patches, positions)
+    _check(label_patches, "stitch_labels", torch.uint8, 3)
+    pos = tuple(map(tuple, positions))
+    if tuple(label_patches.shape) != (len(pos), SCW, SCW):
+        raise ValueError(
+            f"stitch_labels: {len(pos)} positions need ({len(pos)}, {SCW}, {SCW}) "
+            f"patches, got {tuple(label_patches.shape)}"
+        )
+    src = _source_map(pos, label_patches.device)
+    out = torch.empty_like(src)
+    _launch("ecseg_stitch", label_patches.device, label_patches.data_ptr(), src.data_ptr(), out.data_ptr(), out.numel())
+    LAUNCHES["stitch"] += 1
+    return out
+
+
+def label(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
+    """B2: canonical labels of a (H, W) bool mask; int32, -1 on background."""
+    if connectivity not in (1, 2):
+        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
+    if mask.device.type == "cpu":
+        return label_plain(mask, connectivity)
+    _check(mask, "label", torch.bool, 2)
+    h, w = mask.shape
+    out = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    if out.numel() == 0:
+        return out
+    _launch("ecseg_label", mask.device, mask.data_ptr(), out.data_ptr(), h, w, connectivity)
+    LAUNCHES["label"] += 1
+    return out
+
+
+def _flood(trav, seeds, connectivity, what):
+    h, w = trav.shape
+    out = torch.empty((h, w), dtype=torch.bool, device=trav.device)
+    if out.numel() == 0:
+        return out
+    labels = torch.empty((h, w), dtype=torch.int32, device=trav.device)
+    flag = torch.empty((h * w,), dtype=torch.uint8, device=trav.device)
+    _launch(
+        "ecseg_flood", trav.device, trav.data_ptr(),
+        None if seeds is None else seeds.data_ptr(),
+        labels.data_ptr(), flag.data_ptr(), out.data_ptr(), h, w, connectivity,
+    )
+    LAUNCHES[what] += 1
+    return out
+
+
+def flood_from_border(trav: torch.Tensor) -> torch.Tensor:
+    """B3: pixels of the (H, W) bool ``trav`` 4-connected to the border."""
+    if trav.device.type == "cpu":
+        return flood_from_border_plain(trav)
+    _check(trav, "flood_from_border", torch.bool, 2)
+    return _flood(trav, None, 1, "flood_border")
+
+
+def flood_from_seeds(trav: torch.Tensor, seeds: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
+    """B4: pixels of ``trav`` connected to any pixel of ``seeds`` (both
+    (H, W) bool) through ``trav``."""
+    if connectivity not in (1, 2):
+        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
+    if trav.device.type == "cpu" and seeds.device.type == "cpu":
+        return flood_from_seeds_plain(trav, seeds, connectivity)
+    _check(trav, "flood_from_seeds", torch.bool, 2)
+    _check(seeds, "flood_from_seeds seeds", torch.bool, 2)
+    if seeds.shape != trav.shape or seeds.device != trav.device:
+        raise ValueError("flood_from_seeds: seeds must match trav in shape and device")
+    return _flood(trav, seeds, connectivity, "flood_seeds")
