@@ -16,6 +16,7 @@ and keeps the same task interface, folder layout and output bytes.  Rules:
   (``ops/cc_kernels.py``).  A CPU tensor goes to the twin, a CUDA tensor to
   the kernel.
 
-Ported so far: the metaseg task (``pipelines/metaseg.py``) in the per-class
-post-processing form.
+Ported so far: the metaseg task (``pipelines/metaseg.py``), with its
+post-processing in each form the JAX package's ``ECSEG_MC_LABEL`` and
+``ECSEG_MC_MERGE`` select (the multiclass form by default).
 """

@@ -1,9 +1,12 @@
-// Union-find connected-component labeling shared by kernels B2 (cc_label.cu)
-// and B3/B4 (cc_flood.cu).
+// Union-find connected-component labeling shared by kernels B2/B5
+// (cc_label.cu) and B3/B4/B6/B9 (cc_flood.cu).
 //
 // Contract (ecseg_tpu/ops/cc_pallas.py label_pallas): every foreground pixel
 // gets the smallest flat index r*W+c of its component, background gets -1;
-// connectivity 1 (4-neighbour) or 2 (8-neighbour).
+// connectivity 1 (4-neighbour) or 2 (8-neighbour).  With kSameClass (B5,
+// label_multiclass_pallas) the map holds class ids, 0 is background, and
+// two neighbours join only when their classes are equal; the choice is a
+// template argument, so B2's merge loop carries no extra test.
 //
 // Three passes over the (H, W) map, one thread per pixel, all state in the
 // int32 output itself (the parent array):
@@ -69,19 +72,32 @@ __global__ void uf_init(const uint8_t* __restrict__ mask, int* parent, int n) {
   if (i < n) parent[i] = mask[i] ? i : -1;
 }
 
+// Does neighbour value `nb` join a pixel of (nonzero) value `own`?
+template <bool kSameClass>
+__device__ __forceinline__ bool uf_joins(uint8_t nb, uint8_t own) {
+  if constexpr (kSameClass) {
+    return nb == own;
+  } else {
+    return nb != 0;
+  }
+}
+
+template <bool kSameClass>
 __global__ void uf_merge(const uint8_t* __restrict__ mask, int* parent, int h,
                          int w, int connectivity) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w || !mask[i]) return;
+  if (i >= h * w) return;
+  const uint8_t own = mask[i];
+  if (!own) return;
   int r = i / w;
   int c = i - r * w;
-  if (c > 0 && mask[i - 1]) uf_union(parent, i, i - 1);
+  if (c > 0 && uf_joins<kSameClass>(mask[i - 1], own)) uf_union(parent, i, i - 1);
   if (r > 0) {
     int u = i - w;
-    if (mask[u]) uf_union(parent, i, u);
+    if (uf_joins<kSameClass>(mask[u], own)) uf_union(parent, i, u);
     if (connectivity == 2) {
-      if (c > 0 && mask[u - 1]) uf_union(parent, i, u - 1);
-      if (c < w - 1 && mask[u + 1]) uf_union(parent, i, u + 1);
+      if (c > 0 && uf_joins<kSameClass>(mask[u - 1], own)) uf_union(parent, i, u - 1);
+      if (c < w - 1 && uf_joins<kSameClass>(mask[u + 1], own)) uf_union(parent, i, u + 1);
     }
   }
 }
@@ -92,12 +108,13 @@ __global__ void uf_flatten(const uint8_t* __restrict__ mask, int* parent, int n)
 }
 
 // Enqueue the three passes on `stream`; `labels` is (h, w) int32.
+template <bool kSameClass = false>
 inline void label_launch(const uint8_t* mask, int* labels, int h, int w,
                          int connectivity, cudaStream_t stream) {
   int n = h * w;
   int blocks = (n + kThreads - 1) / kThreads;
   uf_init<<<blocks, kThreads, 0, stream>>>(mask, labels, n);
-  uf_merge<<<blocks, kThreads, 0, stream>>>(mask, labels, h, w, connectivity);
+  uf_merge<kSameClass><<<blocks, kThreads, 0, stream>>>(mask, labels, h, w, connectivity);
   uf_flatten<<<blocks, kThreads, 0, stream>>>(mask, labels, n);
 }
 

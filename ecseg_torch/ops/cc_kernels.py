@@ -7,13 +7,17 @@ counters.
 | B2 | label               | csrc/cc_label.cu     | cc_pallas.label_pallas (+ banded)     |
 | B3 | flood_from_border   | csrc/cc_flood.cu     | cc_pallas.flood_from_border_pallas    |
 | B4 | flood_from_seeds    | csrc/cc_flood.cu     | cc_pallas.flood_from_seeds_pallas (+ banded) |
+| B5 | label_multiclass    | csrc/cc_label.cu     | cc_pallas.label_multiclass_pallas     |
+| B6 | flood_multiclass    | csrc/cc_flood.cu     | cc_pallas.flood_multiclass_pallas     |
+| B9 | label_and_flood     | csrc/cc_flood.cu     | cc_pallas.label_and_flood_pallas      |
 
 Dispatch is by where the input lies: a CPU tensor goes to the plain twin
 (``*_plain``), a CUDA tensor to the kernel, anything else raises.  There is
 no fallback from a failing kernel to its twin.  ``LAUNCHES`` counts kernel
 launches per wrapper (never twin calls), so a run can show that it went
 through the kernels.  The twins are plain torch on any device and are the
-reference the kernels are held against on the card.
+reference the kernels are held against on the card.  Class maps (B5, B6)
+enter the kernels as contiguous uint8; masks and seeds as bool.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ LAUNCHES: Dict[str, int] = {
     "label": 0,
     "flood_border": 0,
     "flood_seeds": 0,
+    "label_mc": 0,
+    "flood_mc": 0,
+    "label_flood": 0,
 }
 
 
@@ -152,6 +159,37 @@ def flood_from_seeds_plain(
     return _flood_plain(trav, seeds, connectivity)
 
 
+def _classes(cls_map: torch.Tensor):
+    return [int(c) for c in torch.unique(cls_map) if int(c) != 0]
+
+
+def label_multiclass_plain(cls_map: torch.Tensor) -> torch.Tensor:
+    """B5 twin: ``label_plain`` (8-connected) of each class present, merged;
+    -1 on class 0."""
+    out = torch.full(cls_map.shape, -1, dtype=torch.int32, device=cls_map.device)
+    for c in _classes(cls_map):
+        m = cls_map == c
+        out = torch.where(m, label_plain(m, 2), out)
+    return out
+
+
+def flood_multiclass_plain(cls_map: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """B6 twin: OR over the classes present of the seeded flood of each
+    class's mask from the seeds on it (seeds on class 0 are ignored)."""
+    out = torch.zeros(cls_map.shape, dtype=torch.bool, device=cls_map.device)
+    for c in _classes(cls_map):
+        m = cls_map == c
+        out |= flood_from_seeds_plain(m, seeds.bool() & m, 2)
+    return out
+
+
+def label_and_flood_plain(
+    mask: torch.Tensor, seeds: torch.Tensor, connectivity: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B9 twin: (``label_plain``, ``flood_from_seeds_plain``) of one mask."""
+    return label_plain(mask, connectivity), flood_from_seeds_plain(mask, seeds, connectivity)
+
+
 # --------------------------------------------------------------------------
 # kernels
 # --------------------------------------------------------------------------
@@ -161,6 +199,9 @@ _SIGNATURES = {
     "ecseg_stitch": ("stitch.cu", [_P, _P, _P, _I, _P]),
     "ecseg_label": ("cc_label.cu", [_P, _P, _I, _I, _I, _P]),
     "ecseg_flood": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "ecseg_label_mc": ("cc_label.cu", [_P, _P, _I, _I, _P]),
+    "ecseg_flood_mc": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "ecseg_label_flood": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 _cfuncs: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -197,6 +238,13 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
     if t.numel() >= 2**31:
         raise ValueError(f"{what}: {t.numel()} elements overflow the kernels' int32 indices")
+
+
+def _check_pair(t: torch.Tensor, seeds: torch.Tensor, what: str, dtype: torch.dtype) -> None:
+    _check(t, what, dtype, 2)
+    _check(seeds, f"{what} seeds", torch.bool, 2)
+    if seeds.shape != t.shape or seeds.device != t.device:
+        raise ValueError(f"{what}: seeds must match the map in shape and device")
 
 
 @functools.lru_cache(maxsize=8)
@@ -246,17 +294,21 @@ def label(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
     return out
 
 
-def _flood(trav, seeds, connectivity, what):
+def _flood(name, what, trav, seeds, *conn, labels=None):
+    """Launch the flood entry ``name`` of csrc/cc_flood.cu and count it under
+    ``what``; ``labels`` is the int32 label map it writes (scratch unless the
+    caller keeps it)."""
     h, w = trav.shape
     out = torch.empty((h, w), dtype=torch.bool, device=trav.device)
     if out.numel() == 0:
         return out
-    labels = torch.empty((h, w), dtype=torch.int32, device=trav.device)
+    if labels is None:
+        labels = torch.empty((h, w), dtype=torch.int32, device=trav.device)
     flag = torch.empty((h * w,), dtype=torch.uint8, device=trav.device)
     _launch(
-        "ecseg_flood", trav.device, trav.data_ptr(),
+        name, trav.device, trav.data_ptr(),
         None if seeds is None else seeds.data_ptr(),
-        labels.data_ptr(), flag.data_ptr(), out.data_ptr(), h, w, connectivity,
+        labels.data_ptr(), flag.data_ptr(), out.data_ptr(), h, w, *conn,
     )
     LAUNCHES[what] += 1
     return out
@@ -267,7 +319,7 @@ def flood_from_border(trav: torch.Tensor) -> torch.Tensor:
     if trav.device.type == "cpu":
         return flood_from_border_plain(trav)
     _check(trav, "flood_from_border", torch.bool, 2)
-    return _flood(trav, None, 1, "flood_border")
+    return _flood("ecseg_flood", "flood_border", trav, None, 1)
 
 
 def flood_from_seeds(trav: torch.Tensor, seeds: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
@@ -277,8 +329,45 @@ def flood_from_seeds(trav: torch.Tensor, seeds: torch.Tensor, connectivity: int 
         raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
     if trav.device.type == "cpu" and seeds.device.type == "cpu":
         return flood_from_seeds_plain(trav, seeds, connectivity)
-    _check(trav, "flood_from_seeds", torch.bool, 2)
-    _check(seeds, "flood_from_seeds seeds", torch.bool, 2)
-    if seeds.shape != trav.shape or seeds.device != trav.device:
-        raise ValueError("flood_from_seeds: seeds must match trav in shape and device")
-    return _flood(trav, seeds, connectivity, "flood_seeds")
+    _check_pair(trav, seeds, "flood_from_seeds", torch.bool)
+    return _flood("ecseg_flood", "flood_seeds", trav, seeds, connectivity)
+
+
+def label_multiclass(cls_map: torch.Tensor) -> torch.Tensor:
+    """B5: per pixel, the min flat index of its same-class 8-connected
+    component in the (H, W) class map (uint8 on the card); int32, -1 on
+    class 0."""
+    if cls_map.device.type == "cpu":
+        return label_multiclass_plain(cls_map)
+    _check(cls_map, "label_multiclass", torch.uint8, 2)
+    h, w = cls_map.shape
+    out = torch.empty((h, w), dtype=torch.int32, device=cls_map.device)
+    if out.numel() == 0:
+        return out
+    _launch("ecseg_label_mc", cls_map.device, cls_map.data_ptr(), out.data_ptr(), h, w)
+    LAUNCHES["label_mc"] += 1
+    return out
+
+
+def flood_multiclass(cls_map: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """B6: pixels 8-connected to a seed through pixels of their own class
+    in the (H, W) class map (uint8 on the card; seeds bool, ignored on class
+    0)."""
+    if cls_map.device.type == "cpu" and seeds.device.type == "cpu":
+        return flood_multiclass_plain(cls_map, seeds)
+    _check_pair(cls_map, seeds, "flood_multiclass", torch.uint8)
+    return _flood("ecseg_flood_mc", "flood_mc", cls_map, seeds)
+
+
+def label_and_flood(
+    mask: torch.Tensor, seeds: torch.Tensor, connectivity: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B9: (labels as ``label``, flood as ``flood_from_seeds``) of one
+    (H, W) bool mask, labeled once."""
+    if connectivity not in (1, 2):
+        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
+    if mask.device.type == "cpu" and seeds.device.type == "cpu":
+        return label_and_flood_plain(mask, seeds, connectivity)
+    _check_pair(mask, seeds, "label_and_flood", torch.bool)
+    labels = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    return labels, _flood("ecseg_label_flood", "label_flood", mask, seeds, connectivity, labels=labels)

@@ -5,7 +5,9 @@ Pipeline parity target: reference src/metaseg.py:12-57 + src/utils.py:109-120.
 Per image: read -> meta_preprocess -> save inverted DAPI -> overlap-patchify
 (host, on reader threads) -> U-Net forward over the whole patch stack ->
 exact uint8 quantize + argmax -> stitch (kernel B1) -> meta_inference
-(``ops/meta_post_gpu``, kernels B2-B4) -> ecDNA count (B2) -> write
+(``ops/meta_post_gpu``: by default on kernels B2-B6; ``ECSEG_MC_LABEL=0``
+selects the per-class form on B2-B4 and ``ECSEG_MC_MERGE=1`` the fused
+merge on B9, as in the JAX package) -> ecDNA count (B2) -> write
 ``labels/<name>.png``, ``labels/<name>.npy`` and one row of
 ``ec_quantification.csv``.  When the device meta_inference reports ``ok``
 False (a component budget overflowed) the image is redone on the host

@@ -1,5 +1,5 @@
-"""Binary test masks shared by the port's tests (no JAX import, so the
-card-only tests can use them on a machine without JAX)."""
+"""Binary test masks and class maps shared by the port's tests (no JAX
+import, so the card-only tests can use them on a machine without JAX)."""
 
 import numpy as np
 
@@ -60,3 +60,34 @@ MASKS = _masks()
 
 def seeds_like(m, seed=1):
     return np.random.default_rng(seed).random(m.shape) < 0.02
+
+
+def random_class_map(rng, h, w, stripes=False):
+    """A 0..3 class map as tests/test_cc_multiclass.py builds it: uniform
+    noise, a class-1 block touching a class-2 run, and optionally class-3
+    columns (maximal fragmentation of same-class runs)."""
+    cls = (rng.random((h, w)) * 4).astype(np.uint8)
+    cls[5:20, 5:40] = 1
+    cls[10:15, 30:60] = 2  # touching different-class runs
+    if stripes:
+        cls[:, ::2] = 3
+    return cls
+
+
+def _class_maps():
+    """uint8 class maps at two shapes, (64, 96) and (120, 130)."""
+    rng = np.random.default_rng(5)
+    single = np.zeros((64, 96), np.uint8)
+    single[10:20, 10:20] = 2
+    return {
+        "random": (rng.random((64, 96)) * 4).astype(np.uint8),
+        "stripes": random_class_map(rng, 120, 130, stripes=True),
+        "touching": random_class_map(rng, 120, 130),
+        "snake_on_2": np.where(snake(64, 96, 2), 1, 2).astype(np.uint8),
+        "spiral_on_2": np.where(spiral(120, 130), 1, 2).astype(np.uint8),
+        "empty": np.zeros((64, 96), np.uint8),
+        "single": single,
+    }
+
+
+CLASS_MAPS = _class_maps()

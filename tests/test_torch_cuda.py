@@ -7,7 +7,8 @@ that has only the port's dependencies:
 
 Without a CUDA device each test skips (a CUDA kernel has no CPU mode); the
 twins themselves are held against the JAX package on the CPU by
-tests/test_torch_cc.py and tests/test_torch_tiling.py.  The kernels'
+tests/test_torch_cc.py, tests/test_torch_cc_multiclass.py and
+tests/test_torch_tiling.py.  The kernels'
 equality at 2048^2 and 2048x3072 is checked by chip_smoke.py.
 """
 
@@ -18,7 +19,7 @@ import torch
 from ecseg_torch.ops import cc_kernels as K
 from ecseg_torch.ops import tiling
 
-from _masks import MASKS, seeds_like
+from _masks import CLASS_MAPS, MASKS, seeds_like
 
 
 @pytest.fixture
@@ -42,6 +43,20 @@ def test_cc_kernels_match_twins(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CLASS_MAPS))
+def test_multiclass_kernels_match_twins(cuda, name):
+    cls = torch.from_numpy(CLASS_MAPS[name]).to(cuda)
+    seeds = torch.from_numpy(seeds_like(CLASS_MAPS[name])).to(cuda)
+    assert torch.equal(K.label_multiclass(cls), K.label_multiclass_plain(cls))
+    assert torch.equal(K.flood_multiclass(cls, seeds), K.flood_multiclass_plain(cls, seeds))
+    odd = cls % 2 == 1
+    for conn in (1, 2):
+        lab, fl = K.label_and_flood(odd, seeds, conn)
+        want_lab, want_fl = K.label_and_flood_plain(odd, seeds, conn)
+        assert torch.equal(lab, want_lab) and torch.equal(fl, want_fl)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,w", [(2048, 2048), (462, 874), (306, 306), (2048, 3072)])
 def test_stitch_kernel_matches_twin(cuda, h, w):
     key = tuple(map(tuple, tiling.patch_positions(h, w)))
@@ -59,8 +74,18 @@ def test_wrappers_check_inputs_and_count_launches(cuda):
         K.label(m.to(torch.uint8))
     with pytest.raises(ValueError):
         K.label(m.t()[:, :4])
-    assert K.LAUNCHES == {"stitch": 0, "label": 0, "flood_border": 0, "flood_seeds": 0}
+    with pytest.raises(TypeError):
+        K.label_multiclass(m)  # class maps enter as uint8
+    with pytest.raises(ValueError):
+        K.flood_multiclass(m.to(torch.uint8), m[:4])
+    assert set(K.LAUNCHES.values()) == {0}
     K.label(m)
     K.flood_from_border(m)
     K.flood_from_seeds(m, m)
-    assert K.LAUNCHES == {"stitch": 0, "label": 1, "flood_border": 1, "flood_seeds": 1}
+    K.label_multiclass(m.to(torch.uint8))
+    K.flood_multiclass(m.to(torch.uint8), m)
+    K.label_and_flood(m, m)
+    assert K.LAUNCHES == {
+        "stitch": 0, "label": 1, "flood_border": 1, "flood_seeds": 1,
+        "label_mc": 1, "flood_mc": 1, "label_flood": 1,
+    }

@@ -1,9 +1,12 @@
-"""The port's device meta_inference (ecseg_torch/ops/meta_post_gpu, per-class
-form, run on the CPU through the B2-B4 twins) against the JAX device twin
-meta_inference_tpu and the host oracle, on the cases of
+"""The port's device meta_inference (ecseg_torch/ops/meta_post_gpu, in the
+form the environment selects -- the default multiclass form unless
+ECSEG_MC_LABEL or ECSEG_MC_MERGE is set -- run on the CPU through the
+kernels' twins) against the JAX device twin meta_inference_tpu and the host
+oracle, on the cases of
 tests/test_meta_post_tpu.py; and the port's host oracle copy against the
 JAX one.  The host oracle is the authority: the port's ``ok`` is False only
-on a component-budget overflow and its output always equals the oracle."""
+on a component-budget overflow and its output always equals the oracle.
+Each form against JAX in the same form: tests/test_torch_meta_post_forms.py."""
 
 import numpy as np
 import pytest

@@ -9,7 +9,8 @@ The folder holds the geometry of tests/test_device_pipeline_e2e.py (a cv2
 TIFF, which the port hands to cv2), a uint16 image in an uncompressed TIFF
 (decoded by the port itself) and an image with more than MAX_NUC nuclei,
 whose device post-processing overflows its budget and is redone on the
-host oracle."""
+host oracle.  The port runs in each post-processing form that the JAX
+package's variables select; every form must give the same bytes."""
 
 import os
 
@@ -97,19 +98,34 @@ def _run_jax(folder, monkeypatch):
         assert metaseg.main(config=Config(raw={"metaseg": {"inpath": folder}})) == 0
 
 
+def _run_port(folder, monkeypatch, env):
+    """The port's ``main`` on ``folder`` with the post-processing form's
+    variables set to ``env`` only; the crowded image's budget overflow must
+    go through the counted host redo."""
+    before = port_fallbacks.counts().get(port_fallbacks.META_POST_OK, 0)
+    with monkeypatch.context() as m:
+        for var in ("ECSEG_MC_LABEL", "ECSEG_MC_MERGE"):
+            m.delenv(var, raising=False)
+        for var, value in env.items():
+            m.setenv(var, value)
+        assert port_metaseg.main(config=PortConfig(raw={"metaseg": {"inpath": folder}}), device="cpu") == 0
+    assert port_fallbacks.counts()[port_fallbacks.META_POST_OK] == before + 1
+
+
+def _assert_same_outputs(tdir, jdir, names):
+    rel = ["ec_quantification.csv"] + [f"labels/{n[:-4]}.npy" for n in names]
+    for r in rel:
+        assert _read(os.path.join(tdir, r)) == _read(os.path.join(jdir, r)), r
+
+
 def test_port_main_matches_jax_main(workdir, monkeypatch):
+    """The port in its default post-processing form (the multiclass one)."""
     jdir, tdir = str(workdir / "jax"), str(workdir / "port")
     names = _make_folder(jdir)
     assert _make_folder(tdir) == names
     _run_jax(jdir, monkeypatch)
-    before = port_fallbacks.counts().get(port_fallbacks.META_POST_OK, 0)
-    assert port_metaseg.main(config=PortConfig(raw={"metaseg": {"inpath": tdir}}), device="cpu") == 0
-    # the crowded image's budget overflow went through the counted host redo
-    assert port_fallbacks.counts()[port_fallbacks.META_POST_OK] == before + 1
-
-    rel = ["ec_quantification.csv"] + [f"labels/{n[:-4]}.npy" for n in names]
-    for r in rel:
-        assert _read(os.path.join(tdir, r)) == _read(os.path.join(jdir, r)), r
+    _run_port(tdir, monkeypatch, {})
+    _assert_same_outputs(tdir, jdir, names)
     for n in names:
         png = f"labels/{n[:-4]}.png"  # RGB (JAX) and palette (port) PNGs
         np.testing.assert_array_equal(
@@ -121,6 +137,16 @@ def test_port_main_matches_jax_main(workdir, monkeypatch):
         np.testing.assert_array_equal(b, a)
     labels = np.load(os.path.join(tdir, "labels", "wide16.npy"))
     assert labels.dtype == np.int64 and set(np.unique(labels)) == {0, 1, 3}
+
+
+@pytest.mark.parametrize("env", [{"ECSEG_MC_LABEL": "0"}, {"ECSEG_MC_MERGE": "1"}], ids=["per_class", "fused_merge"])
+def test_port_main_in_other_forms_matches_jax_main(workdir, monkeypatch, env):
+    jdir, tdir = str(workdir / "jax"), str(workdir / "port")
+    names = _make_folder(jdir)
+    assert _make_folder(tdir) == names
+    _run_jax(jdir, monkeypatch)
+    _run_port(tdir, monkeypatch, env)
+    _assert_same_outputs(tdir, jdir, names)
 
 
 def test_missing_folder_exit_code(capsys):

@@ -84,14 +84,20 @@ def _meta(shape, dtype=torch.bool):
         lambda: K.label(_meta((8, 8)), 2),
         lambda: K.flood_from_border(_meta((8, 8))),
         lambda: K.flood_from_seeds(_meta((8, 8)), _meta((8, 8)), 2),
+        lambda: K.label_multiclass(_meta((8, 8), torch.uint8)),
+        lambda: K.flood_multiclass(_meta((8, 8), torch.uint8), _meta((8, 8))),
+        lambda: K.label_and_flood(_meta((8, 8)), _meta((8, 8)), 2),
     ],
-    ids=["stitch", "label", "flood_border", "flood_seeds"],
+    ids=["stitch", "label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood"],
 )
 def test_wrappers_raise_off_cpu_and_never_call_twins(monkeypatch, call):
     def forbidden(*a, **k):
         raise AssertionError("a wrapper fell back to its plain twin")
 
-    for name in ("stitch_plain", "label_plain", "flood_from_border_plain", "flood_from_seeds_plain"):
+    for name in (
+        "stitch_plain", "label_plain", "flood_from_border_plain", "flood_from_seeds_plain",
+        "label_multiclass_plain", "flood_multiclass_plain", "label_and_flood_plain",
+    ):
         monkeypatch.setattr(K, name, forbidden)
     before = dict(K.LAUNCHES)
     with pytest.raises(ValueError, match="expected a CPU or CUDA tensor"):
