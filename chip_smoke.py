@@ -14,7 +14,15 @@ Phases (any failure raises; exit code 0 only when all pass):
    multiclass label, B6 multiclass flood and B9 label+flood (connectivity 1
    and 2, on the map's odd classes) on a uniformly random 4-class map, a
    column-striped class map, and a class-1 snake and spiral on class 2, at
-   the same two sizes;
+   the same two sizes; B8a count on the random, snake and spiral masks at
+   both sizes (connectivity 1 and 2); B8b stitch+count at the 1024^2 (two
+   tiles in one launch) and 2048^2 plans for class_id 0-3, also against
+   ``stitch_plain`` + ``==`` + the B8a twin; B10 fused decoder tail on 8
+   patches at both widths (c1/c2 64/32 and 128/64), bit-equal on
+   integer-valued float32, >= 99.99 % label agreement on random bf16; B11
+   transpose conv at the decoder's shapes for 100 patches (half-width
+   up2-up4, XL up1-up4), bit-equal on integers, within one bf16 rounding
+   on bf16;
 3. drive the main path: ``ecseg_torch.pipelines.metaseg.main`` with the
    default device on four synthetic 2048^2 uint16 DAPI images, with crafted
    default-width weights (``models/demo.py``, seeded) read through the
@@ -32,13 +40,26 @@ Phases (any failure raises; exit code 0 only when all pass):
    memory bound: the CUDA-event mean over back-to-back calls (``ms``) and
    the device-only time from one ``torch.profiler`` pass (``device_ms``);
    and one 100-patch forward at the XL widths;
-5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+5. drive the tile-count path (``ecseg_torch.pipelines.tile_count.run``,
+   bench.py's per-tile bf16 ecDNA count) with the default device at the
+   default widths (32 tiles) and the XL widths (8 tiles), unfused and
+   fused-tail.  Checks: every tile's count > 10; counts and pixels equal
+   across the variants and to the twin composition on the same patch
+   labels; the launches of one run are one B8b (and one B10 when fused),
+   nothing else; the card's bf16 probabilities within 2e-3 of the CPU
+   float32 forward on 2 patches.  Then the path's ms per tile, and B8a,
+   B8b, B10 (beside the cuDNN chain it replaces) and B11 (beside cuDNN's
+   transpose conv) timed as in 4, with bounds from bytes and operations;
+   B8a, B8b and B10 bit-equal to their twins on the timed inputs, B10 on
+   the whole level-1 concat of both widths' paths (800 and 200 patches);
+6. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import shutil
@@ -51,6 +72,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (the timed B10/B11 rows are bf16)
 SIZE = 2048  # the main path's image side, the reference's image size
 # post-processing form -> the environment that selects it (the JAX
 # package's variables) and the kernel launches of one image through ``main``
@@ -60,10 +82,12 @@ FORM_ENV = {
     "per_class": {"ECSEG_MC_LABEL": "0"},
     "fused_merge": {"ECSEG_MC_MERGE": "1"},
 }
+# the tile-count path's kernels (and B11) never run on the metaseg path
+_NOT_ON_METASEG = {"count": 0, "count_patches": 0, "fused_tail": 0, "convt": 0}
 PER_IMAGE_LAUNCHES = {
-    "default": {"stitch": 1, "label": 3, "flood_border": 2, "flood_seeds": 2, "label_mc": 2, "flood_mc": 1, "label_flood": 0},
-    "per_class": {"stitch": 1, "label": 8, "flood_border": 2, "flood_seeds": 5, "label_mc": 0, "flood_mc": 0, "label_flood": 0},
-    "fused_merge": {"stitch": 1, "label": 1, "flood_border": 2, "flood_seeds": 0, "label_mc": 2, "flood_mc": 1, "label_flood": 2},
+    "default": {"stitch": 1, "label": 3, "flood_border": 2, "flood_seeds": 2, "label_mc": 2, "flood_mc": 1, "label_flood": 0, **_NOT_ON_METASEG},
+    "per_class": {"stitch": 1, "label": 8, "flood_border": 2, "flood_seeds": 5, "label_mc": 0, "flood_mc": 0, "label_flood": 0, **_NOT_ON_METASEG},
+    "fused_merge": {"stitch": 1, "label": 1, "flood_border": 2, "flood_seeds": 0, "label_mc": 2, "flood_mc": 1, "label_flood": 2, **_NOT_ON_METASEG},
 }
 KERNELS = {  # wrapper key -> (B, name, source, pallas_call site, Pallas function)
     "stitch": ("B1", "stitch_labels", "ecseg_torch/csrc/stitch.cu", "ecseg_tpu/ops/cc_pallas.py:1070", "stitch_labels_pallas"),
@@ -77,6 +101,37 @@ KERNELS = {  # wrapper key -> (B, name, source, pallas_call site, Pallas functio
 # the form whose ``main`` run gives each kernel's ``launches`` (B9 runs only
 # under ECSEG_MC_MERGE=1)
 LAUNCHES_FROM = {key: "fused_merge" if key == "label_flood" else "default" for key in KERNELS}
+TILE_KERNELS = {  # the tile-count path's kernels and B11, as KERNELS
+    "count": ("B8a", "count_components", "ecseg_torch/csrc/cc_count.cu", "ecseg_tpu/ops/cc_pallas.py:346", "count_cc_pallas"),
+    "count_patches": ("B8b", "count_from_patches", "ecseg_torch/csrc/cc_count.cu", "ecseg_tpu/ops/cc_pallas.py:401", "count_cc_from_patches"),
+    "fused_tail": ("B10", "fused_dec1_head", "ecseg_torch/csrc/fused_tail.cu", "ecseg_tpu/ops/fused_tail.py:195", "fused_dec1_head"),
+    "convt": ("B11", "conv2d_transpose_packed", "ecseg_torch/csrc/convt.cu", "ecseg_tpu/ops/convt_pallas.py:157", "conv2d_transpose_packed"),
+}
+ALL_KERNELS = {**KERNELS, **TILE_KERNELS}
+TAIL_WIDTHS = {"default": (64, 32), "xl": (128, 64)}  # B10's (c1, c2) per arch
+CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
+    "half up4": (100, 16, 16, 512, 256),
+    "half up3": (100, 32, 32, 256, 128),
+    "half up2": (100, 64, 64, 128, 64),
+    "xl up4": (100, 16, 16, 1024, 512),
+    "xl up3": (100, 32, 32, 512, 256),
+    "xl up2": (100, 64, 64, 256, 128),
+    "xl up1": (100, 128, 128, 128, 64),
+}
+CONVT_TIMED = "xl up1"  # the shape of B11's timing row
+COUNT_SIZES = ((2048, 2048), (2048, 3072))  # B8a's stress masks
+COUNT_PLANS = ((1024, 1024, 2), (2048, 2048, 1))  # B8b's (h, w, tiles)
+FORWARD_TOL = 2e-3  # bf16 card vs float32 CPU probabilities, tile-count weights (the CPU test's PROB_ATOL)
+TAIL_AGREEMENT = 0.9999  # B10 vs its twin on random bf16: labels that must agree
+
+
+def tile_path_launches(fused_tail: bool):
+    """Kernel launches of one ``tile_count.run``: one B8b over all tiles,
+    one B10 when fused, nothing else."""
+    want = {key: 0 for key in ALL_KERNELS}
+    want["count_patches"] = 1
+    want["fused_tail"] = int(fused_tail)
+    return want
 
 
 def check(cond, msg: str) -> None:
@@ -101,26 +156,36 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int, tries: int = 5) -> float:
     """Mean device-only time of ``fn`` (the sum of its kernels and memsets)
     from one ``torch.profiler`` pass over ``reps`` calls after one warm-up.
-    Each wrapper launches each of its device operations once per call, so a
-    complete pass records every operation name exactly ``reps`` times.  A
-    pass that lost records is repeated, and ``tries`` incomplete passes
-    raise.  The pass traces the device only."""
+    Each wrapper launches the same device operations on every call, so a
+    complete pass records every operation name ``reps`` times as often as
+    one profiled call does.  A pass that lost records is repeated, and
+    ``tries`` incomplete passes raise.  The pass traces the device only."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
+    def names(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the trace often loses the first kernel of its window: let that
+            # be a spin kernel, which is left out of the sums
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = [
+            e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name
+        ]
+        return ops, Counter(e.name for e in ops)
+
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        per_name = Counter(e.name for e in ops)
-        if per_name and set(per_name.values()) == {reps}:
+        per_call = names(1)[1]
+        ops, per_name = names(reps)
+        if per_call and per_name == Counter({k: reps * v for k, v in per_call.items()}):
             return sum(e.time_range.elapsed_us() for e in ops) / 1e3 / reps
-        print(f"torch.profiler pass incomplete ({dict(per_name)} over {reps} calls); profiling again", flush=True)
+        print(f"torch.profiler pass incomplete ({dict(per_name)} over {reps} calls, {dict(per_call)} in one); profiling again", flush=True)
     raise RuntimeError(f"chip_smoke check failed: {tries} torch.profiler passes lost device records")
 
 
@@ -168,18 +233,21 @@ class Errors:
     """Largest |kernel - twin| seen per kernel (0 means bit-equal)."""
 
     def __init__(self):
-        self.max = {k: 0 for k in KERNELS}
+        self.max = {k: 0 for k in ALL_KERNELS}
+
+    def note(self, key, err):
+        self.max[key] = max(self.max[key], err)
 
     def compare(self, key, got, want, what):
-        """``got``/``want``: a tensor, or a tuple of tensors (B9)."""
+        """``got``/``want``: a tensor, or a tuple of tensors (B8, B9)."""
         if isinstance(got, tuple):
             for g, w_ in zip(got, want, strict=True):
                 self.compare(key, g, w_, what)
             return
-        check(got.shape == want.shape, f"{KERNELS[key][1]} shape {tuple(got.shape)} != plain twin's {tuple(want.shape)} on {what}")
+        check(got.shape == want.shape, f"{ALL_KERNELS[key][1]} shape {tuple(got.shape)} != plain twin's {tuple(want.shape)} on {what}")
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        self.max[key] = max(self.max[key], err)
-        check(err == 0, f"{KERNELS[key][1]} != plain twin on {what} (max |err| {err})")
+        self.note(key, err)
+        check(err == 0, f"{ALL_KERNELS[key][1]} != plain twin on {what} (max |err| {err})")
 
 
 def phase_kernels(K, tiling, rng, dev, errors):
@@ -402,6 +470,7 @@ def phase_main_path(args, rng, dev, errors, results):
 
 def phase_timings(K, dev, errors, results):
     lp, pos, raw = results.pop("inputs")
+    results["ec_mask"] = raw == 3  # B8a's timing input (tile phase)
     hw = raw.numel()
     nuc = raw == 1
     bg = ~nuc
@@ -454,6 +523,232 @@ def phase_xl_forward(rng, dev):
     return ms
 
 
+def phase_count_kernels(K, tiling, rng, dev, errors):
+    """B8a on the stress masks; B8b on random class labels at the 1024^2
+    (two tiles, one launch) and 2048^2 plans, against its twin and against
+    ``stitch_plain`` + ``==`` + the B8a twin (at class 0 the pixels no copy
+    writes are background, as in the Pallas kernel)."""
+    for h, w in COUNT_SIZES:
+        for name, m in [("random", rng.random((h, w)) < 0.5), ("snake", snake(h, w)), ("spiral", spiral(h, w))]:
+            mt = torch.from_numpy(m).to(dev)
+            for conn in (1, 2):
+                errors.compare("count", K.count_components(mt, conn), K.count_components_plain(mt, conn), f"{name} {h}x{w} conn {conn}")
+            print(f"B8a count {name} {h}x{w}: matches plain; conn 2 {cuda_ms(lambda: K.count_components(mt, 2), 5):.3f} ms", flush=True)
+    for h, w, t in COUNT_PLANS:
+        pos = tuple(map(tuple, tiling.patch_positions(h, w)))
+        lp = torch.from_numpy(rng.integers(0, 4, (t, len(pos), 256, 256)).astype(np.uint8)).to(dev)
+        written = K.stitch_plain(torch.ones_like(lp[0]), pos) != 0
+        for cls in range(4):
+            what = f"{h}x{w} ({t} x {len(pos)} patches) class {cls}"
+            got = K.count_from_patches(lp, pos, cls)
+            errors.compare("count_patches", got, K.count_from_patches_plain(lp, pos, cls), what)
+            for i in range(t):
+                mask = K.stitch_plain(lp[i], pos) == cls
+                if cls == 0:
+                    mask &= written
+                errors.compare("count_patches", (got[0][i], got[1][i]), K.count_components_plain(mask, 2), what + " (stitch_plain + ==)")
+        errors.compare("count_patches", K.count_from_patches(lp.int(), pos, 3), K.count_from_patches_plain(lp, pos, 3), f"{h}x{w} int32 labels")
+        print(f"B8b stitch+count {h}x{w}, {t} tile(s): matches plain for class 0-3; {cuda_ms(lambda: K.count_from_patches(lp, pos, 3), 5):.3f} ms", flush=True)
+
+
+def _tail_inputs(rng, c1, c2, n, integer, dtype, dev):
+    if integer:
+        mk = lambda *s: torch.from_numpy(rng.integers(-2, 3, s).astype(np.float32))
+        x = torch.from_numpy(rng.integers(0, 3, (n, 256, 256, c1)).astype(np.float32))
+    else:
+        mk = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.2).astype(np.float32))
+        x = torch.from_numpy((rng.random((n, 256, 256, c1)) * 0.5).astype(np.float32))
+    ws = [mk(3, 3, c1, c2), mk(c2), mk(3, 3, c2, c2), mk(c2), mk(1, 1, c2, 4), mk(4)]
+    return [x.to(dev, dtype)] + [t.to(dev, dtype) for t in ws]
+
+
+def phase_tail_kernels(rng, dev, errors, results):
+    """B10 on 8 patches at both widths; B11 at the decoder's shapes."""
+    from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
+    from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
+
+    results["tail_agreement"] = {}
+    for arch, (c1, c2) in TAIL_WIDTHS.items():
+        args = _tail_inputs(rng, c1, c2, 8, True, torch.float32, dev)
+        errors.compare("fused_tail", fused_dec1_head(*args), fused_dec1_head_plain(*args), f"integer float32 c1/c2 {c1}/{c2}")
+        args = _tail_inputs(rng, c1, c2, 8, False, torch.bfloat16, dev)
+        got, want = fused_dec1_head(*args), fused_dec1_head_plain(*args)
+        errors.note("fused_tail", int((got.long() - want.long()).abs().max()))
+        agree = float((got == want).double().mean())
+        results["tail_agreement"][arch] = agree
+        check(agree >= TAIL_AGREEMENT, f"B10 bf16 c1/c2 {c1}/{c2}: label agreement {agree} < {TAIL_AGREEMENT}")
+        print(f"B10 fused tail c1/c2 {c1}/{c2}, 8 patches: integer float32 equals plain; random bf16 label agreement {agree:.6f}", flush=True)
+    for level, (n, h, w, cin, cout) in CONVT_SHAPES.items():
+        x = torch.from_numpy(rng.integers(-2, 3, (n, h, w, cin)).astype(np.float32)).to(dev)
+        k = torch.from_numpy(rng.integers(-2, 3, (3, 3, cin, cout)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.integers(-2, 3, (cout,)).astype(np.float32)).to(dev)
+        errors.compare("convt", conv2d_transpose_packed(x, k, b), conv2d_transpose_packed_plain(x, k, b), f"integer float32 {level}")
+        # bf16: one rounding each after float32 sums in another order, so
+        # at most one bf16 ulp (2**-7 relative) apart, plus sum-order noise
+        xb = torch.randn(x.shape, device=dev).bfloat16()
+        kb = (torch.randn(k.shape, device=dev) / (3 * cin**0.5)).bfloat16()
+        got = conv2d_transpose_packed(xb, kb, b).float()
+        want = conv2d_transpose_packed_plain(xb, kb, b).float()
+        err = (got - want).abs()
+        errors.note("convt", float(err.max()))
+        check(bool((err <= 2**-7 * want.abs() + 1e-5 * want.abs().max()).all()), f"B11 bf16 {level}: max |err| {float(err.max())}")
+        print(f"B11 convt {level} {(n, h, w, cin, cout)}: integer float32 equals plain, bf16 max |err| {float(err.max()):.3g}; bf16 {cuda_ms(lambda: conv2d_transpose_packed(xb, kb, b), 3):.3f} ms", flush=True)
+
+
+def phase_tile_count(K, dev, results):
+    """The tile-count path through ``tile_count.run`` at both widths, both
+    variants, with the default device; then its checks and ms per tile.
+    Leaves the default width's inputs for the timing rows."""
+    from ecseg_torch.pipelines import tile_count as tc
+
+    runs = {}
+    for arch in tc.ARCHS:
+        for fused in (False, True):
+            variant = "fused_tail" if fused else "unfused"
+            K.reset_launches()
+            t0 = time.perf_counter()
+            counts, px = tc.run(arch, fused_tail=fused)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            print(f"tile-count path {arch} {variant}: {len(counts)} tiles in {wall:.3f} s (tiles made on the host included); launches {launches}; counts {counts.tolist()}", flush=True)
+            check(launches == tile_path_launches(fused), f"tile-count {arch} {variant}: launches {launches}")
+            check(bool((counts > 10).all()), f"tile-count {arch} {variant}: a tile's count is <= 10 ({counts.tolist()})")
+            runs[(arch, variant)] = (counts, px, launches)
+        for k in (0, 1):
+            check(np.array_equal(runs[(arch, "unfused")][k], runs[(arch, "fused_tail")][k]), f"tile-count {arch}: the variants differ")
+    results["tile_launches"] = {f"{a} {v}": r[2] for (a, v), r in runs.items()}
+    per_tile = {}
+    for arch in tc.ARCHS:
+        n = tc.ARCHS[arch][2]
+        model = tc.realistic_model(arch, torch.Generator().manual_seed(0)).to(dev)
+        patches_np, positions = tc.tile_patches(tc.synthetic_tiles(n, 0))
+        patches = torch.from_numpy(patches_np).to(dev)
+        per_tile[arch] = {}
+        for fused in (False, True):
+            variant = "fused_tail" if fused else "unfused"
+            labels = tc.patch_labels(model, patches, fused)
+            c, p = K.count_from_patches_plain(labels, positions, tc.EC_CLASS, 2)
+            counts, px, _ = runs[(arch, variant)]
+            check(np.array_equal(c.cpu().numpy(), counts) and np.array_equal(p.cpu().numpy(), px), f"tile-count {arch} {variant}: run != twin composition on its labels")
+            per_tile[arch][variant] = cuda_ms(lambda: tc.count_tiles(model, patches, positions, fused), 2) / n
+            if not fused:
+                unfused_labels = labels
+        print(f"tile-count path {arch}: run == twin composition; ms per tile {per_tile[arch]}", flush=True)
+        cpu_model = copy.deepcopy(model).float().cpu()
+        x2 = patches[0, :2]
+        with torch.no_grad():
+            err = float((model(x2).cpu() - cpu_model(x2.cpu())).abs().max())
+        check(err < FORWARD_TOL, f"tile-count {arch}: bf16 card vs float32 CPU forward max |diff| {err}")
+        print(f"tile-count {arch}: bf16 card vs float32 CPU forward on 2 patches max |diff| {err:.4g} (< {FORWARD_TOL})", flush=True)
+        with torch.no_grad():
+            x_cat = model.forward_cat1(patches.reshape(-1, 256, 256, 1))
+        results.setdefault("tile_inputs", {})[arch] = (model, unfused_labels, positions, x_cat)
+        del model, patches, labels, unfused_labels, x_cat
+    results["tile_ms_per_tile"] = per_tile
+    return per_tile
+
+
+def _timed_row(key, kern, plain, nbytes, flops, peak, launches, reps, errors, exact=True, **extra):
+    """One timing row; with ``exact`` the kernel is first held bit-equal to
+    its twin on the timed input."""
+    if exact:
+        errors.compare(key, kern(), plain(), extra["input"])
+    ms = cuda_ms(kern, reps)
+    dev_ms = device_ms(kern, reps)
+    plain_ms = cuda_ms(plain, 1)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / peak if flops else 0.0
+    b, name, source, site, fn = TILE_KERNELS[key]
+    row = {
+        "name": name, "b": b, "route": "cuda", "source": source, "replaces": site, "pallas_function": fn,
+        "launches": launches, "max_abs_err": errors.max[key], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": None, **extra,
+    }
+    print(f"{b} {name}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), launches {launches}", flush=True)
+    return row
+
+
+def tile_rows(K, dev, errors, results):
+    """Timing rows of B8a, B8b, B10, B11 beside their twins and bounds."""
+    from ecseg_torch.models.layers import TFConvTranspose2d
+    from ecseg_torch.ops import tiling
+    from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
+    from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
+    from ecseg_torch.pipelines import tile_count as tc
+
+    inputs = results.pop("tile_inputs")
+    model, labels, positions, x_cat = inputs["default"]
+    launches = results["tile_launches"]
+    rows = []
+    ec = results.pop("ec_mask")
+    rows.append(_timed_row(
+        "count", lambda: K.count_components(ec, 2), lambda: K.count_components_plain(ec, 2), ec.numel() + 8, 0, None, 0, 20, errors,
+        path=None, input="metaseg image 0's ecDNA mask (2048^2); on no path (the JAX package calls it only from its oversize fallback and tests)",
+    ))
+    t = labels.shape[0]
+    landed = int((K._source_map(positions, dev) >= 0).sum())
+    rows.append(_timed_row(
+        "count_patches", lambda: K.count_from_patches(labels, positions, 3), lambda: K.count_from_patches_plain(labels, positions, 3),
+        t * landed + 8 * t, 0, None, launches["default unfused"]["count_patches"], 20, errors,
+        path="tile_count default unfused", input=f"{t} tiles x 25 patch labels (uint8) of the default path",
+    ))
+    def tail_cost(x, w):
+        n, c1, c2 = x.shape[0], x.shape[3], w[0].shape[3]
+        flops = 2 * 256 * 256 * (9 * c1 * c2 + 9 * c2 * c2 + 4 * c2) * n
+        return x.numel() * x.element_size() + 4 * n * 256 * 256 + sum(a.numel() * a.element_size() for a in w), flops
+
+    def chain(model, x):  # the unfused cuDNN chain B10 replaces, in bf16
+        L = model.layers
+        with model._flags():
+            y = torch.relu(L["dec1_1"].forward_bias_after(x.permute(0, 3, 1, 2)))
+            y = torch.relu(L["dec1_2"].forward_bias_after(y))
+            return tiling.patch_labels(torch.softmax(L["head"].forward_bias_after(y).float(), 1).permute(0, 2, 3, 1))
+
+    xl = {}  # B10 at the XL widths, beside the default row
+    for arch in ("xl", "default"):
+        m, _, _, x = inputs[arch]
+        w = tc.dec1_head_weights(m)
+        check(torch.equal(chain(m, x[:25]).int(), fused_dec1_head(x[:25], *w)), f"B10 != the cuDNN chain on the {arch} path's input")
+        if arch == "xl":  # the default width's whole input is compared in its row
+            errors.compare("fused_tail", fused_dec1_head(x, *w), fused_dec1_head_plain(x, *w), f"the xl path's {x.shape[0]}-patch level-1 concat")
+            nbytes, flops = tail_cost(x, w)
+            xl = {"ms": cuda_ms(lambda: fused_dec1_head(x, *w), 2), "chain_ms": cuda_ms(lambda: chain(m, x), 3),
+                  "bound_ms": max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS), "patches": x.shape[0]}
+            print(f"B10 at the XL widths ({x.shape[0]} patches, c1/c2 {x.shape[3]}/{w[0].shape[3]}): {xl}", flush=True)
+    del inputs["xl"], m, x
+    nbytes, flops = tail_cost(x_cat, w)
+    rows.append(_timed_row(
+        "fused_tail", lambda: fused_dec1_head(x_cat, *w), lambda: fused_dec1_head_plain(x_cat, *w), nbytes, flops, BF16_FLOPS,
+        launches["default fused_tail"]["fused_tail"], 3, errors, path="tile_count default fused_tail",
+        input=f"{x_cat.shape[0]} patches of the default path's level-1 concat (bf16, c1/c2 {x_cat.shape[3]}/{w[0].shape[3]})",
+        chain_ms=cuda_ms(lambda: chain(model, x_cat), 3), xl=xl, bf16_label_agreement=results["tail_agreement"],
+    ))
+    del inputs, x_cat, labels, model
+    torch.cuda.empty_cache()
+    n, h, wd, cin, cout = CONVT_SHAPES[CONVT_TIMED]
+    x = torch.randn((n, h, wd, cin), device=dev).bfloat16()
+    k = (torch.randn((3, 3, cin, cout), device=dev) / (3 * cin**0.5)).bfloat16()
+    b = torch.randn(cout, device=dev)
+    layer = TFConvTranspose2d(cin, cout).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        layer.weight.copy_(k.permute(2, 3, 0, 1))
+        layer.bias.copy_(b)
+    xn = x.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        library_ms = cuda_ms(lambda: torch.relu(layer(xn)), 5)
+    nbytes = 2 * (x.numel() + k.numel() + 4 * n * h * wd * cout)
+    rows.append(_timed_row(
+        "convt", lambda: conv2d_transpose_packed(x, k, b), lambda: conv2d_transpose_packed_plain(x, k, b),
+        nbytes, 2 * n * h * wd * cin * cout * 9, BF16_FLOPS, 0, 5, errors, exact=False, path=None,
+        input=f"{CONVT_TIMED} {(n, h, wd, cin, cout)} bf16; on no path (the U-Net's transpose convs stay on cuDNN, as the JAX package's stay on XLA)",
+        library_ms=library_ms,
+    ))
+    print(f"B11 library (TFConvTranspose2d + ReLU, cuDNN bf16): {library_ms:.4f} ms; B10 chain (cuDNN bf16): {rows[-2]['chain_ms']:.3f} ms", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -482,9 +777,15 @@ def main() -> int:
     phase_kernels(K, tiling, rng, dev, errors)
     # its own generator, so the main path's images do not depend on it
     phase_multiclass_kernels(K, np.random.default_rng(args.seed + 1), dev, errors)
+    # their own generators, so the main path's images do not depend on them
+    phase_count_kernels(K, tiling, np.random.default_rng(args.seed + 2), dev, errors)
+    phase_tail_kernels(np.random.default_rng(args.seed + 3), dev, errors, results)
     phase_main_path(args, rng, dev, errors, results)
     rows = phase_timings(K, dev, errors, results)
     xl_ms = phase_xl_forward(rng, dev)
+    per_tile = phase_tile_count(K, dev, results)
+    rows += tile_rows(K, dev, errors, results)
+    print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)

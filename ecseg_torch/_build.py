@@ -5,7 +5,9 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  All sources
 are compiled at once, one ``nvcc`` process each, into a directory named by a
 hash of the sources and flags under ``build/kernels/`` beside the package
 (listed in ``.gitignore``), so a rebuilt checkout never loads a stale
-library.  A failed build raises with ``nvcc``'s stderr.
+library.  A failed build raises with ``nvcc``'s stderr.  No source is
+compiled with ``--use_fast_math``: B10 (``fused_tail.cu``) needs IEEE
+``expf`` and division.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Dict
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
-SOURCES = ("stitch.cu", "cc_label.cu", "cc_flood.cu")
+SOURCES = ("stitch.cu", "cc_label.cu", "cc_flood.cu", "cc_count.cu", "fused_tail.cu", "convt.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -2,7 +2,9 @@
 in PyTorch's NCHW/OIHW layout.
 
 - ``SameConv2d``: stride-1 'SAME' convolution with an odd kernel (symmetric
-  padding k // 2).
+  padding k // 2).  ``forward_bias_after`` (both conv layers) is the bf16
+  form: the conv without bias, rounded, then the bias added in the same
+  dtype.
 - ``TFConvTranspose2d``: tf conv2d_transpose(kernel 3, stride 2, 'SAME'),
   whose grad-of-conv padding is (0, 1); that equals the FULL torch
   ``conv_transpose2d`` (padding 0) truncated to stride x input, as pinned in
@@ -23,19 +25,41 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def add_bias(y: torch.Tensor, bias) -> torch.Tensor:
+    """``y + bias`` in ``y``'s dtype, as the JAX package adds a conv's bias
+    after the conv output is rounded to its dtype (``layers.py:47-48``);
+    cuDNN's fused bias would add it before the rounding."""
+    return y if bias is None else y + bias.to(y.dtype)[:, None, None]
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+    """Stride-1 'SAME' conv with an odd OIHW kernel, bias added after the
+    rounding (``add_bias``)."""
+    return add_bias(F.conv2d(x, weight, None, padding=weight.shape[-1] // 2), bias)
+
+
 class SameConv2d(nn.Conv2d):
     def __init__(self, cin: int, cout: int, k: int):
         super().__init__(cin, cout, k, padding=k // 2)
+
+    def forward_bias_after(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_same(x, self.weight, self.bias)
 
 
 class TFConvTranspose2d(nn.ConvTranspose2d):
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 2):
         super().__init__(cin, cout, k, stride=stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _truncate(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         s = self.stride[0]
-        y = super().forward(x)
         return y[..., : x.shape[-2] * s, : x.shape[-1] * s]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._truncate(x, super().forward(x))
+
+    def forward_bias_after(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x, self.weight, None, self.stride)
+        return add_bias(self._truncate(x, y), self.bias)
 
 
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:

@@ -21,16 +21,23 @@ from torch import nn
 from .metaseg_unet import MetasegUNet
 
 
+def _as_f32(a) -> torch.Tensor:
+    """float32 tensor of a numpy-like array; bf16 arrays (``ml_dtypes``, what
+    ``np.asarray`` of a JAX bf16 array gives) upcast exactly."""
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
 def _layer_from_kernel(layer: nn.Module, kernel: np.ndarray) -> torch.Tensor:
-    k = torch.tensor(np.asarray(kernel), dtype=torch.float32)
+    k = _as_f32(kernel)
     if isinstance(layer, nn.ConvTranspose2d):
         return k.permute(2, 3, 0, 1)
     return k.permute(3, 2, 0, 1)
 
 
 def params_from_numpy(tree: Dict) -> MetasegUNet:
-    """A MetasegUNet (on the CPU) holding the tree's weights; its widths are
-    read off the kernels."""
+    """A float32 MetasegUNet (on the CPU) holding the tree's weights; its
+    widths are read off the kernels.  The tree may hold float32 or bf16
+    arrays; ``.to(torch.bfloat16)`` on the result gives the bf16 forward."""
     levels = max(int(k[3]) for k in tree if k.startswith("enc"))
     widths = tuple(int(tree[f"enc{i}_1"]["kernel"].shape[3]) for i in range(1, levels + 1))
     model = MetasegUNet(
@@ -47,7 +54,7 @@ def params_from_numpy(tree: Dict) -> MetasegUNet:
             if w.shape != layer.weight.shape:
                 raise ValueError(f"{name}: kernel {tuple(w.shape)} != {tuple(layer.weight.shape)}")
             layer.weight.copy_(w)
-            layer.bias.copy_(torch.tensor(np.asarray(tree[name]["bias"]), dtype=torch.float32))
+            layer.bias.copy_(_as_f32(tree[name]["bias"]))
     return model
 
 

@@ -9,15 +9,20 @@ counters.
 | B4 | flood_from_seeds    | csrc/cc_flood.cu     | cc_pallas.flood_from_seeds_pallas (+ banded) |
 | B5 | label_multiclass    | csrc/cc_label.cu     | cc_pallas.label_multiclass_pallas     |
 | B6 | flood_multiclass    | csrc/cc_flood.cu     | cc_pallas.flood_multiclass_pallas     |
+| B8a | count_components   | csrc/cc_count.cu     | cc_pallas.count_cc_pallas             |
+| B8b | count_from_patches | csrc/cc_count.cu     | cc_pallas.count_cc_from_patches       |
 | B9 | label_and_flood     | csrc/cc_flood.cu     | cc_pallas.label_and_flood_pallas      |
 
 Dispatch is by where the input lies: a CPU tensor goes to the plain twin
 (``*_plain``), a CUDA tensor to the kernel, anything else raises.  There is
 no fallback from a failing kernel to its twin.  ``LAUNCHES`` counts kernel
 launches per wrapper (never twin calls), so a run can show that it went
-through the kernels.  The twins are plain torch on any device and are the
+through the kernels; it and the ctypes bindings (``_launch``) also serve
+B10 (``ops/fused_tail.py``) and B11 (``ops/convt.py``).  The twins are plain torch on any device and are the
 reference the kernels are held against on the card.  Class maps (B5, B6)
-enter the kernels as contiguous uint8; masks and seeds as bool.
+enter the kernels as contiguous uint8; masks and seeds as bool.  B8b takes
+the patch labels as uint8 (``tiling.patch_labels``) or int32 (kernel B10's
+output).
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ LAUNCHES: Dict[str, int] = {
     "label_mc": 0,
     "flood_mc": 0,
     "label_flood": 0,
+    "count": 0,
+    "count_patches": 0,
+    "fused_tail": 0,  # B10, ops/fused_tail.py
+    "convt": 0,  # B11, ops/convt.py
 }
 
 
@@ -190,6 +199,35 @@ def label_and_flood_plain(
     return label_plain(mask, connectivity), flood_from_seeds_plain(mask, seeds, connectivity)
 
 
+def count_components_plain(mask: torch.Tensor, connectivity: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B8a twin: (number of components, foreground pixels) of a (H, W) mask
+    as 0-d int32 tensors: the roots of ``label_plain`` (pixels labeled with
+    their own flat index) and the labeled pixels."""
+    lab = label_plain(mask, connectivity).reshape(-1)
+    idx = torch.arange(lab.numel(), device=lab.device)
+    return (lab == idx).sum().to(torch.int32), (lab >= 0).sum().to(torch.int32)
+
+
+def count_from_patches_plain(
+    label_patches: torch.Tensor, positions, class_id: int = 3, connectivity: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B8b twin: replay the copy plan writing each copy's ``== class_id``
+    into a zeroed mask, as the Pallas kernel does (a pixel no copy reaches
+    is background, whatever ``class_id``), then count it.  (N, S, S) patch
+    labels give 0-d (count, px); a batch (T, N, S, S) gives (T,) each."""
+    copies, H, W = stitch_plan(tuple(map(tuple, positions)))
+    lp = label_patches if label_patches.dim() == 4 else label_patches[None]
+    masks = torch.zeros((lp.shape[0], H, W), dtype=torch.bool, device=lp.device)
+    for (i, sy, sx, dy, dx, sh, sw) in copies:
+        masks[:, dy : dy + sh, dx : dx + sw] = lp[:, i, sy : sy + sh, sx : sx + sw] == class_id
+    pairs = [count_components_plain(m, connectivity) for m in masks]
+    count = torch.stack([c for c, _ in pairs]) if pairs else torch.zeros(0, dtype=torch.int32)
+    px = torch.stack([p for _, p in pairs]) if pairs else torch.zeros(0, dtype=torch.int32)
+    if label_patches.dim() == 3:
+        return count[0], px[0]
+    return count, px
+
+
 # --------------------------------------------------------------------------
 # kernels
 # --------------------------------------------------------------------------
@@ -202,6 +240,10 @@ _SIGNATURES = {
     "ecseg_label_mc": ("cc_label.cu", [_P, _P, _I, _I, _P]),
     "ecseg_flood_mc": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "ecseg_label_flood": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "ecseg_count": ("cc_count.cu", [_P, _P, _I, _I, _I, _P, _P]),
+    "ecseg_count_patches": ("cc_count.cu", [_P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P]),
+    "ecseg_fused_tail": ("fused_tail.cu", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "ecseg_convt": ("convt.cu", [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 _cfuncs: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -371,3 +413,68 @@ def label_and_flood(
     _check_pair(mask, seeds, "label_and_flood", torch.bool)
     labels = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     return labels, _flood("ecseg_label_flood", "label_flood", mask, seeds, connectivity, labels=labels)
+
+
+def _check_conn(connectivity: int) -> None:
+    if connectivity not in (1, 2):
+        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
+
+
+def count_components(mask: torch.Tensor, connectivity: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B8a: (number of components, foreground pixels) of a (H, W) bool mask,
+    0-d int32 tensors on the mask's device."""
+    _check_conn(connectivity)
+    if mask.device.type == "cpu":
+        return count_components_plain(mask, connectivity)
+    _check(mask, "count_components", torch.bool, 2)
+    h, w = mask.shape
+    if mask.numel() == 0:
+        zero = torch.zeros((), dtype=torch.int32, device=mask.device)
+        return zero, zero.clone()
+    out = torch.empty(2, dtype=torch.int32, device=mask.device)  # zeroed by the kernel's memset
+    parent = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    _launch("ecseg_count", mask.device, mask.data_ptr(), parent.data_ptr(), h, w, connectivity, out.data_ptr())
+    LAUNCHES["count"] += 1
+    return out[0], out[1]
+
+
+def count_from_patches(
+    label_patches: torch.Tensor, positions: Sequence[Tuple[int, int]], class_id: int = 3, connectivity: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B8b: the overlap stitch of (N, SCW, SCW) patch labels at
+    ``positions``, its ``== class_id`` mask and that mask's (number of
+    components, foreground pixels), in one launch; 0-d int32 tensors, or
+    (T,) each for a batch (T, N, SCW, SCW) of tiles.  The canvas is never
+    materialised."""
+    _check_conn(connectivity)
+    if label_patches.device.type == "cpu":
+        return count_from_patches_plain(label_patches, positions, class_id, connectivity)
+    _check(label_patches, "count_from_patches", label_patches.dtype, label_patches.dim())
+    if label_patches.dim() not in (3, 4):
+        raise ValueError(f"count_from_patches: expected (N, S, S) or (T, N, S, S) patches, got {tuple(label_patches.shape)}")
+    if label_patches.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"count_from_patches: expected uint8 or int32 labels, got {label_patches.dtype}")
+    pos = tuple(map(tuple, positions))
+    lp = label_patches if label_patches.dim() == 4 else label_patches[None]
+    t = lp.shape[0]
+    if tuple(lp.shape[1:]) != (len(pos), SCW, SCW):
+        raise ValueError(
+            f"count_from_patches: {len(pos)} positions need ({len(pos)}, {SCW}, {SCW}) "
+            f"patches per tile, got {tuple(label_patches.shape)}"
+        )
+    src = _source_map(pos, label_patches.device)
+    h, w = src.shape
+    if t * h * w >= 2**31 or t > 65535:
+        raise ValueError(f"count_from_patches: {t} tiles of {h}x{w} overflow the kernel's int32 indices")
+    out = torch.empty((t, 2), dtype=torch.int32, device=label_patches.device)
+    if t:
+        parent = torch.empty((t, h, w), dtype=torch.int32, device=label_patches.device)
+        _launch(
+            "ecseg_count_patches", label_patches.device, lp.data_ptr(), int(lp.dtype == torch.int32),
+            src.data_ptr(), t, len(pos) * SCW * SCW, h, w, int(class_id), connectivity,
+            parent.data_ptr(), out.data_ptr(),
+        )
+        LAUNCHES["count_patches"] += 1
+    if label_patches.dim() == 3:
+        return out[0, 0], out[0, 1]
+    return out[:, 0], out[:, 1]

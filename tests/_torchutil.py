@@ -1,5 +1,7 @@
 """Helpers shared by the port's tests (tests/test_torch_*.py)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -39,3 +41,17 @@ def numpy_metaseg_tree(widths=(32, 64, 128, 256), bottleneck=512, seed=0):
             "bias": rng.uniform(-0.05, 0.05, cout).astype(np.float32),
         }
     return tree
+
+
+@functools.lru_cache(maxsize=None)
+def bench_realistic_params(widths, bottleneck, seed=0):
+    """``bench._realistic_params`` (a bf16 JAX tree) under one ``jax.jit``:
+    the same values as the eager call, which compiles every initializer op
+    on its own and takes about three times as long on the CPU.  Cached per
+    process: the tree's arrays are immutable and tests share it."""
+    import jax
+
+    import bench
+
+    fn = jax.jit(functools.partial(bench._realistic_params, widths=tuple(widths), bottleneck=bottleneck))
+    return fn(jax.random.PRNGKey(seed))

@@ -7,9 +7,11 @@ that has only the port's dependencies:
 
 Without a CUDA device each test skips (a CUDA kernel has no CPU mode); the
 twins themselves are held against the JAX package on the CPU by
-tests/test_torch_cc.py, tests/test_torch_cc_multiclass.py and
-tests/test_torch_tiling.py.  The kernels'
-equality at 2048^2 and 2048x3072 is checked by chip_smoke.py.
+tests/test_torch_cc.py, tests/test_torch_cc_multiclass.py,
+tests/test_torch_cc_count.py, tests/test_torch_fused_tail.py,
+tests/test_torch_convt.py and tests/test_torch_tiling.py.  The kernels'
+equality at 2048^2 and 2048x3072, and at the tile-count path's shapes, is
+checked by chip_smoke.py.
 """
 
 import numpy as np
@@ -18,6 +20,8 @@ import torch
 
 from ecseg_torch.ops import cc_kernels as K
 from ecseg_torch.ops import tiling
+from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
+from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
 
 from _masks import CLASS_MAPS, MASKS, seeds_like
 
@@ -85,7 +89,112 @@ def test_wrappers_check_inputs_and_count_launches(cuda):
     K.label_multiclass(m.to(torch.uint8))
     K.flood_multiclass(m.to(torch.uint8), m)
     K.label_and_flood(m, m)
+    K.count_components(m)
     assert K.LAUNCHES == {
         "stitch": 0, "label": 1, "flood_border": 1, "flood_seeds": 1,
-        "label_mc": 1, "flood_mc": 1, "label_flood": 1,
+        "label_mc": 1, "flood_mc": 1, "label_flood": 1, "count": 1,
+        "count_patches": 0, "fused_tail": 0, "convt": 0,
     }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MASKS))
+def test_count_kernel_matches_twin(cuda, name):
+    m = torch.from_numpy(MASKS[name]).to(cuda)
+    for conn in (1, 2):
+        got = K.count_components(m, conn)
+        want = K.count_components_plain(m, conn)
+        assert [int(v) for v in got] == [int(v) for v in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1024, 1024), (700, 900), (256, 256), (512, 310)])
+def test_count_patches_kernel_matches_twin(cuda, h, w):
+    """Two tiles in one launch, uint8 and int32 labels, every class (class
+    0 includes the unwritten rim of square geometries, background)."""
+    pos = tuple(map(tuple, tiling.patch_positions(h, w)))
+    rng = np.random.default_rng(h * w)
+    lp = rng.integers(0, 4, size=(2, len(pos), 256, 256)).astype(np.uint8)
+    lp[1] = np.where(rng.random(lp[1].shape) < 0.97, 0, lp[1])  # sparse classes
+    for dtype in (torch.uint8, torch.int32):
+        t = torch.from_numpy(lp).to(cuda, dtype)
+        for cls in range(4):
+            for conn in (1, 2):
+                got = K.count_from_patches(t, pos, cls, conn)
+                want = K.count_from_patches_plain(t, pos, cls, conn)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (dtype, cls, conn)
+                one = K.count_from_patches(t[1], pos, cls, conn)
+                assert (int(one[0]), int(one[1])) == (int(want[0][1]), int(want[1][1]))
+
+
+def _tail_args(rng, c1, c2, ncls, integer, dtype, device):
+    if integer:
+        mk = lambda *s: torch.from_numpy(rng.integers(-2, 3, s).astype(np.float32))
+        x = torch.from_numpy(rng.integers(0, 3, (2, 256, 256, c1)).astype(np.float32))
+    else:
+        mk = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.2).astype(np.float32))
+        x = torch.from_numpy((rng.random((2, 256, 256, c1)) * 0.5).astype(np.float32))
+    ws = [mk(3, 3, c1, c2), mk(c2), mk(3, 3, c2, c2), mk(c2), mk(1, 1, c2, ncls), mk(ncls)]
+    return [x.to(device, dtype)] + [t.to(device, dtype) for t in ws]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c1,c2,ncls", [(64, 32, 4), (128, 64, 4), (10, 12, 3)])
+def test_fused_tail_kernel_matches_twin(cuda, c1, c2, ncls):
+    """Bit-equal on integer-valued float32 (every sum exact); on random
+    bf16, >= 99.99 % of the labels agree (the twin sums each conv in
+    another order, and a bf16 rounding or a quantize tie may then flip;
+    ``chip_smoke.py`` measured 0.999992 at the XL widths on an H100)."""
+    rng = np.random.default_rng(c1 + c2)
+    args = _tail_args(rng, c1, c2, ncls, True, torch.float32, cuda)
+    assert torch.equal(fused_dec1_head(*args), fused_dec1_head_plain(*args))
+    args = _tail_args(rng, c1, c2, ncls, False, torch.bfloat16, cuda)
+    agree = (fused_dec1_head(*args) == fused_dec1_head_plain(*args)).float().mean().item()
+    assert agree >= 0.9999, agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 16, 512, 256), (2, 64, 64, 128, 64), (5, 8, 24, 8, 128), (1, 7, 9, 3, 4)])
+def test_convt_kernel_matches_twin(cuda, n, h, w, cin, cout):
+    """Bit-equal on integer inputs; on bf16 within one bf16 rounding of the
+    twin's result (2**-8 relative) plus float32 sum-order noise."""
+    rng = np.random.default_rng(n * h + cin)
+    x = torch.from_numpy(rng.integers(-4, 5, (n, h, w, cin)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rng.integers(-4, 5, (3, 3, cin, cout)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.integers(-4, 5, (cout,)).astype(np.float32)).to(cuda)
+    assert torch.equal(conv2d_transpose_packed(x, k, b), conv2d_transpose_packed_plain(x, k, b))
+    assert torch.equal(conv2d_transpose_packed(x, k), conv2d_transpose_packed_plain(x, k))
+    xb, kb = torch.randn_like(x).bfloat16(), torch.randn_like(k).bfloat16()
+    got = conv2d_transpose_packed(xb, kb, b).float()
+    want = conv2d_transpose_packed_plain(xb, kb, b).float()
+    assert ((got - want).abs() <= 2**-7 * want.abs() + 1e-3 * want.abs().max()).all()
+
+
+@pytest.mark.cuda
+def test_new_wrappers_check_inputs_and_count_launches(cuda):
+    K.reset_launches()
+    pos = tuple(map(tuple, tiling.patch_positions(256, 256)))
+    lp = torch.zeros((1, 256, 256), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        K.count_from_patches(lp.to(torch.int16), pos)
+    with pytest.raises(ValueError):
+        K.count_from_patches(lp[:, :128], pos)
+    x = torch.zeros((1, 256, 256, 8), dtype=torch.bfloat16, device=cuda)
+    w1, w2 = torch.zeros((3, 3, 8, 8), device=cuda), torch.zeros((3, 3, 8, 8), device=cuda)
+    b, wh, bh = torch.zeros(8, device=cuda), torch.zeros((1, 1, 8, 4), device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError):
+        fused_dec1_head(x[:, :128], w1, b, w2, b, wh, bh)
+    with pytest.raises(ValueError):
+        fused_dec1_head(x, w1, b, w2, b, torch.zeros((1, 1, 8, 17), device=cuda), torch.zeros(17, device=cuda))
+    with pytest.raises(TypeError):
+        fused_dec1_head(x.half(), w1, b, w2, b, wh, bh)
+    xt = torch.zeros((1, 4, 4, 8), device=cuda)
+    with pytest.raises(ValueError):
+        conv2d_transpose_packed(xt, torch.zeros((3, 3, 8, 6), device=cuda))
+    with pytest.raises(NotImplementedError):
+        conv2d_transpose_packed(xt, torch.zeros((3, 3, 8, 8), device=cuda), relu=False)
+    assert set(K.LAUNCHES.values()) == {0}
+    K.count_from_patches(lp, pos)
+    fused_dec1_head(x, w1, b, w2, b, wh, bh)
+    conv2d_transpose_packed(xt, torch.zeros((3, 3, 8, 8), device=cuda))
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"count_patches": 1, "fused_tail": 1, "convt": 1}

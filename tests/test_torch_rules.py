@@ -23,6 +23,7 @@ import torch
 
 from ecseg_torch.core import imgio
 from ecseg_torch.ops import cc_kernels as K
+from ecseg_torch.ops import convt, fused_tail
 from ecseg_torch.ops.meta_post import meta_preprocess, otsu_threshold_u8
 
 from _torchutil import single_torch_thread  # noqa: F401 (autouse fixture)
@@ -87,8 +88,19 @@ def _meta(shape, dtype=torch.bool):
         lambda: K.label_multiclass(_meta((8, 8), torch.uint8)),
         lambda: K.flood_multiclass(_meta((8, 8), torch.uint8), _meta((8, 8))),
         lambda: K.label_and_flood(_meta((8, 8)), _meta((8, 8)), 2),
+        lambda: K.count_components(_meta((8, 8)), 2),
+        lambda: K.count_from_patches(_meta((1, 256, 256), torch.uint8), [(0, 0)]),
+        lambda: fused_tail.fused_dec1_head(
+            _meta((1, 256, 256, 8), torch.bfloat16), _meta((3, 3, 8, 8), torch.float32), _meta((8,), torch.float32),
+            _meta((3, 3, 8, 8), torch.float32), _meta((8,), torch.float32), _meta((1, 1, 8, 4), torch.float32),
+            _meta((4,), torch.float32),
+        ),
+        lambda: convt.conv2d_transpose_packed(_meta((1, 8, 8, 4), torch.bfloat16), _meta((3, 3, 4, 64), torch.bfloat16)),
     ],
-    ids=["stitch", "label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood"],
+    ids=[
+        "stitch", "label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood",
+        "count", "count_patches", "fused_tail", "convt",
+    ],
 )
 def test_wrappers_raise_off_cpu_and_never_call_twins(monkeypatch, call):
     def forbidden(*a, **k):
@@ -97,8 +109,11 @@ def test_wrappers_raise_off_cpu_and_never_call_twins(monkeypatch, call):
     for name in (
         "stitch_plain", "label_plain", "flood_from_border_plain", "flood_from_seeds_plain",
         "label_multiclass_plain", "flood_multiclass_plain", "label_and_flood_plain",
+        "count_components_plain", "count_from_patches_plain",
     ):
         monkeypatch.setattr(K, name, forbidden)
+    monkeypatch.setattr(fused_tail, "fused_dec1_head_plain", forbidden)
+    monkeypatch.setattr(convt, "conv2d_transpose_packed_plain", forbidden)
     before = dict(K.LAUNCHES)
     with pytest.raises(ValueError, match="expected a CPU or CUDA tensor"):
         call()
