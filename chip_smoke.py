@@ -19,10 +19,11 @@ Phases (any failure raises; exit code 0 only when all pass):
    tiles in one launch) and 2048^2 plans for class_id 0-3, also against
    ``stitch_plain`` + ``==`` + the B8a twin; B10 fused decoder tail on 8
    patches at both widths (c1/c2 64/32 and 128/64), bit-equal on
-   integer-valued float32, >= 99.99 % label agreement on random bf16; B11
-   transpose conv at the decoder's shapes for 100 patches (half-width
-   up2-up4, XL up1-up4), bit-equal on integers, within one bf16 rounding
-   on bf16;
+   integer-valued float32 (the CUDA-core form) and bf16 (the tensor-core
+   form), >= 99.99 % label agreement on random bf16; B11 transpose conv at
+   the decoder's shapes for 100 patches (half-width up2-up4, XL up1-up4),
+   bit-equal on integer-valued float32 and bf16, within one bf16 rounding
+   on random bf16;
 3. drive the main path: ``ecseg_torch.pipelines.metaseg.main`` with the
    default device on four synthetic 2048^2 uint16 DAPI images, with crafted
    default-width weights (``models/demo.py``, seeded) read through the
@@ -48,10 +49,14 @@ Phases (any failure raises; exit code 0 only when all pass):
    labels; the launches of one run are one B8b (and one B10 when fused),
    nothing else; the card's bf16 probabilities within 2e-3 of the CPU
    float32 forward on 2 patches.  Then the path's ms per tile, and B8a,
-   B8b, B10 (beside the cuDNN chain it replaces) and B11 (beside cuDNN's
-   transpose conv) timed as in 4, with bounds from bytes and operations;
-   B8a, B8b and B10 bit-equal to their twins on the timed inputs, B10 on
-   the whole level-1 concat of both widths' paths (800 and 200 patches);
+   B8b, B10 (beside the cuDNN chain it replaces, at both widths) and B11
+   (beside cuDNN's transpose conv + ReLU at every decoder level) timed as
+   in 4, with bounds from bytes and operations, achieved TFLOP/s and the
+   share of the bound; each timed row's profiler pass must show the
+   wrapper's own kernel by name, and a pass whose device sum differs from
+   the CUDA-event mean by more than 25 % is repeated; B8a, B8b and B10
+   bit-equal to their twins on the timed inputs, B10 on the whole level-1
+   concat of both widths' paths (800 and 200 patches);
 6. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 """
 
@@ -108,6 +113,9 @@ TILE_KERNELS = {  # the tile-count path's kernels and B11, as KERNELS
     "convt": ("B11", "conv2d_transpose_packed", "ecseg_torch/csrc/convt.cu", "ecseg_tpu/ops/convt_pallas.py:157", "conv2d_transpose_packed"),
 }
 ALL_KERNELS = {**KERNELS, **TILE_KERNELS}
+# the device kernel each timed tile-path row must show in its profiler pass
+# (the bf16 forms of B10 and B11; B8's counting pass)
+KERNEL_NAMES = {"count": "count_tiles", "count_patches": "count_tiles", "fused_tail": "fused_tail_mma", "convt": "convt_mma"}
 TAIL_WIDTHS = {"default": (64, 32), "xl": (128, 64)}  # B10's (c1, c2) per arch
 CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
     "half up4": (100, 16, 16, 512, 256),
@@ -153,13 +161,20 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps: int, tries: int = 5) -> float:
+def device_ms(fn, reps: int, tries: int = 5, kernel: str | None = None, event_ms: float | None = None):
     """Mean device-only time of ``fn`` (the sum of its kernels and memsets)
     from one ``torch.profiler`` pass over ``reps`` calls after one warm-up.
     Each wrapper launches the same device operations on every call, so a
     complete pass records every operation name ``reps`` times as often as
     one profiled call does.  A pass that lost records is repeated, and
-    ``tries`` incomplete passes raise.  The pass traces the device only."""
+    ``tries`` incomplete passes raise.  The pass traces the device only.
+
+    With ``kernel`` (a substring of the wrapper's own kernel's name) the
+    pass must have recorded that kernel, not only the wrapper's weight
+    casts and copies; returns (device ms, that kernel's device ms).  With
+    ``event_ms`` (the CUDA-event mean of the same calls) a pass whose
+    device sum differs from it by more than 25 % is repeated too, and the
+    last one is kept, with a line that gives both numbers."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -180,12 +195,25 @@ def device_ms(fn, reps: int, tries: int = 5) -> float:
 
     fn()
     torch.cuda.synchronize()
+    done = None
     for _ in range(tries):
         per_call = names(1)[1]
         ops, per_name = names(reps)
-        if per_call and per_name == Counter({k: reps * v for k, v in per_call.items()}):
-            return sum(e.time_range.elapsed_us() for e in ops) / 1e3 / reps
-        print(f"torch.profiler pass incomplete ({dict(per_name)} over {reps} calls, {dict(per_call)} in one); profiling again", flush=True)
+        if not (per_call and per_name == Counter({k: reps * v for k, v in per_call.items()})):
+            print(f"torch.profiler pass incomplete ({dict(per_name)} over {reps} calls, {dict(per_call)} in one); profiling again", flush=True)
+            continue
+        total = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / reps
+        if kernel is None:
+            return total
+        own = [e for e in ops if kernel in e.name]
+        check(own, f"the profiler recorded no kernel named *{kernel}* among {sorted(per_name)}")
+        done = (total, sum(e.time_range.elapsed_us() for e in own) / 1e3 / reps)
+        if event_ms is None or abs(total - event_ms) <= 0.25 * event_ms:
+            return done
+        print(f"device sum {total:.4f} ms vs CUDA-event mean {event_ms:.4f} ms differ by more than 25 %; profiling again", flush=True)
+    if done is not None:
+        print(f"device sum {done[0]:.4f} ms (kernel {done[1]:.4f} ms) and CUDA-event mean {event_ms:.4f} ms still differ after {tries} passes", flush=True)
+        return done
     raise RuntimeError(f"chip_smoke check failed: {tries} torch.profiler passes lost device records")
 
 
@@ -563,26 +591,32 @@ def _tail_inputs(rng, c1, c2, n, integer, dtype, dev):
 
 
 def phase_tail_kernels(rng, dev, errors, results):
-    """B10 on 8 patches at both widths; B11 at the decoder's shapes."""
+    """B10 on 8 patches at both widths; B11 at the decoder's shapes.  Each
+    bit-equal to its twin on integer-valued float32 (the CUDA-core form)
+    and bf16 (the tensor-core form; integer sums are exact, so every
+    rounding lands where the twin's does), then on random bf16."""
     from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
     from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
 
     results["tail_agreement"] = {}
     for arch, (c1, c2) in TAIL_WIDTHS.items():
-        args = _tail_inputs(rng, c1, c2, 8, True, torch.float32, dev)
-        errors.compare("fused_tail", fused_dec1_head(*args), fused_dec1_head_plain(*args), f"integer float32 c1/c2 {c1}/{c2}")
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _tail_inputs(rng, c1, c2, 8, True, dtype, dev)
+            errors.compare("fused_tail", fused_dec1_head(*args), fused_dec1_head_plain(*args), f"integer {dtype} c1/c2 {c1}/{c2}")
         args = _tail_inputs(rng, c1, c2, 8, False, torch.bfloat16, dev)
         got, want = fused_dec1_head(*args), fused_dec1_head_plain(*args)
         errors.note("fused_tail", int((got.long() - want.long()).abs().max()))
         agree = float((got == want).double().mean())
         results["tail_agreement"][arch] = agree
         check(agree >= TAIL_AGREEMENT, f"B10 bf16 c1/c2 {c1}/{c2}: label agreement {agree} < {TAIL_AGREEMENT}")
-        print(f"B10 fused tail c1/c2 {c1}/{c2}, 8 patches: integer float32 equals plain; random bf16 label agreement {agree:.6f}", flush=True)
+        print(f"B10 fused tail c1/c2 {c1}/{c2}, 8 patches: integer float32 and bf16 equal plain; random bf16 label agreement {agree:.6f}", flush=True)
     for level, (n, h, w, cin, cout) in CONVT_SHAPES.items():
         x = torch.from_numpy(rng.integers(-2, 3, (n, h, w, cin)).astype(np.float32)).to(dev)
         k = torch.from_numpy(rng.integers(-2, 3, (3, 3, cin, cout)).astype(np.float32)).to(dev)
         b = torch.from_numpy(rng.integers(-2, 3, (cout,)).astype(np.float32)).to(dev)
-        errors.compare("convt", conv2d_transpose_packed(x, k, b), conv2d_transpose_packed_plain(x, k, b), f"integer float32 {level}")
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, kd = x.to(dtype), k.to(dtype)
+            errors.compare("convt", conv2d_transpose_packed(xd, kd, b), conv2d_transpose_packed_plain(xd, kd, b), f"integer {dtype} {level}")
         # bf16: one rounding each after float32 sums in another order, so
         # at most one bf16 ulp (2**-7 relative) apart, plus sum-order noise
         xb = torch.randn(x.shape, device=dev).bfloat16()
@@ -592,7 +626,7 @@ def phase_tail_kernels(rng, dev, errors, results):
         err = (got - want).abs()
         errors.note("convt", float(err.max()))
         check(bool((err <= 2**-7 * want.abs() + 1e-5 * want.abs().max()).all()), f"B11 bf16 {level}: max |err| {float(err.max())}")
-        print(f"B11 convt {level} {(n, h, w, cin, cout)}: integer float32 equals plain, bf16 max |err| {float(err.max()):.3g}; bf16 {cuda_ms(lambda: conv2d_transpose_packed(xb, kb, b), 3):.3f} ms", flush=True)
+        print(f"B11 convt {level} {(n, h, w, cin, cout)}: integer float32 and bf16 equal plain, random bf16 max |err| {float(err.max()):.3g}", flush=True)
 
 
 def phase_tile_count(K, dev, results):
@@ -655,18 +689,26 @@ def _timed_row(key, kern, plain, nbytes, flops, peak, launches, reps, errors, ex
     if exact:
         errors.compare(key, kern(), plain(), extra["input"])
     ms = cuda_ms(kern, reps)
-    dev_ms = device_ms(kern, reps)
+    dev_ms, kernel_ms = device_ms(kern, reps, kernel=KERNEL_NAMES[key], event_ms=ms)
     plain_ms = cuda_ms(plain, 1)
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     by_ops = 1e3 * flops / peak if flops else 0.0
     b, name, source, site, fn = TILE_KERNELS[key]
     row = {
         "name": name, "b": b, "route": "cuda", "source": source, "replaces": site, "pallas_function": fn,
-        "launches": launches, "max_abs_err": errors.max[key], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "launches": launches, "max_abs_err": errors.max[key], "ms": ms, "device_ms": dev_ms,
+        "kernel_device_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "library_ms": None, **extra,
     }
-    print(f"{b} {name}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), launches {launches}", flush=True)
+    row["bound_share"] = row["bound_ms"] / ms
+    row["tflops"] = flops / ms / 1e9 if flops else None
+    print(
+        f"{b} {name}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms, of which {KERNEL_NAMES[key]} {kernel_ms:.4f} ms), "
+        f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {100 * row['bound_share']:.1f} % of it), "
+        + (f"{row['tflops']:.1f} TFLOP/s, " if flops else "") + f"launches {launches}",
+        flush=True,
+    )
     return row
 
 
@@ -714,8 +756,9 @@ def tile_rows(K, dev, errors, results):
         if arch == "xl":  # the default width's whole input is compared in its row
             errors.compare("fused_tail", fused_dec1_head(x, *w), fused_dec1_head_plain(x, *w), f"the xl path's {x.shape[0]}-patch level-1 concat")
             nbytes, flops = tail_cost(x, w)
-            xl = {"ms": cuda_ms(lambda: fused_dec1_head(x, *w), 2), "chain_ms": cuda_ms(lambda: chain(m, x), 3),
+            xl = {"ms": cuda_ms(lambda: fused_dec1_head(x, *w), 3), "chain_ms": cuda_ms(lambda: chain(m, x), 3),
                   "bound_ms": max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS), "patches": x.shape[0]}
+            xl.update(tflops=flops / xl["ms"] / 1e9, bound_share=xl["bound_ms"] / xl["ms"], below_chain=xl["ms"] < xl["chain_ms"])
             print(f"B10 at the XL widths ({x.shape[0]} patches, c1/c2 {x.shape[3]}/{w[0].shape[3]}): {xl}", flush=True)
     del inputs["xl"], m, x
     nbytes, flops = tail_cost(x_cat, w)
@@ -725,27 +768,43 @@ def tile_rows(K, dev, errors, results):
         input=f"{x_cat.shape[0]} patches of the default path's level-1 concat (bf16, c1/c2 {x_cat.shape[3]}/{w[0].shape[3]})",
         chain_ms=cuda_ms(lambda: chain(model, x_cat), 3), xl=xl, bf16_label_agreement=results["tail_agreement"],
     ))
+    rows[-1]["below_chain"] = rows[-1]["ms"] < rows[-1]["chain_ms"]
     del inputs, x_cat, labels, model
     torch.cuda.empty_cache()
-    n, h, wd, cin, cout = CONVT_SHAPES[CONVT_TIMED]
-    x = torch.randn((n, h, wd, cin), device=dev).bfloat16()
-    k = (torch.randn((3, 3, cin, cout), device=dev) / (3 * cin**0.5)).bfloat16()
-    b = torch.randn(cout, device=dev)
-    layer = TFConvTranspose2d(cin, cout).to(dev, torch.bfloat16)
-    with torch.no_grad():
-        layer.weight.copy_(k.permute(2, 3, 0, 1))
-        layer.bias.copy_(b)
-    xn = x.permute(0, 3, 1, 2)
-    with torch.no_grad():
-        library_ms = cuda_ms(lambda: torch.relu(layer(xn)), 5)
-    nbytes = 2 * (x.numel() + k.numel() + 4 * n * h * wd * cout)
-    rows.append(_timed_row(
-        "convt", lambda: conv2d_transpose_packed(x, k, b), lambda: conv2d_transpose_packed_plain(x, k, b),
-        nbytes, 2 * n * h * wd * cin * cout * 9, BF16_FLOPS, 0, 5, errors, exact=False, path=None,
-        input=f"{CONVT_TIMED} {(n, h, wd, cin, cout)} bf16; on no path (the U-Net's transpose convs stay on cuDNN, as the JAX package's stay on XLA)",
-        library_ms=library_ms,
-    ))
-    print(f"B11 library (TFConvTranspose2d + ReLU, cuDNN bf16): {library_ms:.4f} ms; B10 chain (cuDNN bf16): {rows[-2]['chain_ms']:.3f} ms", flush=True)
+    levels = {}  # B11 and cuDNN's transpose conv + ReLU (bf16) at every decoder level
+    for level, (n, h, wd, cin, cout) in CONVT_SHAPES.items():
+        x = torch.randn((n, h, wd, cin), device=dev).bfloat16()
+        k = (torch.randn((3, 3, cin, cout), device=dev) / (3 * cin**0.5)).bfloat16()
+        b = torch.randn(cout, device=dev)
+        layer = TFConvTranspose2d(cin, cout).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            layer.weight.copy_(k.permute(2, 3, 0, 1))
+            layer.bias.copy_(b)
+        xn = x.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: torch.relu(layer(xn)), 5)
+        nbytes = 2 * (x.numel() + k.numel() + 4 * n * h * wd * cout)
+        flops = 2 * n * h * wd * cin * cout * 9
+        if level != CONVT_TIMED:
+            ms = cuda_ms(lambda: conv2d_transpose_packed(x, k, b), 5)
+            bound = max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS)
+            levels[level] = {"shape": (n, h, wd, cin, cout), "ms": ms, "library_ms": library_ms, "bound_ms": bound,
+                             "bound_share": bound / ms, "tflops": flops / ms / 1e9}
+            print(f"B11 at {level} {(n, h, wd, cin, cout)}: {levels[level]}", flush=True)
+            continue
+        rows.append(_timed_row(
+            "convt", lambda: conv2d_transpose_packed(x, k, b), lambda: conv2d_transpose_packed_plain(x, k, b),
+            nbytes, flops, BF16_FLOPS, 0, 5, errors, exact=False, path=None,
+            input=f"{CONVT_TIMED} {(n, h, wd, cin, cout)} bf16; on no path (the U-Net's transpose convs stay on cuDNN, as the JAX package's stay on XLA)",
+            library_ms=library_ms,
+        ))
+        levels[level] = {k_: rows[-1][k_] for k_ in ("ms", "library_ms", "bound_ms", "bound_share", "tflops")}
+        levels[level]["shape"] = (n, h, wd, cin, cout)
+        del x, k, layer, xn
+    rows[-1]["levels"] = levels
+    tail = rows[-2]
+    print(f"B11 library (TFConvTranspose2d + ReLU, cuDNN bf16) at {CONVT_TIMED}: {rows[-1]['library_ms']:.4f} ms; "
+          f"B10 chain (cuDNN bf16): {tail['chain_ms']:.3f} ms, B10 {tail['ms']:.3f} ms, below the chain: {tail['ms'] < tail['chain_ms']}", flush=True)
     return rows
 
 

@@ -242,8 +242,10 @@ _SIGNATURES = {
     "ecseg_label_flood": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ecseg_count": ("cc_count.cu", [_P, _P, _I, _I, _I, _P, _P]),
     "ecseg_count_patches": ("cc_count.cu", [_P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P]),
-    "ecseg_fused_tail": ("fused_tail.cu", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "ecseg_convt": ("convt.cu", [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "ecseg_fused_tail": ("fused_tail.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "ecseg_fused_tail_mma": ("fused_tail.cu", [_P, _P, _P, _P, _P, _P, _P] + [_I] * 13 + [_P]),
+    "ecseg_convt": ("convt.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "ecseg_convt_mma": ("convt.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 _cfuncs: Dict[str, ctypes._CFuncPtr] = {}
 

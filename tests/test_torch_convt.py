@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from ecseg_tpu.models.layers import conv2d_transpose
 from ecseg_tpu.ops.convt_pallas import conv2d_transpose_packed as jax_packed
 from ecseg_torch.models.layers import TFConvTranspose2d
-from ecseg_torch.ops.convt import conv2d_transpose_packed
+from ecseg_torch.ops.convt import conv2d_transpose_packed, pack_mma_weights
 
 from _torchutil import single_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -88,3 +88,72 @@ def test_twin_equals_the_ports_transpose_layer(size):
 def test_relu_off_is_refused_as_in_jax():
     with pytest.raises(NotImplementedError):
         conv2d_transpose_packed(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 64), relu=False)
+
+
+# tap ky * 3 + kx -> (the window it reads: 0 x[i][j], 1 x[i][j-1],
+# 2 x[i-1][j], 3 x[i-1][j-1]; the output parity a * 2 + b it feeds), as
+# csrc/convt.cu's win_of / par_of
+PARITY_TAPS = ((0, 0), (0, 1), (1, 0), (0, 2), (0, 3), (1, 2), (2, 0), (2, 1), (3, 0))
+
+
+def unpack_mma_weights(packed, cin, cout):
+    """``pack_mma_weights``'s output back to the HWIO kernel."""
+    chunks, blocks = -(-cin // 32), -(-cout // 64)
+    k = packed.reshape(blocks, chunks, 9, 4, 8, 8, 8).permute(2, 1, 3, 6, 0, 4, 5)
+    return k.reshape(3, 3, chunks * 32, blocks * 64)[:, :, :cin, :cout]
+
+
+def _parity_einsum(x, packed, cin, cout, bias):
+    """The bf16 kernel's algorithm in torch, float64: the four windows
+    x[i][j], x[i][j-1], x[i-1][j], x[i-1][j-1] (zero outside the input)
+    times the taps unpacked from the packed weights, summed per output
+    parity through ``PARITY_TAPS`` (9 products, no zero taps), then the
+    bias, the ReLU and the pixel shuffle."""
+    n, h, w, _ = x.shape
+    k = unpack_mma_weights(packed, cin, cout).reshape(9, cin, cout).double()
+    xp = torch.nn.functional.pad(x.double(), (0, 0, 1, 0, 1, 0))
+    windows = [xp[:, 1:, 1:], xp[:, 1:, :-1], xp[:, :-1, 1:], xp[:, :-1, :-1]]
+    par = torch.zeros(4, n, h, w, cout, dtype=torch.float64)
+    for tap, (v, p) in enumerate(PARITY_TAPS):
+        par[p] += torch.einsum("nhwc,co->nhwo", windows[v], k[tap])
+    y = torch.relu(par + bias.double()).reshape(2, 2, n, h, w, cout)
+    return y.permute(2, 3, 0, 4, 1, 5).reshape(n, 2 * h, 2 * w, cout)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", SHAPES + [(2, 5, 7, 3, 4), (1, 9, 17, 40, 68)])
+def test_packed_weights_and_parity_table(n, h, w, cin, cout):
+    """The packed weights (64-channel blocks x 32-channel chunks x 9 taps,
+    each a canonical (64, 32) block) unpack to the HWIO kernel, and the
+    four-window einsum over them with the per-parity tap table equals the
+    twin on integer inputs (exact), also off the kernel's blocking."""
+    rng = np.random.default_rng(n + h + w + cin + cout)
+    x, k, b = _ints(rng, (n, h, w, cin)), _ints(rng, (3, 3, cin, cout)), _ints(rng, (cout,))
+    packed = pack_mma_weights(torch.from_numpy(k))
+    assert packed.numel() == 9 * -(-cin // 32) * 32 * -(-cout // 64) * 64
+    assert torch.equal(unpack_mma_weights(packed, cin, cout), torch.from_numpy(k))
+    got = _parity_einsum(torch.from_numpy(x), packed, cin, cout, torch.from_numpy(b))
+    want = conv2d_transpose_packed(torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(b))
+    assert torch.equal(got.float(), want)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", SHAPES)
+def test_parity_einsum_equals_jax(n, h, w, cin, cout):
+    """The same einsum against the JAX kernel (interpret mode) on
+    tests/test_convt_pallas.py's shapes, integer-valued (exact)."""
+    rng = np.random.default_rng(7 * n + cin)
+    x, k, b = _ints(rng, (n, h, w, cin)), _ints(rng, (3, 3, cin, cout)), _ints(rng, (cout,))
+    want = np.asarray(jax_packed(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b)))
+    got = _parity_einsum(torch.from_numpy(x), pack_mma_weights(torch.from_numpy(k)), cin, cout, torch.from_numpy(b))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_packed_tap_is_canonical():
+    """Block 0, chunk 0, tap t of the packed weights: weight (k, n) in core
+    matrix (k // 8, n // 8) at index (k // 8) * 8 + n // 8, row n % 8,
+    column k % 8."""
+    k = torch.arange(9 * 32 * 64, dtype=torch.float32).reshape(3, 3, 32, 64)
+    packed = pack_mma_weights(k)
+    for tap in (0, 4, 8):
+        for kk, nn in [(0, 0), (5, 3), (9, 17), (31, 63)]:
+            idx = tap * 2048 + ((kk // 8) * 8 + nn // 8) * 64 + (nn % 8) * 8 + kk % 8
+            assert packed[idx] == k[tap // 3, tap % 3, kk, nn]

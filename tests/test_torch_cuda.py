@@ -141,29 +141,55 @@ def _tail_args(rng, c1, c2, ncls, integer, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c1,c2,ncls", [(64, 32, 4), (128, 64, 4), (10, 12, 3)])
 def test_fused_tail_kernel_matches_twin(cuda, c1, c2, ncls):
-    """Bit-equal on integer-valued float32 (every sum exact); on random
-    bf16, >= 99.99 % of the labels agree (the twin sums each conv in
-    another order, and a bf16 rounding or a quantize tie may then flip;
+    """Bit-equal on integer-valued float32 (the CUDA-core kernel) and bf16
+    (the tensor-core kernel): every sum is exact in float32 in any order,
+    so each rounding to bf16 lands where the twin's does, in every pixel
+    of the patch, corners and tile seams included.  On random bf16,
+    >= 99.99 % of the labels agree (the twin sums each conv in another
+    order, and a bf16 rounding or a quantize tie may then flip;
     ``chip_smoke.py`` measured 0.999992 at the XL widths on an H100)."""
     rng = np.random.default_rng(c1 + c2)
-    args = _tail_args(rng, c1, c2, ncls, True, torch.float32, cuda)
-    assert torch.equal(fused_dec1_head(*args), fused_dec1_head_plain(*args))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _tail_args(rng, c1, c2, ncls, True, dtype, cuda)
+        assert torch.equal(fused_dec1_head(*args), fused_dec1_head_plain(*args)), dtype
     args = _tail_args(rng, c1, c2, ncls, False, torch.bfloat16, cuda)
     agree = (fused_dec1_head(*args) == fused_dec1_head_plain(*args)).float().mean().item()
     assert agree >= 0.9999, agree
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 16, 512, 256), (2, 64, 64, 128, 64), (5, 8, 24, 8, 128), (1, 7, 9, 3, 4)])
+@pytest.mark.parametrize("c1,c2,ncls,tile", [(200, 100, 4, 8), (480, 480, 3, 4)])
+def test_fused_tail_bf16_wide_plans(cuda, c1, c2, ncls, tile):
+    """The tensor-core kernel's 8x8 and 4x4 tiles, two or more n-groups and
+    weight steps spanning taps (200: 16-channel units, 8 a step), bit-equal
+    on integer-valued bf16 (the float32 kernel does not fit these widths)."""
+    from ecseg_torch.ops.fused_tail import mma_plan, mma_tile
+
+    assert mma_tile(mma_plan(c1, c2))[0] == tile
+    args = _tail_args(np.random.default_rng(c1), c1, c2, ncls, True, torch.bfloat16, cuda)
+    assert torch.equal(fused_dec1_head(*args), fused_dec1_head_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout",
+    [(3, 16, 16, 512, 256), (2, 64, 64, 128, 64), (5, 8, 24, 8, 128), (1, 7, 9, 3, 4), (2, 11, 21, 40, 68), (1, 9, 33, 24, 8)],
+)
 def test_convt_kernel_matches_twin(cuda, n, h, w, cin, cout):
-    """Bit-equal on integer inputs; on bf16 within one bf16 rounding of the
-    twin's result (2**-8 relative) plus float32 sum-order noise."""
+    """Bit-equal on integer inputs in float32 (the CUDA-core kernel) and in
+    bf16 (the tensor-core kernel: integer sums are exact, so the one
+    rounding matches), also where h and w are off the 8 x 16 block, cin
+    off the 32-channel chunk and cout off the 64-channel block; on random
+    bf16 within one bf16 rounding of the twin's result (2**-8 relative)
+    plus float32 sum-order noise."""
     rng = np.random.default_rng(n * h + cin)
     x = torch.from_numpy(rng.integers(-4, 5, (n, h, w, cin)).astype(np.float32)).to(cuda)
     k = torch.from_numpy(rng.integers(-4, 5, (3, 3, cin, cout)).astype(np.float32)).to(cuda)
     b = torch.from_numpy(rng.integers(-4, 5, (cout,)).astype(np.float32)).to(cuda)
-    assert torch.equal(conv2d_transpose_packed(x, k, b), conv2d_transpose_packed_plain(x, k, b))
-    assert torch.equal(conv2d_transpose_packed(x, k), conv2d_transpose_packed_plain(x, k))
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, kd = x.to(dtype), k.to(dtype)
+        assert torch.equal(conv2d_transpose_packed(xd, kd, b), conv2d_transpose_packed_plain(xd, kd, b)), dtype
+        assert torch.equal(conv2d_transpose_packed(xd, kd), conv2d_transpose_packed_plain(xd, kd)), dtype
     xb, kb = torch.randn_like(x).bfloat16(), torch.randn_like(k).bfloat16()
     got = conv2d_transpose_packed(xb, kb, b).float()
     want = conv2d_transpose_packed_plain(xb, kb, b).float()
