@@ -10,7 +10,13 @@ Phases (any failure raises; exit code 0 only when all pass):
    bit-equality: B1 stitch at the 2048^2 plan (100 patches) and at 1024^2;
    B2 label (connectivity 1 and 2), B3 border flood and B4 seeded flood on
    random, snake and spiral masks at 2048^2 and at 2048x3072 (which also
-   proves the port serves the banded TPU kernels' large-map contract); B5
+   proves the port serves the banded TPU kernels' large-map contract), with
+   B2's and B3's times beside those of the three-pass form they replaced;
+   B2 (connectivity 1 and 2) and B3 (on each mask and its complement) on
+   the tile-edge masks of ``tests/_masks.py`` (``tile_masks``: checkerboard,
+   diagonals through tile corners, staircase, frames on the 32 and 64 grids,
+   a giant background with holes, full, empty) at 2048^2 and at the ragged
+   sizes 2047x2049, 33x4097, 1x2048 and 2048x1; B5
    multiclass label, B6 multiclass flood and B9 label+flood (connectivity 1
    and 2, on the map's odd classes) on a uniformly random 4-class map, a
    column-striped class map, and a class-1 snake and spiral on class 2, at
@@ -128,6 +134,22 @@ CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
 }
 CONVT_TIMED = "xl up1"  # the shape of B11's timing row
 COUNT_SIZES = ((2048, 2048), (2048, 3072))  # B8a's stress masks
+TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))  # B2/B3 on the tile-edge masks
+# B2's and B3's kernel ms on phase 2's masks in the three-pass form that the
+# tiled union-find replaced (this script before the change, on an NVIDIA
+# H100 80GB HBM3 at 700.00 W): (kernel, mask, connectivity) -> ms
+THREE_PASS_MS = {
+    ("label", "random 2048x2048", 1): 0.206, ("label", "random 2048x2048", 2): 1.248,
+    ("label", "snake 2048x2048", 1): 1.139, ("label", "snake 2048x2048", 2): 1.320,
+    ("label", "spiral 2048x2048", 1): 0.912, ("label", "spiral 2048x2048", 2): 1.035,
+    ("label", "random 2048x3072", 1): 0.315, ("label", "random 2048x3072", 2): 1.831,
+    ("label", "snake 2048x3072", 1): 1.591, ("label", "snake 2048x3072", 2): 1.886,
+    ("label", "spiral 2048x3072", 1): 1.160, ("label", "spiral 2048x3072", 2): 1.587,
+    ("flood_border", "random 2048x2048", 1): 0.238, ("flood_border", "snake 2048x2048", 1): 1.143,
+    ("flood_border", "spiral 2048x2048", 1): 0.931, ("flood_border", "random 2048x3072", 1): 0.359,
+    ("flood_border", "snake 2048x3072", 1): 1.326, ("flood_border", "spiral 2048x3072", 1): 1.024,
+}
+REDESIGNED = {"label", "flood_border"}  # the kernels on the tiled union-find
 COUNT_PLANS = ((1024, 1024, 2), (2048, 2048, 1))  # B8b's (h, w, tiles)
 FORWARD_TOL = 2e-3  # bf16 card vs float32 CPU probabilities, tile-count weights (the CPU test's PROB_ATOL)
 TAIL_AGREEMENT = 0.9999  # B10 vs its twin on random bf16: labels that must agree
@@ -296,9 +318,43 @@ def phase_kernels(K, tiling, rng, dev, errors):
                 plain_ms = 1e3 * (time.perf_counter() - t0)
                 errors.compare("label", K.label(mt, conn), want, f"{what} conn {conn}")
                 errors.compare("flood_seeds", K.flood_from_seeds(mt, seeds, conn), K.flood_from_seeds_plain(mt, seeds, conn), f"{what} conn {conn}")
-                print(f"B2 label {what} conn {conn}: matches plain; kernel {cuda_ms(lambda: K.label(mt, conn), 5):.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+                print(
+                    f"B2 label {what} conn {conn}: matches plain; kernel {cuda_ms(lambda: K.label(mt, conn), 5):.3f} ms "
+                    f"(three-pass {THREE_PASS_MS['label', what, conn]:.3f} ms), plain {plain_ms:.1f} ms",
+                    flush=True,
+                )
             errors.compare("flood_border", K.flood_from_border(mt), K.flood_from_border_plain(mt), what)
-            print(f"B3/B4 floods {what}: match plain; B3 kernel {cuda_ms(lambda: K.flood_from_border(mt), 5):.3f} ms", flush=True)
+            print(
+                f"B3/B4 floods {what}: match plain; B3 kernel {cuda_ms(lambda: K.flood_from_border(mt), 5):.3f} ms "
+                f"(three-pass {THREE_PASS_MS['flood_border', what, 1]:.3f} ms)",
+                flush=True,
+            )
+
+
+def phase_tile_masks(K, dev, errors):
+    """B2 (connectivity 1 and 2) and B3 (on each mask and its complement)
+    bit-equal to their twins on the tile-edge masks at every ``TILE_SIZES``
+    size; times at 2048^2."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _masks import tile_masks
+
+    for h, w in TILE_SIZES:
+        for name, m in tile_masks(h, w).items():
+            mt = torch.from_numpy(m).to(dev)
+            what = f"tile mask {name} {h}x{w}"
+            for conn in (1, 2):
+                errors.compare("label", K.label(mt, conn), K.label_plain(mt, conn), f"{what} conn {conn}")
+            for t, side in ((mt, ""), (~mt, " complement")):
+                errors.compare("flood_border", K.flood_from_border(t), K.flood_from_border_plain(t), what + side)
+            if (h, w) == TILE_SIZES[0]:
+                inv = ~mt
+                print(
+                    f"B2/B3 {what}: match plain; B2 conn 1 {cuda_ms(lambda: K.label(mt, 1), 5):.4f} ms, "
+                    f"conn 2 {cuda_ms(lambda: K.label(mt, 2), 5):.4f} ms; B3 {cuda_ms(lambda: K.flood_from_border(mt), 5):.4f} ms, "
+                    f"complement {cuda_ms(lambda: K.flood_from_border(inv), 5):.4f} ms",
+                    flush=True,
+                )
+        print(f"B2/B3 tile-edge masks {h}x{w}: all match plain", flush=True)
 
 
 def class_maps(rng, h, w):
@@ -534,6 +590,8 @@ def phase_timings(K, dev, errors, results):
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
             "bound_by": "bytes", "library_ms": None,
         })
+        if key in REDESIGNED:
+            rows[-1]["redesigned"] = "tiled union-find in shared memory"
         print(f"{b} {name} at main-path shapes: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms", flush=True)
     return rows
 
@@ -834,6 +892,7 @@ def main() -> int:
     errors = Errors()
     results = {}
     phase_kernels(K, tiling, rng, dev, errors)
+    phase_tile_masks(K, dev, errors)  # draws no numbers from rng
     # its own generator, so the main path's images do not depend on it
     phase_multiclass_kernels(K, np.random.default_rng(args.seed + 1), dev, errors)
     # their own generators, so the main path's images do not depend on them

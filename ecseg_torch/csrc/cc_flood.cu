@@ -18,15 +18,27 @@
 // the outputs written once (B3 2, B4/B6 3, B9 7 bytes/pixel: 8-29 MB at
 // 2048^2, 3-9 us at 3.35 TB/s).
 //
-// Design: label the traversable mask with the B2 union-find (cc_label.cuh;
-// B6 with its equal-class merge, as B5), mark the component of every seeded
-// pixel (flag[label] = 1, an idempotent plain store), then gather out =
-// traversable && flag[label].  The Pallas flood iterated max-sweeps to a
-// fixpoint, one step per pixel of geodesic distance at worst; labeling first
-// makes the cost independent of it.  B4 and B6 get the int32 label map and
-// the uint8 flag array from the wrapper as scratch; B9 is the same sequence
-// with the label map as its second output, so the mask is labeled once
-// where B4 + B2 labeled it twice.
+// Design, B4/B6/B9: label the traversable mask with the three-pass
+// union-find (label_launch in cc_label.cuh; B6 with its equal-class merge,
+// as B5), mark the component of every seeded pixel (flag[label] = 1, an
+// idempotent plain store), then gather out = traversable && flag[label].
+// The Pallas flood iterated max-sweeps to a fixpoint, one step per pixel of
+// geodesic distance at worst; labeling first makes the cost independent of
+// it.  B4 and B6 get the int32 label map and the uint8 flag array from the
+// wrapper as scratch; B9 is the same sequence with the label map as its
+// second output, so the mask is labeled once where B4 + B2 labeled it twice.
+//
+// Design, B3 (ecseg_flood_border): its input is a class's background,
+// nearly the whole canvas as one 4-connected component, and on the three
+// passes millions of merging threads met at that component's one root in
+// device memory (0.85 ms on an H100 at 2048^2, against 2.5 us of bytes).
+// It builds the tiled forest instead (uf_tiles_launch: each 32x32 tile united in shared
+// memory, then one union per run crossing a tile edge), so the giant
+// component makes about two global unions a tile.  Its labels are scratch,
+// so it never flattens them: the forest's last pass marks flag[root] of the
+// perimeter's pixels (the tile pass cleared the flags, so there is no
+// memset), and the gather reads flag[root(parent[i])], mostly one hop that
+// a warp shares.
 
 #include "cc_label.cuh"
 
@@ -40,29 +52,26 @@ __global__ void mark_seeds(const uint8_t* __restrict__ trav,
   if (i < n && trav[i] && seeds[i]) flag[labels[i]] = 1;
 }
 
-// One thread per position on the image's perimeter (2W + 2H, corners twice).
-__global__ void mark_border(const uint8_t* __restrict__ trav,
-                            const int* __restrict__ labels, uint8_t* flag,
-                            int h, int w) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  int r, c;
-  if (k < w) {
-    r = 0;
-    c = k;
-  } else if (k < 2 * w) {
-    r = h - 1;
-    c = k - w;
-  } else if (k < 2 * w + h) {
-    r = k - 2 * w;
-    c = 0;
-  } else if (k < 2 * w + 2 * h) {
-    r = k - 2 * w - h;
-    c = w - 1;
-  } else {
-    return;
+// B3: out = traversable && the pixel's root is flagged (background has
+// parent -1).
+__global__ void gather_roots(int* parent, const uint8_t* __restrict__ flag,
+                             uint8_t* out, int n) {
+  constexpr int kPixels = ecseg::kPixelsPerThread;
+  const int base = blockIdx.x * blockDim.x * kPixels + threadIdx.x;
+  int p[kPixels];
+#pragma unroll
+  for (int j = 0; j < kPixels; ++j) {
+    const int i = base + j * blockDim.x;
+    p[j] = i < n ? parent[i] : -1;
   }
-  int i = r * w + c;
-  if (trav[i]) flag[labels[i]] = 1;
+#pragma unroll
+  for (int j = 0; j < kPixels; ++j) {
+    const int i = base + j * blockDim.x;
+    const int x = ecseg::uf_walk_from(i, p[j]);
+    const int r = ecseg::uf_find_warp<true>(parent, x);  // every lane calls it
+    const int root = x < 0 ? p[j] : r;
+    if (i < n) out[i] = root >= 0 ? flag[root] : 0;
+  }
 }
 
 __global__ void gather_flags(const uint8_t* __restrict__ trav,
@@ -78,7 +87,7 @@ __global__ void gather_flags(const uint8_t* __restrict__ trav,
 namespace ecseg {
 
 // labels: (h, w) int32 (scratch, or B9's output); flag: (h*w) uint8
-// scratch; out: (h, w) bool.  seeds == nullptr seeds from the border.
+// scratch; out: (h, w) bool.
 template <bool kSameClass>
 int flood_launch(const uint8_t* trav, const uint8_t* seeds, int32_t* labels,
                  uint8_t* flag, uint8_t* out, int h, int w, int connectivity,
@@ -87,20 +96,32 @@ int flood_launch(const uint8_t* trav, const uint8_t* seeds, int32_t* labels,
   int blocks = (n + kThreads - 1) / kThreads;
   label_launch<kSameClass>(trav, labels, h, w, connectivity, s);
   cudaMemsetAsync(flag, 0, static_cast<size_t>(n), s);
-  if (seeds == nullptr) {
-    int m = 2 * (h + w);
-    mark_border<<<(m + kThreads - 1) / kThreads, kThreads, 0, s>>>(trav, labels,
-                                                                   flag, h, w);
-  } else {
-    mark_seeds<<<blocks, kThreads, 0, s>>>(trav, seeds, labels, flag, n);
-  }
+  mark_seeds<<<blocks, kThreads, 0, s>>>(trav, seeds, labels, flag, n);
   gather_flags<<<blocks, kThreads, 0, s>>>(trav, labels, flag, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B3 on the tiled forest; `parent` and `flag` are scratch.
+inline int flood_border_launch(const uint8_t* trav, int32_t* parent,
+                               uint8_t* flag, uint8_t* out, int h, int w,
+                               cudaStream_t s) {
+  int n = h * w;
+  uf_tiles_launch(trav, parent, h, w, 1, s, flag);  // clears and marks `flag`
+  gather_roots<<<pixel_blocks(n), kThreads, 0, s>>>(parent, flag, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ecseg
 
-// B3 (seeds == nullptr: seed from the image border) and B4.
+// B3: traversable pixels 4-connected to the image border.
+extern "C" int ecseg_flood_border(const uint8_t* trav, int32_t* labels,
+                                  uint8_t* flag, uint8_t* out, int h, int w,
+                                  void* stream) {
+  return ecseg::flood_border_launch(trav, labels, flag, out, h, w,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// B4: traversable pixels connected to a seed.
 extern "C" int ecseg_flood(const uint8_t* trav, const uint8_t* seeds,
                            int32_t* labels, uint8_t* flag, uint8_t* out, int h,
                            int w, int connectivity, void* stream) {

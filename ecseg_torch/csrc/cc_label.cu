@@ -15,22 +15,33 @@
 // shape (a VMEM-resident fixpoint of 3x3 min sweeps and 256-step
 // Hillis-Steele scans) came from TPU limits that do not exist here.
 //
-// Design: union-find in three passes (cc_label.cuh) whose cost does not
-// grow with a component's geodesic length, so snakes and spirals take no
-// more passes than blobs.  B5 is the same three passes with the merge
-// predicate "equal class" (a template argument of uf_merge): one labeling
-// covers every class, where the per-class form ran B2 once per class.  The
-// parent array is the output itself, so the kernel allocates nothing.  Not
-// yet done (a later change): a block-local union-find in shared memory
-// before the global merge, which would cut the global atomics and the extra
-// reads of parent[] the three passes make.
+// Design: union-find (cc_label.cuh), whose cost does not grow with a
+// component's geodesic length, so snakes and spirals take no more passes
+// than blobs.  The parent array is the output itself, so the kernel
+// allocates nothing.
+//
+// B2 runs the tiled form (label_tiled_launch): what bounded the three
+// global passes was not bytes but the device-memory atomics and the
+// repeated reads of parent[] (every fg pixel made 2-4 global unions, each a
+// walk of volatile loads).  Now a block labels its 32x32 tile in shared
+// memory (row runs from one ballot, unions with the row above only where a
+// run starts touching it), writes each pixel's tile-local root as its
+// global parent (this is the init pass), a second kernel unites across
+// tile edges only (one union per run that crosses an edge), and a third
+// flattens: about the mask read once, the labels written once and read
+// once more.
+//
+// B5 is still the three passes of label_launch with the merge predicate
+// "equal class" (a template argument of uf_merge): one labeling covers
+// every class, where the per-class form ran B2 once per class.  The tiled
+// form keeps the same template argument, so B5 can move onto it.
 
 #include "cc_label.cuh"
 
 extern "C" int ecseg_label(const uint8_t* mask, int32_t* labels, int h, int w,
                            int connectivity, void* stream) {
-  ecseg::label_launch(mask, labels, h, w, connectivity,
-                      static_cast<cudaStream_t>(stream));
+  ecseg::label_tiled_launch(mask, labels, h, w, connectivity,
+                            static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,11 @@ counters.
 | B8b | count_from_patches | csrc/cc_count.cu     | cc_pallas.count_cc_from_patches       |
 | B9 | label_and_flood     | csrc/cc_flood.cu     | cc_pallas.label_and_flood_pallas      |
 
+B2 (entry ``ecseg_label``) and B3 (``ecseg_flood_border``) build the tiled
+union-find forest of csrc/cc_label.cuh: each 32x32 tile united in shared
+memory, then unions across tile edges only; B4-B6, B8 and B9 the three
+global passes of ``label_launch``.
+
 Dispatch is by where the input lies: a CPU tensor goes to the plain twin
 (``*_plain``), a CUDA tensor to the kernel, anything else raises.  There is
 no fallback from a failing kernel to its twin.  ``LAUNCHES`` counts kernel
@@ -236,6 +241,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ecseg_stitch": ("stitch.cu", [_P, _P, _P, _I, _P]),
     "ecseg_label": ("cc_label.cu", [_P, _P, _I, _I, _I, _P]),
+    "ecseg_flood_border": ("cc_flood.cu", [_P, _P, _P, _P, _I, _I, _P]),
     "ecseg_flood": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ecseg_label_mc": ("cc_label.cu", [_P, _P, _I, _I, _P]),
     "ecseg_flood_mc": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _P]),
@@ -341,7 +347,8 @@ def label(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
 def _flood(name, what, trav, seeds, *conn, labels=None):
     """Launch the flood entry ``name`` of csrc/cc_flood.cu and count it under
     ``what``; ``labels`` is the int32 label map it writes (scratch unless the
-    caller keeps it)."""
+    caller keeps it; B3's is a union-find forest, not labels).  ``seeds``
+    None: the border flood, whose entry takes no seeds."""
     h, w = trav.shape
     out = torch.empty((h, w), dtype=torch.bool, device=trav.device)
     if out.numel() == 0:
@@ -349,9 +356,9 @@ def _flood(name, what, trav, seeds, *conn, labels=None):
     if labels is None:
         labels = torch.empty((h, w), dtype=torch.int32, device=trav.device)
     flag = torch.empty((h * w,), dtype=torch.uint8, device=trav.device)
+    seed_ptr = () if seeds is None else (seeds.data_ptr(),)
     _launch(
-        name, trav.device, trav.data_ptr(),
-        None if seeds is None else seeds.data_ptr(),
+        name, trav.device, trav.data_ptr(), *seed_ptr,
         labels.data_ptr(), flag.data_ptr(), out.data_ptr(), h, w, *conn,
     )
     LAUNCHES[what] += 1
@@ -363,7 +370,7 @@ def flood_from_border(trav: torch.Tensor) -> torch.Tensor:
     if trav.device.type == "cpu":
         return flood_from_border_plain(trav)
     _check(trav, "flood_from_border", torch.bool, 2)
-    return _flood("ecseg_flood", "flood_border", trav, None, 1)
+    return _flood("ecseg_flood_border", "flood_border", trav, None)
 
 
 def flood_from_seeds(trav: torch.Tensor, seeds: torch.Tensor, connectivity: int = 2) -> torch.Tensor:

@@ -58,6 +58,46 @@ def _masks():
 MASKS = _masks()
 
 
+def tile_masks(h, w, seed=0):
+    """Masks aimed at a labeler that works in 32x32 (or 16, 64) tiles and then
+    merges across tile edges: every family at (h, w).  ``holes`` is the
+    border flood's real input (a class's background: one giant component
+    with small holes and closed rings, some straddling tile edges)."""
+    rng = np.random.default_rng(seed)
+    r, c = np.indices((h, w))
+    holes = rng.random((h, w)) >= 0.02
+    for _ in range(max(1, h * w // 600)):
+        y, x, s = int(rng.integers(0, max(h, 1))), int(rng.integers(0, max(w, 1))), int(rng.integers(3, 20))
+        holes[y : y + s, x : x + s] = False
+        holes[y + 1 : y + s - 1, x + 1 : x + s - 1] = True  # a closed ring
+    return {
+        "checkerboard": (r + c) % 2 == 0,
+        "diagonal": (c - r) % 32 == 0,  # through every tile corner
+        "antidiagonal": (c + r) % 32 == 31,
+        "staircase": ((c - r) % 32 == 0) | ((c - r) % 32 == 1),
+        "frame32": (r % 32 == 0) | (r % 32 == 31) | (c % 32 == 0) | (c % 32 == 31),
+        "frame64": (r % 64 == 0) | (r % 64 == 63) | (c % 64 == 0) | (c % 64 == 63),
+        "holes": holes,
+        "full": np.ones((h, w), bool),
+        "empty": np.zeros((h, w), bool),
+    }
+
+
+def _tile_masks():
+    """tile_masks at 70x101 (no side a multiple of 16, 32 or 64), a single
+    row and a single column, and a map with no rows."""
+    rng = np.random.default_rng(11)
+    return {
+        **tile_masks(70, 101),
+        "row": rng.random((1, 150)) < 0.7,
+        "column": rng.random((150, 1)) < 0.7,
+        "no_rows": np.zeros((0, 40), bool),
+    }
+
+
+TILE_MASKS = _tile_masks()
+
+
 def seeds_like(m, seed=1):
     return np.random.default_rng(seed).random(m.shape) < 0.02
 

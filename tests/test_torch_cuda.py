@@ -7,7 +7,8 @@ that has only the port's dependencies:
 
 Without a CUDA device each test skips (a CUDA kernel has no CPU mode); the
 twins themselves are held against the JAX package on the CPU by
-tests/test_torch_cc.py, tests/test_torch_cc_multiclass.py,
+tests/test_torch_cc.py, tests/test_torch_cc_tiles.py,
+tests/test_torch_cc_multiclass.py,
 tests/test_torch_cc_count.py, tests/test_torch_fused_tail.py,
 tests/test_torch_convt.py and tests/test_torch_tiling.py.  The kernels'
 equality at 2048^2 and 2048x3072, and at the tile-count path's shapes, is
@@ -23,7 +24,7 @@ from ecseg_torch.ops import tiling
 from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
 from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
 
-from _masks import CLASS_MAPS, MASKS, seeds_like
+from _masks import CLASS_MAPS, MASKS, TILE_MASKS, seeds_like, tile_masks
 
 
 @pytest.fixture
@@ -44,6 +45,24 @@ def test_cc_kernels_match_twins(cuda, name):
             K.flood_from_seeds(m, seeds, conn), K.flood_from_seeds_plain(m, seeds, conn)
         )
     assert torch.equal(K.flood_from_border(m), K.flood_from_border_plain(m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_MASKS))
+def test_tiled_cc_kernels_match_twins(cuda, name):
+    """B2 (connectivity 1 and 2) and B3, whose kernels unite 32x32 tiles in
+    shared memory and then across tile edges, bit-equal to their twins on
+    the tile-edge masks, at 70x101 and at 100x70 (ragged tiles at the right
+    and bottom), a single row and column and a map with no rows."""
+    cases = [TILE_MASKS[name]]
+    if name in tile_masks(1, 1):
+        cases.append(tile_masks(100, 70, seed=1)[name])
+    for mask in cases:
+        m = torch.from_numpy(mask).to(cuda)
+        for conn in (1, 2):
+            assert torch.equal(K.label(m, conn), K.label_plain(m, conn)), (mask.shape, conn)
+        assert torch.equal(K.flood_from_border(m), K.flood_from_border_plain(m)), mask.shape
+        assert torch.equal(K.flood_from_border(~m), K.flood_from_border_plain(~m)), mask.shape
 
 
 @pytest.mark.cuda
