@@ -11,16 +11,21 @@ Phases (any failure raises; exit code 0 only when all pass):
    B2 label (connectivity 1 and 2), B3 border flood and B4 seeded flood on
    random, snake and spiral masks at 2048^2 and at 2048x3072 (which also
    proves the port serves the banded TPU kernels' large-map contract), with
-   B2's and B3's times beside those of the three-pass form they replaced;
-   B2 (connectivity 1 and 2) and B3 (on each mask and its complement) on
-   the tile-edge masks of ``tests/_masks.py`` (``tile_masks``: checkerboard,
-   diagonals through tile corners, staircase, frames on the 32 and 64 grids,
-   a giant background with holes, full, empty) at 2048^2 and at the ragged
-   sizes 2047x2049, 33x4097, 1x2048 and 2048x1; B5
+   B2's, B3's and B4's times beside those of the three-pass form they
+   replaced; B2 (connectivity 1 and 2), B3 (on each mask and its
+   complement) and B4 (connectivity 1 and 2, from sparse and dense seeds,
+   seeds on tile corners and edges, and seeds only off the mask) on the
+   tile-edge masks of ``tests/_masks.py`` (``tile_masks``: checkerboard,
+   diagonals through tile corners, staircase, frames on the 32 and 64
+   grids, a giant background with holes, full, empty), and B5 on its
+   tile-edge class maps (``tile_class_maps``: each mask as two classes,
+   classes on alternate tiles, stripes), at 2048^2 and at the ragged sizes
+   2047x2049, 33x4097, 1x2048 and 2048x1; B5
    multiclass label, B6 multiclass flood and B9 label+flood (connectivity 1
    and 2, on the map's odd classes) on a uniformly random 4-class map, a
    column-striped class map, and a class-1 snake and spiral on class 2, at
-   the same two sizes; B8a count on the random, snake and spiral masks at
+   the same two sizes (B5 beside its three-pass time); B8a count on the
+   random, snake and spiral masks at
    both sizes (connectivity 1 and 2); B8b stitch+count at the 1024^2 (two
    tiles in one launch) and 2048^2 plans for class_id 0-3, also against
    ``stitch_plain`` + ``==`` + the B8a twin; B10 fused decoder tail on 8
@@ -42,7 +47,13 @@ Phases (any failure raises; exit code 0 only when all pass):
    (TF32 off).  Then ``main`` again under ``ECSEG_MC_LABEL=0`` and under
    ``ECSEG_MC_MERGE=1`` on an ordinary image and the crowded one: the same
    launch-count and host-redo checks, and labels and CSV rows byte-equal to
-   the default form's;
+   the default form's.  Then the command line as a user runs it:
+   ``python3 -m ecseg_torch.pipelines.metaseg`` in a directory with a
+   ``config.yaml`` (read without PyYAML) and ``models/metaseg.npz``, on a
+   folder with a copy of ``example_ecSeg/input.tif`` (LZW, predictor 2) and
+   a synthetic 2048^2 image this script writes as LZW (no cv2): exit code
+   0, two CSV rows, labels equal to the host oracle and byte-equal to an
+   in-process ``main``, and the host decode times of both files;
 4. time each kernel at the main path's shapes beside its plain twin and its
    memory bound: the CUDA-event mean over back-to-back calls (``ms``) and
    the device-only time from one ``torch.profiler`` pass (``device_ms``);
@@ -74,6 +85,7 @@ import copy
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -134,10 +146,11 @@ CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
 }
 CONVT_TIMED = "xl up1"  # the shape of B11's timing row
 COUNT_SIZES = ((2048, 2048), (2048, 3072))  # B8a's stress masks
-TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))  # B2/B3 on the tile-edge masks
-# B2's and B3's kernel ms on phase 2's masks in the three-pass form that the
-# tiled union-find replaced (this script before the change, on an NVIDIA
-# H100 80GB HBM3 at 700.00 W): (kernel, mask, connectivity) -> ms
+TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))  # B2-B5 on the tile-edge masks
+# B2's to B5's ms on phase 2's masks and class maps in the three-pass form
+# that the tiled union-find replaced (B2, B3: this script before the
+# change; on an NVIDIA H100 80GB HBM3 at 700.00 W): (kernel, input,
+# connectivity) -> ms
 THREE_PASS_MS = {
     ("label", "random 2048x2048", 1): 0.206, ("label", "random 2048x2048", 2): 1.248,
     ("label", "snake 2048x2048", 1): 1.139, ("label", "snake 2048x2048", 2): 1.320,
@@ -148,8 +161,20 @@ THREE_PASS_MS = {
     ("flood_border", "random 2048x2048", 1): 0.238, ("flood_border", "snake 2048x2048", 1): 1.143,
     ("flood_border", "spiral 2048x2048", 1): 0.931, ("flood_border", "random 2048x3072", 1): 0.359,
     ("flood_border", "snake 2048x3072", 1): 1.326, ("flood_border", "spiral 2048x3072", 1): 1.024,
+    # B4 (sparse seeds, p = 0.001) and B5: the kernels alone, on preallocated
+    # buffers (scripts/ab_cc_tiled.py's base side, same card and limit)
+    ("flood_seeds", "random 2048x2048", 1): 0.234, ("flood_seeds", "random 2048x2048", 2): 1.258,
+    ("flood_seeds", "snake 2048x2048", 1): 1.154, ("flood_seeds", "snake 2048x2048", 2): 1.341,
+    ("flood_seeds", "spiral 2048x2048", 1): 0.943, ("flood_seeds", "spiral 2048x2048", 2): 1.045,
+    ("flood_seeds", "random 2048x3072", 1): 0.358, ("flood_seeds", "random 2048x3072", 2): 1.879,
+    ("flood_seeds", "snake 2048x3072", 1): 1.503, ("flood_seeds", "snake 2048x3072", 2): 1.850,
+    ("flood_seeds", "spiral 2048x3072", 1): 1.069, ("flood_seeds", "spiral 2048x3072", 2): 1.526,
+    ("label_mc", "uniform class map 2048x2048", 2): 0.295, ("label_mc", "stripes class map 2048x2048", 2): 1.606,
+    ("label_mc", "snake class map 2048x2048", 2): 1.490, ("label_mc", "spiral class map 2048x2048", 2): 1.191,
+    ("label_mc", "uniform class map 2048x3072", 2): 0.440, ("label_mc", "stripes class map 2048x3072", 2): 2.273,
+    ("label_mc", "snake class map 2048x3072", 2): 2.163, ("label_mc", "spiral class map 2048x3072", 2): 1.774,
 }
-REDESIGNED = {"label", "flood_border"}  # the kernels on the tiled union-find
+REDESIGNED = {"label", "flood_border", "flood_seeds", "label_mc"}  # the kernels on the tiled union-find
 COUNT_PLANS = ((1024, 1024, 2), (2048, 2048, 1))  # B8b's (h, w, tiles)
 FORWARD_TOL = 2e-3  # bf16 card vs float32 CPU probabilities, tile-count weights (the CPU test's PROB_ATOL)
 TAIL_AGREEMENT = 0.9999  # B10 vs its twin on random bf16: labels that must agree
@@ -326,17 +351,23 @@ def phase_kernels(K, tiling, rng, dev, errors):
             errors.compare("flood_border", K.flood_from_border(mt), K.flood_from_border_plain(mt), what)
             print(
                 f"B3/B4 floods {what}: match plain; B3 kernel {cuda_ms(lambda: K.flood_from_border(mt), 5):.3f} ms "
-                f"(three-pass {THREE_PASS_MS['flood_border', what, 1]:.3f} ms)",
+                f"(three-pass {THREE_PASS_MS['flood_border', what, 1]:.3f} ms); B4 conn 1 "
+                f"{cuda_ms(lambda: K.flood_from_seeds(mt, seeds, 1), 5):.3f} ms (three-pass "
+                f"{THREE_PASS_MS['flood_seeds', what, 1]:.3f} ms), conn 2 {cuda_ms(lambda: K.flood_from_seeds(mt, seeds, 2), 5):.3f} ms "
+                f"(three-pass {THREE_PASS_MS['flood_seeds', what, 2]:.3f} ms)",
                 flush=True,
             )
 
 
 def phase_tile_masks(K, dev, errors):
-    """B2 (connectivity 1 and 2) and B3 (on each mask and its complement)
-    bit-equal to their twins on the tile-edge masks at every ``TILE_SIZES``
+    """B2 (connectivity 1 and 2), B3 (on each mask and its complement) and
+    B4 (connectivity 1 and 2, each seed pattern of ``tests/_masks.py``:
+    sparse, dense, on tile corners, on tile edges, only off the mask)
+    bit-equal to their twins on the tile-edge masks, and B5 on the
+    tile-edge class maps (``tile_class_maps``), at every ``TILE_SIZES``
     size; times at 2048^2."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    from _masks import tile_masks
+    from _masks import seed_patterns, tile_class_maps, tile_masks
 
     for h, w in TILE_SIZES:
         for name, m in tile_masks(h, w).items():
@@ -346,15 +377,26 @@ def phase_tile_masks(K, dev, errors):
                 errors.compare("label", K.label(mt, conn), K.label_plain(mt, conn), f"{what} conn {conn}")
             for t, side in ((mt, ""), (~mt, " complement")):
                 errors.compare("flood_border", K.flood_from_border(t), K.flood_from_border_plain(t), what + side)
+            seeds = {p: torch.from_numpy(s).to(dev) for p, s in seed_patterns(m).items()}
+            for p, st in seeds.items():
+                for conn in (1, 2):
+                    errors.compare("flood_seeds", K.flood_from_seeds(mt, st, conn), K.flood_from_seeds_plain(mt, st, conn), f"{what} {p} seeds conn {conn}")
             if (h, w) == TILE_SIZES[0]:
-                inv = ~mt
+                inv, sparse, dense = ~mt, seeds["sparse"], seeds["dense"]
                 print(
-                    f"B2/B3 {what}: match plain; B2 conn 1 {cuda_ms(lambda: K.label(mt, 1), 5):.4f} ms, "
+                    f"B2/B3/B4 {what}: match plain; B2 conn 1 {cuda_ms(lambda: K.label(mt, 1), 5):.4f} ms, "
                     f"conn 2 {cuda_ms(lambda: K.label(mt, 2), 5):.4f} ms; B3 {cuda_ms(lambda: K.flood_from_border(mt), 5):.4f} ms, "
-                    f"complement {cuda_ms(lambda: K.flood_from_border(inv), 5):.4f} ms",
+                    f"complement {cuda_ms(lambda: K.flood_from_border(inv), 5):.4f} ms; B4 conn 2 sparse seeds "
+                    f"{cuda_ms(lambda: K.flood_from_seeds(mt, sparse, 2), 5):.4f} ms, dense {cuda_ms(lambda: K.flood_from_seeds(mt, dense, 2), 5):.4f} ms",
                     flush=True,
                 )
-        print(f"B2/B3 tile-edge masks {h}x{w}: all match plain", flush=True)
+        for name, cls in tile_class_maps(h, w).items():
+            ct = torch.from_numpy(cls).to(dev)
+            what = f"tile class map {name} {h}x{w}"
+            errors.compare("label_mc", K.label_multiclass(ct), K.label_multiclass_plain(ct), what)
+            if (h, w) == TILE_SIZES[0]:
+                print(f"B5 {what}: matches plain; {cuda_ms(lambda: K.label_multiclass(ct), 5):.4f} ms", flush=True)
+        print(f"B2/B3/B4/B5 tile-edge masks and class maps {h}x{w}: all match plain", flush=True)
 
 
 def class_maps(rng, h, w):
@@ -382,7 +424,8 @@ def phase_multiclass_kernels(K, rng, dev, errors, sizes=((2048, 2048), (2048, 30
             for conn in (1, 2):
                 errors.compare("label_flood", K.label_and_flood(odd, seeds, conn), K.label_and_flood_plain(odd, seeds, conn), f"{what} conn {conn}")
             print(
-                f"B5/B6/B9 {what}: match plain; B5 {cuda_ms(lambda: K.label_multiclass(ct), 5):.3f} ms, "
+                f"B5/B6/B9 {what}: match plain; B5 {cuda_ms(lambda: K.label_multiclass(ct), 5):.3f} ms "
+                f"(three-pass {THREE_PASS_MS['label_mc', what, 2]:.3f} ms), "
                 f"B6 {cuda_ms(lambda: K.flood_multiclass(ct, seeds), 5):.3f} ms, "
                 f"B9 conn 2 {cuda_ms(lambda: K.label_and_flood(odd, seeds, 2), 5):.3f} ms",
                 flush=True,
@@ -406,6 +449,84 @@ def synthetic_dapi(rng, h, w, crowded):
             for x in range(100, 100 + 27 * 7, 7):
                 img[y : y + 3, x : x + 3] = 33000
     return img
+
+
+def lzw_strip(data: bytes) -> bytes:
+    """TIFF LZW of one strip: 9- to 12-bit codes, most significant bit
+    first, each code's width that of the table the decoder will hold (one
+    entry behind, hence libtiff's early change), the table cleared at 4094
+    entries."""
+    codes, widths = [256], [9]
+    table, nxt, w = {}, 258, -1
+    for c in data:
+        if w < 0:
+            w = c
+            continue
+        code = table.get((w << 8) | c)
+        if code is not None:
+            w = code
+            continue
+        codes.append(w)
+        widths.append(nxt.bit_length())
+        table[(w << 8) | c] = nxt
+        nxt += 1
+        if nxt == 4094:
+            codes.append(256)
+            widths.append(12)
+            table, nxt = {}, 258
+        w = c
+    if w >= 0:
+        codes.append(w)
+        widths.append(nxt.bit_length())
+        nxt += 1  # the decoder adds an entry on reading it
+    codes.append(257)
+    widths.append(min(nxt.bit_length(), 12))
+    out, acc, nbits = bytearray(), 0, 0
+    for code, width in zip(codes, widths):
+        acc, nbits = (acc << width) | code, nbits + width
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 0xFF)
+        acc &= (1 << nbits) - 1
+    if nbits:
+        out.append((acc << (8 - nbits)) & 0xFF)
+    return bytes(out)
+
+
+def lzw_tiff_bytes(img: np.ndarray, byte_order: str = "<", rows_per_strip: int = 8) -> bytes:
+    """A strip TIFF of a uint8/uint16 gray or RGB image, LZW with the
+    horizontal predictor, as libtiff writes the reference's default TIFFs;
+    ``byte_order`` "<" (II) or ">" (MM)."""
+    h, w = img.shape[:2]
+    spp = 1 if img.ndim == 2 else img.shape[2]
+    diff = img.copy()
+    diff[:, 1:] -= img[:, :-1]  # wraps, as the predictor's differences do
+    raw = diff.astype(img.dtype.newbyteorder(byte_order))
+    strips = [lzw_strip(raw[r : r + rows_per_strip].tobytes()) for r in range(0, h, rows_per_strip)]
+    blob = bytearray(8)
+    offsets = []
+    for s in strips:
+        offsets.append(len(blob))
+        blob += s + b"\0" * (len(s) % 2)
+
+    def entry(tag, typ, vals):
+        data = struct.pack(byte_order + ("H" if typ == 3 else "I") * len(vals), *vals)
+        if len(data) > 4:
+            field = struct.pack(byte_order + "I", len(blob))
+            blob.extend(data)
+        else:
+            field = data.ljust(4, b"\0")
+        return struct.pack(byte_order + "HHI", tag, typ, len(vals)) + field
+
+    entries = [
+        entry(256, 4, [w]), entry(257, 4, [h]), entry(258, 3, [8 * img.dtype.itemsize] * spp), entry(259, 3, [5]),
+        entry(262, 3, [1 if spp == 1 else 2]), entry(273, 4, offsets), entry(277, 3, [spp]),
+        entry(278, 4, [rows_per_strip]), entry(279, 4, [len(s) for s in strips]), entry(284, 3, [1]), entry(317, 3, [2]),
+    ]
+    ifd = len(blob)
+    blob += struct.pack(byte_order + "H", len(entries)) + b"".join(entries) + b"\0\0\0\0"
+    blob[:8] = (b"II" if byte_order == "<" else b"MM") + struct.pack(byte_order + "HI", 42, ifd)
+    return bytes(blob)
 
 
 def run_main(folder, form, n_images):
@@ -548,6 +669,91 @@ def phase_main_path(args, rng, dev, errors, results):
         results["inputs"] = (lp, pos, K.stitch_labels(lp, pos))
     finally:
         tracer.enabled = False
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_command_line(args, rng, dev, results):
+    """``python3 -m ecseg_torch.pipelines.metaseg`` as a user runs it: a
+    subprocess on the default device, in a directory holding a
+    ``config.yaml`` (read by the port's own YAML reader) whose
+    ``metaseg.inpath`` names a folder with a copy of the repository's
+    ``example_ecSeg/input.tif`` (LZW, predictor 2) and one synthetic 2048^2
+    image that this phase writes as LZW itself (no cv2 here), and
+    ``models/metaseg.npz`` from the demo weights.  Checks: exit code 0; two
+    CSV rows; every ``labels/*.npy`` equal to the host oracle on the raw
+    canvas and byte-equal to an in-process ``main`` on a copy of the
+    folder.  Prints the host decode times of both files."""
+    import importlib.util
+
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.demo import demo_metaseg_params
+    from ecseg_torch.models.weights import params_to_numpy, save_npz
+    from ecseg_torch.ops.meta_post import meta_inference
+    from ecseg_torch.pipelines import metaseg
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="ecseg_cli_")
+    cwd = os.getcwd()
+    try:
+        save_npz(os.path.join(work, "models", "metaseg.npz"), params_to_numpy(demo_metaseg_params(torch.Generator().manual_seed(args.seed))))
+        names = ["input.tif", "synth2048.tif"]
+        img = synthetic_dapi(rng, SIZE, SIZE, crowded=False)
+        t0 = time.perf_counter()
+        lzw = lzw_tiff_bytes(img)
+        encode_s = time.perf_counter() - t0
+        for sub in ("imgs", "inproc"):
+            os.makedirs(os.path.join(work, sub))
+            shutil.copy(os.path.join(root, "example_ecSeg", "input.tif"), os.path.join(work, sub, names[0]))
+            with open(os.path.join(work, sub, names[1]), "wb") as f:
+                f.write(lzw)
+        decode_s = {}
+        for name in names:
+            path = os.path.join(work, "imgs", name)
+            with open(path, "rb") as f:
+                tags = imgio._tiff_header(f.read())[1]
+            check(tags[259] == (5,) and tags[317] == (2,), f"{name}: not LZW with the predictor ({tags.get(259)}, {tags.get(317)})")
+            imgio.imread_rgb(path)  # builds the host decoder once
+            t0 = time.perf_counter()
+            got = imgio.imread_rgb(path)
+            decode_s[name] = time.perf_counter() - t0
+            check(got.dtype == np.uint16 and got.shape == ((700, 900) if name == names[0] else (SIZE, SIZE)), f"{name}: decoded {got.dtype} {got.shape}")
+        check(np.array_equal(got, img), "the 2048^2 LZW file does not decode to the image written")
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            f.write("# metaseg only, as in the repository's config.yaml\nmetaseg:\n  inpath: ./imgs\n")
+        missing = {m: importlib.util.find_spec(m) is None for m in ("yaml", "cv2")}
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ecseg_torch.pipelines.metaseg"], cwd=work, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m ecseg_torch.pipelines.metaseg exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(os.path.join(work, "imgs", "ec_quantification.csv")) as f:
+            rows = f.read().splitlines()
+        check(rows[0] == "image name,# of ec" and sorted(r.rsplit(",", 1)[0] for r in rows[1:]) == names, f"command line's CSV rows {rows}")
+        os.chdir(work)
+        model = metaseg.load_model(device=dev)
+        with post_form("default"):
+            check(metaseg.main(config=Config(raw={"metaseg": {"inpath": os.path.join(work, "inproc")}})) == 0, "in-process main failed")
+            for name in names:
+                npy = os.path.join("labels", name[:-4] + ".npy")
+                out = np.load(os.path.join(work, "imgs", npy))
+                patches, pos = metaseg._prepare_image(os.path.join(work, "imgs", name), save_dapi=False)
+                raw = metaseg.segment_raw(model, patches, pos)
+                check(np.array_equal(out, meta_inference(raw.cpu().numpy().astype(np.int64))), f"command line: {name} labels != host oracle")
+                check(read_bytes(os.path.join(work, "imgs", npy)) == read_bytes(os.path.join(work, "inproc", npy)), f"command line: {npy} bytes != in-process run's")
+        check(read_bytes(os.path.join(work, "imgs", "ec_quantification.csv")) == read_bytes(os.path.join(work, "inproc", "ec_quantification.csv")), "command line: CSV bytes != in-process run's")
+        results["command_line"] = {
+            "wall_s": cli_s, "decode_s": decode_s, "lzw_bytes": {names[1]: len(lzw)}, "encode_s": encode_s,
+            "not_installed": missing, "csv_rows": rows[1:],
+        }
+        print(
+            f"command line: python -m ecseg_torch.pipelines.metaseg on {names} in {cli_s:.2f} s (process start and "
+            f"kernel build included), rc 0; not installed here: {missing}; labels equal the host oracle and an "
+            f"in-process run's bytes; host decode input.tif (900x700 uint16 LZW) {1e3 * decode_s[names[0]]:.2f} ms, "
+            f"2048^2 uint16 LZW ({len(lzw)} bytes) {1e3 * decode_s[names[1]]:.2f} ms", flush=True,
+        )
+    finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -899,12 +1105,14 @@ def main() -> int:
     phase_count_kernels(K, tiling, np.random.default_rng(args.seed + 2), dev, errors)
     phase_tail_kernels(np.random.default_rng(args.seed + 3), dev, errors, results)
     phase_main_path(args, rng, dev, errors, results)
+    phase_command_line(args, np.random.default_rng(args.seed + 4), dev, results)
     rows = phase_timings(K, dev, errors, results)
     xl_ms = phase_xl_forward(rng, dev)
     per_tile = phase_tile_count(K, dev, results)
     rows += tile_rows(K, dev, errors, results)
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
+    print(json.dumps({"command_line": results["command_line"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -3,11 +3,14 @@ the reference's channel-order and rounding semantics
 (twin of ``ecseg_tpu/core/imgio.py``).
 
 - :func:`imread_rgb` gives what ``skimage.io.imread`` gives the reference
-  (native dtype, RGB order; reference src/utils.py:110).  Uncompressed
-  strip TIFFs (uint8/uint16, gray, RGB or RGBA, either byte order) are
-  decoded here; any other file (compressed, tiled, palette, ...) is handed to
-  OpenCV, imported only then, with a clear error naming the file when it is
-  not installed.
+  (native dtype, RGB order; reference src/utils.py:110).  Strip TIFFs of
+  uint8/uint16 samples, gray, RGB or RGBA, chunky, in either byte order,
+  uncompressed, LZW (the reference's default; ``csrc/tiff_lzw.cpp``, built
+  at first use) or deflate (``zlib``), with or without the horizontal
+  predictor, are decoded here; any other file (tiled, planar, float,
+  JPEG, PackBits, palette, ...) is handed to OpenCV, imported only then,
+  with an error naming the file and what it holds when it is not
+  installed.
 - :func:`save_label_png` writes the metaseg palette PNG with ``zlib``; the
   contract is pixel-level (the decoded colours), as in the JAX package.
 - :func:`save_gray_inverted` writes the ``dapi/`` image as an uncompressed
@@ -16,6 +19,8 @@ the reference's channel-order and rounding semantics
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import glob
 import os
 import struct
@@ -47,9 +52,12 @@ def _tiff_tags(buf: bytes, bo: str, ifd: int) -> dict:
     return tags
 
 
-def _decode_tiff(buf: bytes):
-    """Decoded array of a baseline uncompressed strip TIFF, or ``None``
-    when the file needs a full decoder."""
+_COMPRESSIONS = {1: "none", 5: "LZW", 8: "deflate", 32946: "deflate"}
+
+
+def _tiff_header(buf: bytes):
+    """(byte order, tags of the first IFD), or None for a file that is not
+    a TIFF."""
     if buf[:4] == b"II*\x00":
         bo = "<"
     elif buf[:4] == b"MM\x00*":
@@ -57,31 +65,84 @@ def _decode_tiff(buf: bytes):
     else:
         return None
     (ifd,) = struct.unpack_from(bo + "I", buf, 4)
-    t = _tiff_tags(buf, bo, ifd)
-    w, h = t[256][0], t[257][0]
-    spp = t.get(277, (1,))[0]
+    return bo, _tiff_tags(buf, bo, ifd)
+
+
+def _unsupported(t: dict):
+    """Why the decoder here does not take a TIFF with tags ``t``, or None."""
+    comp = t.get(259, (1,))[0]
     bps = set(t.get(258, (1,)))
-    photometric = t.get(262, (None,))[0]
-    plain = (
-        t.get(259, (1,))[0] == 1  # no compression
-        and t.get(284, (1,))[0] == 1  # chunky samples
-        and t.get(317, (1,))[0] == 1  # no predictor
-        and set(t.get(339, (1,))) == {1}  # unsigned integers
-        and len(bps) == 1
-        and bps <= {8, 16}
-        and (spp, photometric) in ((1, 1), (3, 2), (4, 2))
-        and 273 in t
-        and 279 in t
-        and 322 not in t  # not tiled
+    checks = (
+        (comp in _COMPRESSIONS, "a compression not decoded here"),
+        (t.get(284, (1,))[0] == 1, "planar samples (tag 284)"),
+        (t.get(317, (1,))[0] in (1, 2), f"predictor {t.get(317, (1,))[0]} (tag 317)"),
+        (set(t.get(339, (1,))) == {1}, "samples that are not unsigned integers (tag 339)"),
+        (len(bps) == 1 and bps <= {8, 16}, f"{sorted(bps)} bits per sample (tag 258)"),
+        ((t.get(277, (1,))[0], t.get(262, (None,))[0]) in ((1, 1), (3, 2), (4, 2)), "a photometric layout other than gray, RGB or RGBA"),
+        (273 in t and 279 in t and 322 not in t, "tiles, not strips"),
     )
-    if not plain:
+    for ok, why in checks:
+        if not ok:
+            return f"a TIFF with {why}; its compression (tag 259) is {comp}"
+    return None
+
+
+@functools.lru_cache(maxsize=1)
+def _lzw_decoder():
+    """``ecseg_lzw_decode_strips`` of csrc/tiff_lzw.cpp (built at first use)."""
+    from .._build import host_library
+
+    fn = host_library("tiff_lzw.cpp").ecseg_lzw_decode_strips
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int, p64, p64, ctypes.c_void_p, p64, p64]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lzw_strips(buf: bytes, spans, sizes) -> bytes:
+    """The LZW strips at ``spans`` (offset, length) of ``buf``, decoded to
+    ``sizes`` bytes each."""
+    src = np.array(spans, np.int64).reshape(-1, 2)
+    src_off, src_len = np.ascontiguousarray(src[:, 0]), np.ascontiguousarray(src[:, 1])
+    dst_len = np.array(sizes, np.int64)
+    dst_off = np.concatenate([[0], np.cumsum(dst_len)[:-1]]).astype(np.int64)
+    out = np.empty(int(dst_len.sum()), np.uint8)
+    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    rc = _lzw_decoder()(buf, len(sizes), ptr(src_off), ptr(src_len), out.ctypes.data, ptr(dst_off), ptr(dst_len))
+    if rc:
+        raise ValueError(f"LZW strip {rc - 1} is malformed or decodes to fewer than {sizes[rc - 1]} bytes")
+    return out.tobytes()
+
+
+def _decode_tiff(buf: bytes):
+    """Decoded array of a strip TIFF the decoder here takes (see the module
+    docstring), or ``None`` when the file needs a full decoder."""
+    head = _tiff_header(buf)
+    if head is None or _unsupported(head[1]):
         return None
-    dtype = np.dtype(np.uint8 if bps == {8} else bo + "u2")
-    data = b"".join(
-        buf[o : o + c] for o, c in zip(t[273], t[279])
-    )[: h * w * spp * dtype.itemsize]
-    img = np.frombuffer(data, dtype).astype(dtype.newbyteorder("="))
-    return img.reshape((h, w) if spp == 1 else (h, w, spp))
+    bo, t = head
+    w, h = t[256][0], t[257][0]
+    spp = t[277][0] if 277 in t else 1
+    dtype = np.dtype(np.uint8 if t[258][0] == 8 else bo + "u2")
+    row = w * spp * dtype.itemsize
+    rps = max(1, min(t.get(278, (h,))[0], h))
+    spans = [(o, c) for o, c in zip(t[273], t[279])][: -(-h // rps)]
+    if any(o + c > len(buf) for o, c in spans):
+        raise ValueError("a TIFF strip runs past the end of the file")
+    sizes = [row * min(rps, h - k * rps) for k in range(len(spans))]
+    comp = t.get(259, (1,))[0]
+    if comp == 1:
+        data = b"".join(buf[o : o + min(c, n)] for (o, c), n in zip(spans, sizes))
+    elif comp == 5:
+        data = _lzw_strips(buf, spans, sizes)
+    else:
+        data = b"".join(zlib.decompress(buf[o : o + c])[:n] for (o, c), n in zip(spans, sizes))
+    if len(data) < h * row:
+        raise ValueError(f"the TIFF's strips hold {len(data)} bytes, not the {h * row} of a {h}x{w}x{spp} image")
+    img = np.frombuffer(data[: h * row], dtype).astype(dtype.newbyteorder("=")).reshape(h, w, spp)
+    if t.get(317, (1,))[0] == 2:  # horizontal differencing, per row and sample
+        img = np.cumsum(img, axis=1, dtype=img.dtype)
+    return img[..., 0] if spp == 1 else img
 
 
 def _imread_cv2(path: str, why: str) -> np.ndarray:
@@ -90,7 +151,8 @@ def _imread_cv2(path: str, why: str) -> np.ndarray:
     except ImportError as e:
         raise RuntimeError(
             f"{path}: {why}; reading it needs OpenCV (cv2), which is not "
-            "installed (this package decodes uncompressed strip TIFFs itself)"
+            "installed (this package decodes uncompressed, LZW and deflate "
+            "strip TIFFs itself)"
         ) from e
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
@@ -108,9 +170,13 @@ def imread_rgb(path: str) -> np.ndarray:
         return np.load(path)
     with open(path, "rb") as f:
         buf = f.read()
-    img = _decode_tiff(buf)
+    try:
+        img = _decode_tiff(buf)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from e
     if img is None:
-        return _imread_cv2(path, "not an uncompressed strip TIFF")
+        head = _tiff_header(buf)
+        return _imread_cv2(path, "not a TIFF" if head is None else _unsupported(head[1]))
     return img
 
 

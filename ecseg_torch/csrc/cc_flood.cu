@@ -18,27 +18,33 @@
 // the outputs written once (B3 2, B4/B6 3, B9 7 bytes/pixel: 8-29 MB at
 // 2048^2, 3-9 us at 3.35 TB/s).
 //
-// Design, B4/B6/B9: label the traversable mask with the three-pass
-// union-find (label_launch in cc_label.cuh; B6 with its equal-class merge,
-// as B5), mark the component of every seeded pixel (flag[label] = 1, an
-// idempotent plain store), then gather out = traversable && flag[label].
-// The Pallas flood iterated max-sweeps to a fixpoint, one step per pixel of
-// geodesic distance at worst; labeling first makes the cost independent of
-// it.  B4 and B6 get the int32 label map and the uint8 flag array from the
-// wrapper as scratch; B9 is the same sequence with the label map as its
-// second output, so the mask is labeled once where B4 + B2 labeled it twice.
+// Design, B6/B9: label the traversable mask with the three-pass union-find
+// (label_launch in cc_label.cuh; B6 with its equal-class merge), mark the
+// component of every seeded pixel (flag[label] = 1, an idempotent plain
+// store), then gather out = traversable && flag[label].  The Pallas flood
+// iterated max-sweeps to a fixpoint, one step per pixel of geodesic
+// distance at worst; labeling first makes the cost independent of it.  B6
+// gets the int32 label map and the uint8 flag array from the wrapper as
+// scratch; B9 is the same sequence with the label map as its second output,
+// so the mask is labeled once where B4 + B2 labeled it twice.
 //
-// Design, B3 (ecseg_flood_border): its input is a class's background,
-// nearly the whole canvas as one 4-connected component, and on the three
-// passes millions of merging threads met at that component's one root in
-// device memory (0.85 ms on an H100 at 2048^2, against 2.5 us of bytes).
-// It builds the tiled forest instead (uf_tiles_launch: each 32x32 tile united in shared
-// memory, then one union per run crossing a tile edge), so the giant
-// component makes about two global unions a tile.  Its labels are scratch,
-// so it never flattens them: the forest's last pass marks flag[root] of the
-// perimeter's pixels (the tile pass cleared the flags, so there is no
-// memset), and the gather reads flag[root(parent[i])], mostly one hop that
-// a warp shares.
+// Design, B3 and B4 (ecseg_flood_border, ecseg_flood): on the three passes
+// millions of merging threads met at one root in device memory when the
+// traversable mask was one giant component (B3's input, a class's
+// background: 0.85 ms on an H100 at 2048^2, against 2.5 us of bytes), and
+// the merge, memset, mark and gather were six launches (B4: 0.11 ms at the
+// main path's input).  Both build the tiled forest instead (uf_tiles_launch:
+// each 32x32 tile united in shared memory, then one union per run crossing
+// a tile edge), so a giant component makes about two global unions a tile,
+// and run four launches.
+// Their labels are scratch, so they never flatten them.  The tile pass
+// writes the flags (no memset), and the compress pass marks flag[root]: B3
+// for the perimeter's pixels; B4 for the pixels of every tile-local piece
+// that holds a seed, which the tile pass flagged from its shared-memory
+// forest, so the marking costs no launch and no walk of its own, and dense
+// seeds (a whole class) cost what sparse ones do.  The gather reads
+// flag[root(parent[i])], mostly one hop that a warp shares.  B4 is
+// templated on the same-class predicate, so B6 can take it.
 
 #include "cc_label.cuh"
 
@@ -52,10 +58,11 @@ __global__ void mark_seeds(const uint8_t* __restrict__ trav,
   if (i < n && trav[i] && seeds[i]) flag[labels[i]] = 1;
 }
 
-// B3: out = traversable && the pixel's root is flagged (background has
-// parent -1).
-__global__ void gather_roots(int* parent, const uint8_t* __restrict__ flag,
-                             uint8_t* out, int n) {
+// B3, B4: out = traversable && the pixel's root is flagged (background has
+// parent -1).  `flag` may be `out` itself: flags are read only at roots,
+// and a root's output is its own flag, so no read sees a changed value.
+__global__ void gather_roots(int* parent, const uint8_t* flag, uint8_t* out,
+                             int n) {
   constexpr int kPixels = ecseg::kPixelsPerThread;
   const int base = blockIdx.x * blockDim.x * kPixels + threadIdx.x;
   int p[kPixels];
@@ -101,12 +108,25 @@ int flood_launch(const uint8_t* trav, const uint8_t* seeds, int32_t* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B3 on the tiled forest; `parent` and `flag` are scratch.
+// B3 on the tiled forest; `parent` and `flag` are scratch (`flag` may be
+// `out`).
 inline int flood_border_launch(const uint8_t* trav, int32_t* parent,
                                uint8_t* flag, uint8_t* out, int h, int w,
                                cudaStream_t s) {
   int n = h * w;
-  uf_tiles_launch(trav, parent, h, w, 1, s, flag);  // clears and marks `flag`
+  uf_tiles_launch(trav, parent, h, w, 1, s, flag);  // marks the perimeter's roots
+  gather_roots<<<pixel_blocks(n), kThreads, 0, s>>>(parent, flag, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B4 on the tiled forest; `parent` and `flag` are scratch (`flag` may be
+// `out`).
+template <bool kSameClass>
+int flood_seeds_launch(const uint8_t* trav, const uint8_t* seeds,
+                       int32_t* parent, uint8_t* flag, uint8_t* out, int h,
+                       int w, int connectivity, cudaStream_t s) {
+  int n = h * w;
+  uf_tiles_launch<kSameClass>(trav, parent, h, w, connectivity, s, flag, seeds);  // marks the seeds' roots
   gather_roots<<<pixel_blocks(n), kThreads, 0, s>>>(parent, flag, out, n);
   return static_cast<int>(cudaGetLastError());
 }
@@ -125,9 +145,9 @@ extern "C" int ecseg_flood_border(const uint8_t* trav, int32_t* labels,
 extern "C" int ecseg_flood(const uint8_t* trav, const uint8_t* seeds,
                            int32_t* labels, uint8_t* flag, uint8_t* out, int h,
                            int w, int connectivity, void* stream) {
-  return ecseg::flood_launch<false>(trav, seeds, labels, flag, out, h, w,
-                                    connectivity,
-                                    static_cast<cudaStream_t>(stream));
+  return ecseg::flood_seeds_launch<false>(trav, seeds, labels, flag, out, h,
+                                          w, connectivity,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // B6: `cls` is the uint8 class map, 8-connectivity.

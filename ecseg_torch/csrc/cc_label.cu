@@ -20,7 +20,7 @@
 // than blobs.  The parent array is the output itself, so the kernel
 // allocates nothing.
 //
-// B2 runs the tiled form (label_tiled_launch): what bounded the three
+// B2 and B5 run the tiled form (label_tiled_launch): what bounded the three
 // global passes was not bytes but the device-memory atomics and the
 // repeated reads of parent[] (every fg pixel made 2-4 global unions, each a
 // walk of volatile loads).  Now a block labels its 32x32 tile in shared
@@ -31,10 +31,11 @@
 // flattens: about the mask read once, the labels written once and read
 // once more.
 //
-// B5 is still the three passes of label_launch with the merge predicate
-// "equal class" (a template argument of uf_merge): one labeling covers
-// every class, where the per-class form ran B2 once per class.  The tiled
-// form keeps the same template argument, so B5 can move onto it.
+// B5 instantiates it with the merge predicate "equal class" (the template
+// argument kSameClass of uf_tile and uf_tile_edges): one labeling covers
+// every class, where the per-class form ran B2 once per class.  Its row
+// runs and skip rules hold unchanged, since "equal nonzero class" is an
+// equivalence like "both foreground".
 
 #include "cc_label.cuh"
 
@@ -47,7 +48,7 @@ extern "C" int ecseg_label(const uint8_t* mask, int32_t* labels, int h, int w,
 
 extern "C" int ecseg_label_mc(const uint8_t* cls, int32_t* labels, int h, int w,
                               void* stream) {
-  ecseg::label_launch<true>(cls, labels, h, w, 2,
-                            static_cast<cudaStream_t>(stream));
+  ecseg::label_tiled_launch<true>(cls, labels, h, w, 2,
+                                  static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

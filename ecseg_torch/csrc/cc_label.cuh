@@ -21,7 +21,7 @@
 //
 // Two launches build the forest:
 //
-// label_launch (B4, B5, B6, B8, B9): three passes over the (H, W) map, one
+// label_launch (B6, B8, B9): three passes over the (H, W) map, one
 // thread per pixel, all state in the int32 output itself (the parent array):
 //   init     parent[i] = fg ? i : -1
 //   merge    each fg pixel unites with its already-scanned fg neighbours
@@ -33,8 +33,9 @@
 // again: B3 took 0.85 ms on an H100 at 2048^2 where its bytes need
 // 2.5 us.
 //
-// uf_tiles_launch (B2, B3): a block-local union-find in shared memory before
-// a global merge that touches only the tiles' edges.
+// uf_tiles_launch (B2-B5; B5 with the equal-class predicate): a block-local
+// union-find in shared memory before a global merge that touches only the
+// tiles' edges.
 //   tile     one block per 32x32 tile (5 KB of shared memory, 8 blocks an
 //            SM), each warp a band of 4 rows.  A row's runs come from one
 //            ballot (each pixel's parent is its run's first pixel); each
@@ -64,8 +65,10 @@
 // and a pixel that is its own root does not walk at all.  Walked with the
 // volatile device-memory finds, that pass was half of B2's time on an H100,
 // bound by the latency of dependent L2 loads.
-// label_tiled_launch flattens the forest (B2); B3 marks the roots of the
-// perimeter in the compress pass and gathers each pixel's root's flag
+// label_tiled_launch flattens the forest (B2, B5); B3 marks the roots of the
+// perimeter in the compress pass, B4 the roots of its seeded pieces (the
+// tile pass flags the tile-local pieces that hold a seed, the compress pass
+// carries the flags to the roots), and both gather each pixel's root's flag
 // without flattening (cc_flood.cu).
 
 #pragma once
@@ -196,13 +199,16 @@ constexpr int kTile = 32;  // tile side: a warp spans a tile row
 constexpr int kTileThreads = 256;
 
 // Stage 1: one block per tile (tiles row-major, `tiles_x` per tile row).
-// Pixels past the map's right or bottom edge are background.
-// `clear`, when given, is zeroed at every pixel of the tile (B3's flags).
-template <bool kSameClass>
+// Pixels past the map's right or bottom edge are background.  `flag`, when
+// given, is written at every pixel of the tile: 0, or with kSeeded 1 at
+// every pixel of a tile-local piece that holds one of `seeds` (B4; the
+// compress pass carries it to the piece's root).  kSeeded is a template
+// argument, so the other kernels' tile pass carries none of its work.
+template <bool kSameClass, bool kSeeded = false>
 __global__ void __launch_bounds__(kTileThreads)
     uf_tile(const uint8_t* __restrict__ mask, int* __restrict__ parent,
-            uint8_t* __restrict__ clear, int h, int w, int tiles_x,
-            int connectivity) {
+            uint8_t* __restrict__ flag, const uint8_t* __restrict__ seeds,
+            int h, int w, int tiles_x, int connectivity) {
   __shared__ uint8_t val[kTile][kTile];
   __shared__ int local[kTile * kTile];  // tile-local parents, -1 background
   const int y0 = (blockIdx.x / tiles_x) * kTile;
@@ -212,11 +218,12 @@ __global__ void __launch_bounds__(kTileThreads)
   constexpr int kRows = kTile / (kTileThreads / 32);  // warp w: rows 4w..4w+3
   const int band = (threadIdx.x >> 5) * kRows;
 
-  uint8_t own[kRows];  // all loads in flight before any is used
+  uint8_t own[kRows], seed[kRows];  // all loads in flight before any is used
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     const int y = y0 + band + j;
     own[j] = (y < h && x < w) ? mask[y * w + x] : 0;
+    seed[j] = (kSeeded && y < h && x < w) ? seeds[y * w + x] : 0;
   }
   // runs of each row: a pixel's parent is the first pixel of its run
 #pragma unroll
@@ -282,6 +289,20 @@ __global__ void __launch_bounds__(kTileThreads)
     }
   } while (__syncthreads_or(moved));
 
+  // B4: which local pieces hold a seed, in `val` (no longer read)
+  uint8_t* seeded = &val[0][0];
+  if constexpr (kSeeded) {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) seeded[(band + j) * kTile + lane] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int r = local[(band + j) * kTile + lane];
+      if (r >= 0 && seed[j]) seeded[r] = 1;  // an idempotent byte store
+    }
+    __syncthreads();
+  }
+
   // the global parent is the flat index of the local root
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
@@ -290,7 +311,7 @@ __global__ void __launch_bounds__(kTileThreads)
     const int y = y0 + ly;
     if (y < h && x < w) {
       parent[y * w + x] = r < 0 ? -1 : (y0 + r / kTile) * w + x0 + r % kTile;
-      if (clear != nullptr) clear[y * w + x] = 0;
+      if (flag != nullptr) flag[y * w + x] = kSeeded && r >= 0 ? seeded[r] : 0;
     }
   }
 }
@@ -354,10 +375,15 @@ __global__ void __launch_bounds__(64)
 // pass linked, the walks' path halving acts as pointer jumping, so the
 // chains of tile roots that concurrent unions built collapse in a few
 // rounds; each walk then points every node it passed at the root, so the
-// per-pixel pass finds most roots in one hop.  `border_flag`, when given,
-// gets flag[root] = 1 for each fg pixel on the map's own perimeter (B3).
+// per-pixel pass finds most roots in one hop.  `flag`, when given, gets
+// flag[root] = 1 for each fg pixel on the map's own perimeter (B3) or, with
+// `seeded`, for each fg pixel whose own flag the tile pass set (B4): every
+// piece that reaches another tile has a pixel on its tile's border, and a
+// piece that does not is its component, its local root the global one.  A
+// walker may read a root's flag while another sets it; either value gives
+// the same final flags.
 __global__ void __launch_bounds__(128)
-    uf_compress_tiles(int* parent, uint8_t* border_flag, int h, int w,
+    uf_compress_tiles(int* parent, uint8_t* flag, bool seeded, int h, int w,
                       int tiles_x) {
   const int y0 = (blockIdx.x / tiles_x) * kTile;
   const int x0 = (blockIdx.x % tiles_x) * kTile;
@@ -375,8 +401,8 @@ __global__ void __launch_bounds__(128)
     atomicMin(parent + x, root);
     x = next;
   }
-  if (border_flag != nullptr && (r == 0 || r == h - 1 || c == 0 || c == w - 1)) {
-    border_flag[root] = 1;
+  if (flag != nullptr && (seeded ? flag[r * w + c] != 0 : r == 0 || r == h - 1 || c == 0 || c == w - 1)) {
+    flag[root] = 1;
   }
 }
 
@@ -411,18 +437,25 @@ inline int pixel_blocks(int n) {
 
 // Stages 1 and 2 on `stream`: `parent` (h, w) int32 becomes a forest whose
 // roots are the components' minimum flat indices, -1 on background, with
-// most nodes one hop from their root.  `border_flag`, when given, is an
-// (h*w) uint8 array that ends up 1 at the root of every component touching
-// the map's perimeter and 0 elsewhere.
+// most nodes one hop from their root.  `flag`, when given, is an (h*w)
+// uint8 array that ends up 1 at the root of every component that touches
+// the map's perimeter (B3) or, with `seeds` (h, w) uint8, that holds a
+// seed (B4), and 0 at every other root; its values off the roots are
+// scratch, so the floods' output may serve as `flag`.
 template <bool kSameClass = false>
 inline void uf_tiles_launch(const uint8_t* mask, int* parent, int h, int w,
                             int connectivity, cudaStream_t stream,
-                            uint8_t* border_flag = nullptr) {
+                            uint8_t* flag = nullptr,
+                            const uint8_t* seeds = nullptr) {
   const int tiles_x = (w + kTile - 1) / kTile;
   const int tiles = tiles_x * ((h + kTile - 1) / kTile);
-  uf_tile<kSameClass><<<tiles, kTileThreads, 0, stream>>>(mask, parent, border_flag, h, w, tiles_x, connectivity);
+  if (seeds != nullptr) {
+    uf_tile<kSameClass, true><<<tiles, kTileThreads, 0, stream>>>(mask, parent, flag, seeds, h, w, tiles_x, connectivity);
+  } else {
+    uf_tile<kSameClass><<<tiles, kTileThreads, 0, stream>>>(mask, parent, flag, nullptr, h, w, tiles_x, connectivity);
+  }
   uf_tile_edges<kSameClass><<<tiles, 64, 0, stream>>>(mask, parent, h, w, tiles_x, connectivity);
-  uf_compress_tiles<<<tiles, 128, 0, stream>>>(parent, border_flag, h, w, tiles_x);
+  uf_compress_tiles<<<tiles, 128, 0, stream>>>(parent, flag, seeds != nullptr, h, w, tiles_x);
 }
 
 // The tiled labeling: the forest, then every parent flattened to its root.

@@ -13,10 +13,11 @@ counters.
 | B8b | count_from_patches | csrc/cc_count.cu     | cc_pallas.count_cc_from_patches       |
 | B9 | label_and_flood     | csrc/cc_flood.cu     | cc_pallas.label_and_flood_pallas      |
 
-B2 (entry ``ecseg_label``) and B3 (``ecseg_flood_border``) build the tiled
-union-find forest of csrc/cc_label.cuh: each 32x32 tile united in shared
-memory, then unions across tile edges only; B4-B6, B8 and B9 the three
-global passes of ``label_launch``.
+B2 (entry ``ecseg_label``), B3 (``ecseg_flood_border``), B4
+(``ecseg_flood``) and B5 (``ecseg_label_mc``) build the tiled union-find
+forest of csrc/cc_label.cuh: each 32x32 tile united in shared memory, then
+unions across tile edges only; B6, B8 and B9 the three global passes of
+``label_launch``.
 
 Dispatch is by where the input lies: a CPU tensor goes to the plain twin
 (``*_plain``), a CUDA tensor to the kernel, anything else raises.  There is
@@ -270,9 +271,16 @@ def _cfunc(name: str):
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _cfunc(name)(*args, stream)
+    """Call the entry ``name`` on ``device``'s current stream.  The device is
+    made current only when it is not (entering ``torch.cuda.device`` and
+    building a ``Stream`` object cost more host time than the small kernels
+    take on the card)."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index != current:
+        with torch.cuda.device(index):
+            return _launch(name, device, *args)
+    rc = _cfunc(name)(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {rc}")
 
@@ -344,18 +352,24 @@ def label(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
     return out
 
 
+# the floods on the tiled forest read their flags only at roots, whose
+# output is their own flag, so their output serves as the flag array (one
+# allocation less a call)
+_FLAGS_IN_OUT = ("ecseg_flood_border", "ecseg_flood")
+
+
 def _flood(name, what, trav, seeds, *conn, labels=None):
     """Launch the flood entry ``name`` of csrc/cc_flood.cu and count it under
     ``what``; ``labels`` is the int32 label map it writes (scratch unless the
-    caller keeps it; B3's is a union-find forest, not labels).  ``seeds``
-    None: the border flood, whose entry takes no seeds."""
+    caller keeps it; B3's and B4's is a union-find forest, not labels).
+    ``seeds`` None: the border flood, whose entry takes no seeds."""
     h, w = trav.shape
     out = torch.empty((h, w), dtype=torch.bool, device=trav.device)
     if out.numel() == 0:
         return out
     if labels is None:
         labels = torch.empty((h, w), dtype=torch.int32, device=trav.device)
-    flag = torch.empty((h * w,), dtype=torch.uint8, device=trav.device)
+    flag = out if name in _FLAGS_IN_OUT else torch.empty((h * w,), dtype=torch.uint8, device=trav.device)
     seed_ptr = () if seeds is None else (seeds.data_ptr(),)
     _launch(
         name, trav.device, trav.data_ptr(), *seed_ptr,

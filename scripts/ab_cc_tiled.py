@@ -1,25 +1,29 @@
-"""Time the port's B2 (``ecseg_label``) and B3 (``ecseg_flood_border``)
-kernels against the three-pass union-find of an older checkout of the
-port, in turns on one CUDA card.
+"""Time the port's B2 (``ecseg_label``), B3 (``ecseg_flood_border``), B4
+(``ecseg_flood``) and B5 (``ecseg_label_mc``) kernels against those of
+another checkout of the port, in turns on one CUDA card.
 
     python3 scripts/ab_cc_tiled.py --base DIR [--reps 20] [--profile] [--out FILE]
 
-DIR is a checkout of the repository from before the tiled union-find (its
-``ecseg_torch/csrc/cc_flood.cu`` floods from the border through
-``ecseg_flood`` with a null seed pointer).  Its ``cc_label.cu`` and
-``cc_flood.cu`` are built with this checkout's nvcc flags into a temporary
-directory; this checkout's kernels through ``ecseg_torch._build``.  Both
-are called through ctypes on preallocated buffers, so the times are the
-kernels' own.  The masks are those of ``chip_smoke.py``'s phase 2: random
-(p = 0.5), snake and spiral at 2048^2 and 2048x3072, and the tile-edge
-masks of ``tests/_masks.py`` (``tile_masks``) at 2048^2, 2047x2049,
-33x4097, 1x2048 and 2048x1.  Per mask: B2 at connectivity 1 and 2 and B3,
-each timed base, new, new, base (CUDA-event mean over ``--reps``
+DIR is another checkout of the repository (the base).  Its ``cc_label.cu``
+and ``cc_flood.cu`` are built with this checkout's nvcc flags into a
+temporary directory; this checkout's kernels through
+``ecseg_torch._build``.  A base from before the tiled union-find has no
+``ecseg_flood_border``: its border flood is ``ecseg_flood`` with a null
+seed pointer.  Both versions are called through ctypes on preallocated
+buffers, so the times are the kernels' own.  The masks are those of
+``chip_smoke.py``'s phase 2: random (p = 0.5), snake and spiral at 2048^2
+and 2048x3072, and the tile-edge masks of ``tests/_masks.py``
+(``tile_masks``) at 2048^2, 2047x2049, 33x4097, 1x2048 and 2048x1.  Per
+mask: B2 at connectivity 1 and 2, B3, B4 at connectivity 1 and 2 from
+sparse random seeds (p = 0.001, some off the mask) and B5 on the mask as
+a class map (0 and 1); then B5 on ``chip_smoke.class_maps`` (uniform,
+column-striped, snake and spiral class maps) at 2048^2 and 2048x3072.
+Each is timed base, new, new, base (CUDA-event mean over ``--reps``
 back-to-back launches after one warm-up), and the two versions' outputs
-must be equal byte for byte.  With ``--profile``, each 2048^2 mask's
+must be equal byte for byte.  With ``--profile``, each 2048^2 input's
 calls are also traced once by ``torch.profiler`` and each version's
 device time is split by kernel name (mean us per call).  Prints one line
-per mask and a JSON object last (also written to ``--out``).
+per input and a JSON object last (also written to ``--out``).
 """
 
 from __future__ import annotations
@@ -42,8 +46,21 @@ TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def _bind(fn, argtypes):
+    fn.argtypes = argtypes
+    fn.restype = _I
+    return fn
+
+
+_LABEL = [_P, _P, _I, _I, _I, _P]
+_FLOOD = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+_FLOOD_BORDER = [_P, _P, _P, _P, _I, _I, _P]
+_LABEL_MC = [_P, _P, _I, _I, _P]
+
+
 def build_base(base: str, out_dir: str):
-    """(label, flood) ctypes functions of the base checkout's kernels."""
+    """{kernel: ctypes function} of the base checkout's kernels; the border
+    flood takes (trav, labels, flag, out, h, w, stream) in either form."""
     from ecseg_torch import _build
 
     csrc = os.path.join(base, "ecseg_torch", "csrc")
@@ -58,33 +75,43 @@ def build_base(base: str, out_dir: str):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the base's {src}:\n{out}{err}")
         libs[src] = ctypes.CDLL(so)
-    label = libs["cc_label.cu"].ecseg_label
-    label.argtypes = [_P, _P, _I, _I, _I, _P]
-    flood = libs["cc_flood.cu"].ecseg_flood
-    flood.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-    for fn in (label, flood):
-        fn.restype = _I
-    return label, flood
+    flood = _bind(libs["cc_flood.cu"].ecseg_flood, _FLOOD)
+    if hasattr(libs["cc_flood.cu"], "ecseg_flood_border"):
+        border = _bind(libs["cc_flood.cu"].ecseg_flood_border, _FLOOD_BORDER)
+    else:
+        border = lambda trav, lab, flag, out, h, w, stream: flood(trav, None, lab, flag, out, h, w, 1, stream)
+    return {
+        "label": _bind(libs["cc_label.cu"].ecseg_label, _LABEL),
+        "flood_border": border,
+        "flood_seeds": flood,
+        "label_mc": _bind(libs["cc_label.cu"].ecseg_label_mc, _LABEL_MC),
+    }
 
 
 def new_kernels():
     from ecseg_torch.ops import cc_kernels as K
 
-    return K._cfunc("ecseg_label"), K._cfunc("ecseg_flood_border")
+    return {
+        "label": K._cfunc("ecseg_label"), "flood_border": K._cfunc("ecseg_flood_border"),
+        "flood_seeds": K._cfunc("ecseg_flood"), "label_mc": K._cfunc("ecseg_label_mc"),
+    }
 
 
 def masks():
+    """(name, bool mask or None, uint8 class map)."""
     from _masks import tile_masks
-    from chip_smoke import snake, spiral
+    from chip_smoke import class_maps, snake, spiral
 
     rng = np.random.default_rng(0)
     for h, w in ((2048, 2048), (2048, 3072)):
-        yield f"random {h}x{w}", rng.random((h, w)) < 0.5
-        yield f"snake {h}x{w}", snake(h, w)
-        yield f"spiral {h}x{w}", spiral(h, w)
+        for name, m in (("random", rng.random((h, w)) < 0.5), ("snake", snake(h, w)), ("spiral", spiral(h, w))):
+            yield f"{name} {h}x{w}", m, m.astype(np.uint8)
     for h, w in TILE_SIZES:
         for name, m in tile_masks(h, w).items():
-            yield f"{name} {h}x{w}", m
+            yield f"{name} {h}x{w}", m, m.astype(np.uint8)
+    for h, w in ((2048, 2048), (2048, 3072)):
+        for name, cls in class_maps(np.random.default_rng(1), h, w).items():
+            yield f"{name} class map {h}x{w}", None, cls
 
 
 def event_ms(fn, reps):
@@ -114,7 +141,7 @@ def kernel_us(fn, reps):
     out = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
-            name = e.name.split("(")[0]
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
             out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / reps
     return out
 
@@ -130,13 +157,14 @@ def main() -> int:
         print("ab_cc_tiled: no CUDA device is available", file=sys.stderr)
         return 1
     with tempfile.TemporaryDirectory(prefix="ab_cc_") as tmp:
-        base_label, base_flood = build_base(os.path.abspath(args.base), tmp)
-        new_label, new_flood = new_kernels()
+        base_k = build_base(os.path.abspath(args.base), tmp)
+        new_k = new_kernels()
         stream = torch.cuda.current_stream().cuda_stream
+        seed_rng = np.random.default_rng(2)
         rows = []
-        for what, m in masks():
-            mt = torch.from_numpy(m).cuda()
-            h, w = m.shape
+        for what, m, cls in masks():
+            h, w = cls.shape
+            ct = torch.from_numpy(cls).cuda()
             lab = [torch.empty((h, w), dtype=torch.int32, device="cuda") for _ in range(2)]
             out = [torch.empty((h, w), dtype=torch.bool, device="cuda") for _ in range(2)]
             flag = torch.empty(h * w, dtype=torch.uint8, device="cuda")
@@ -146,25 +174,34 @@ def main() -> int:
                 if rc:
                     raise RuntimeError(f"launch failed on {what}: CUDA error {rc}")
 
+            def pair(key, *args, res):
+                """(base, new, outputs) of kernel ``key``; an argument given
+                as a list holds the base's and the new side's values."""
+                def side(k, fns):
+                    return lambda: call(fns[key], *[a[k] if isinstance(a, list) else a for a in args])
+                return side(0, base_k), side(1, new_k), res
+
             runs = {}
-            for conn in (1, 2):
-                runs[f"label conn {conn}"] = (
-                    lambda c=conn: call(base_label, mt.data_ptr(), lab[0].data_ptr(), h, w, c),
-                    lambda c=conn: call(new_label, mt.data_ptr(), lab[1].data_ptr(), h, w, c),
-                    lab,
-                )
-            runs["flood_border"] = (
-                lambda: call(base_flood, mt.data_ptr(), None, lab[0].data_ptr(), flag.data_ptr(), out[0].data_ptr(), h, w, 1),
-                lambda: call(new_flood, mt.data_ptr(), lab[1].data_ptr(), flag.data_ptr(), out[1].data_ptr(), h, w),
-                out,
-            )
+            if m is not None:
+                mt = torch.from_numpy(m).cuda()
+                seeds = torch.from_numpy(seed_rng.random((h, w)) < 0.001).cuda()
+                L = [t.data_ptr() for t in lab]
+                O = [t.data_ptr() for t in out]
+                for conn in (1, 2):
+                    runs[f"label conn {conn}"] = pair("label", mt.data_ptr(), L, h, w, conn, res=lab)
+                runs["flood_border"] = pair("flood_border", mt.data_ptr(), L, flag.data_ptr(), O, h, w, res=out)
+                for conn in (1, 2):
+                    runs[f"flood_seeds conn {conn}"] = pair(
+                        "flood_seeds", mt.data_ptr(), seeds.data_ptr(), L, flag.data_ptr(), O, h, w, conn, res=out
+                    )
+            runs["label_mc"] = pair("label_mc", ct.data_ptr(), [t.data_ptr() for t in lab], h, w, res=lab)
             row = {"mask": what}
             for key, (base, new, res) in runs.items():
                 base()
                 new()
                 torch.cuda.synchronize()
                 if not torch.equal(res[0], res[1]):
-                    raise RuntimeError(f"{key} on {what}: the tiled kernel's output differs from the base's")
+                    raise RuntimeError(f"{key} on {what}: the new kernel's output differs from the base's")
                 t = [event_ms(f, args.reps) for f in (base, new, new, base)]
                 row[key] = {"base_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2, "turns": t}
                 if args.profile and (h, w) == (2048, 2048):

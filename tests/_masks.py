@@ -102,6 +102,61 @@ def seeds_like(m, seed=1):
     return np.random.default_rng(seed).random(m.shape) < 0.02
 
 
+def seed_patterns(m, seed=2):
+    """Seeds for a flood of ``m`` aimed at the tiled kernels: sparse, dense
+    (half the map, as a whole class seeds the main path's flood), on the
+    32x32 tile corners, on tile edges, and only off the mask (all ignored)."""
+    rng = np.random.default_rng(seed)
+    r, c = np.indices(m.shape)
+    corner = np.isin(r % 32, (0, 31)) & np.isin(c % 32, (0, 31))
+    edge = (r % 32 == 31) | (c % 32 == 0)
+    return {
+        "sparse": rng.random(m.shape) < 0.002,
+        "dense": rng.random(m.shape) < 0.5,
+        "corners": corner,
+        "edges": edge & (rng.random(m.shape) < 0.1),
+        "off_mask": ~m,
+    }
+
+
+def tile_class_maps(h, w, seed=0):
+    """uint8 class maps aimed at the tiled kernels' same-class predicate:
+    each ``tile_masks`` family as classes 1 and 2 (two classes meeting along
+    every edge of the mask, so the checkerboard's classes meet only
+    diagonally), classes 1 and 2 on alternate 32x32 tiles and on tiles
+    shifted one pixel off the grid, classes 0-2 on tiles, and random
+    classes under class-3 columns and under class-3 rows (stripes)."""
+    rng = np.random.default_rng(seed)
+    r, c = np.indices((h, w))
+    maps = {name: np.where(m, 1, 2).astype(np.uint8) for name, m in tile_masks(h, w, seed).items()}
+    col_stripes = rng.integers(0, 4, (h, w)).astype(np.uint8)
+    col_stripes[:, ::2] = 3
+    row_stripes = rng.integers(0, 4, (h, w)).astype(np.uint8)
+    row_stripes[::2] = 3
+    maps.update({
+        "tiles2": (1 + (r // 32 + c // 32) % 2).astype(np.uint8),
+        "tiles2_shifted": (1 + ((r + 1) // 32 + (c + 1) // 32) % 2).astype(np.uint8),
+        "tiles3": ((r // 32 + c // 32) % 3).astype(np.uint8),
+        "col_stripes": col_stripes,
+        "row_stripes": row_stripes,
+    })
+    return maps
+
+
+def _tile_class_maps():
+    """tile_class_maps at 70x101, a single row and column, and no rows."""
+    rng = np.random.default_rng(12)
+    return {
+        **tile_class_maps(70, 101),
+        "row": rng.integers(0, 3, (1, 150)).astype(np.uint8),
+        "column": rng.integers(0, 3, (150, 1)).astype(np.uint8),
+        "no_rows": np.zeros((0, 40), np.uint8),
+    }
+
+
+TILE_CLASS_MAPS = _tile_class_maps()
+
+
 def random_class_map(rng, h, w, stripes=False):
     """A 0..3 class map as tests/test_cc_multiclass.py builds it: uniform
     noise, a class-1 block touching a class-2 run, and optionally class-3

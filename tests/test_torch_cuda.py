@@ -24,7 +24,9 @@ from ecseg_torch.ops import tiling
 from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
 from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
 
-from _masks import CLASS_MAPS, MASKS, TILE_MASKS, seeds_like, tile_masks
+from _masks import (
+    CLASS_MAPS, MASKS, TILE_CLASS_MAPS, TILE_MASKS, seed_patterns, seeds_like, tile_class_maps, tile_masks,
+)
 
 
 @pytest.fixture
@@ -63,6 +65,38 @@ def test_tiled_cc_kernels_match_twins(cuda, name):
             assert torch.equal(K.label(m, conn), K.label_plain(m, conn)), (mask.shape, conn)
         assert torch.equal(K.flood_from_border(m), K.flood_from_border_plain(m)), mask.shape
         assert torch.equal(K.flood_from_border(~m), K.flood_from_border_plain(~m)), mask.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_MASKS))
+def test_tiled_seeded_flood_matches_twin(cuda, name):
+    """B4 (connectivity 1 and 2) on the tiled forest, bit-equal to its twin
+    on the tile-edge masks with every seed pattern (sparse, dense, on tile
+    corners and edges, only off the mask), at 70x101 and 100x70."""
+    cases = [TILE_MASKS[name]]
+    if name in tile_masks(1, 1):
+        cases.append(tile_masks(100, 70, seed=1)[name])
+    for mask in cases:
+        m = torch.from_numpy(mask).to(cuda)
+        for pattern, seeds in seed_patterns(mask).items():
+            s = torch.from_numpy(seeds).to(cuda)
+            for conn in (1, 2):
+                got, want = K.flood_from_seeds(m, s, conn), K.flood_from_seeds_plain(m, s, conn)
+                assert torch.equal(got, want), (mask.shape, pattern, conn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_CLASS_MAPS))
+def test_tiled_multiclass_label_matches_twin(cuda, name):
+    """B5 on the tiled forest with the equal-class predicate, bit-equal to
+    its twin on class maps whose classes meet along tile edges, on tiles
+    and in stripes, at 70x101 and 100x70."""
+    cases = [TILE_CLASS_MAPS[name]]
+    if name in tile_class_maps(1, 1):
+        cases.append(tile_class_maps(100, 70, seed=1)[name])
+    for cls_map in cases:
+        cls = torch.from_numpy(cls_map).to(cuda)
+        assert torch.equal(K.label_multiclass(cls), K.label_multiclass_plain(cls)), cls_map.shape
 
 
 @pytest.mark.cuda

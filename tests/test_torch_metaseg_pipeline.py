@@ -5,14 +5,21 @@ read by both packages' ``load_model``).  ``labels/*.npy`` and
 ``ec_quantification.csv`` must be byte-identical; the PNG and the ``dapi/``
 TIFF must decode to identical pixels.
 
-The folder holds the geometry of tests/test_device_pipeline_e2e.py (a cv2
-TIFF, which the port hands to cv2), a uint16 image in an uncompressed TIFF
-(decoded by the port itself) and an image with more than MAX_NUC nuclei,
-whose device post-processing overflows its budget and is redone on the
-host oracle.  The port runs in each post-processing form that the JAX
-package's variables select; every form must give the same bytes."""
+The folder holds the geometry of tests/test_device_pipeline_e2e.py (a TIFF
+in cv2's default LZW encoding), a uint16 image in an uncompressed TIFF, a
+copy of the repository's own input (``example_ecSeg/input.tif``: 900x700
+uint16, LZW with the horizontal predictor, as the reference writes it) and
+an image with more than MAX_NUC nuclei, whose device post-processing
+overflows its budget and is redone on the host oracle.  The port decodes
+every TIFF itself; the JAX package reads them through cv2.  The port runs
+in each post-processing form that the JAX package's variables select;
+every form must give the same bytes.  The command line's path (``main``
+with no config, reading ``config.yaml`` from the working directory) is run
+once, with PyYAML unimportable."""
 
 import os
+import shutil
+import sys
 
 import cv2
 import numpy as np
@@ -26,6 +33,8 @@ from ecseg_torch.pipelines import metaseg as port_metaseg
 from ecseg_torch.runtime import fallbacks as port_fallbacks
 
 from _torchutil import numpy_metaseg_tree, single_torch_thread  # noqa: F401 (autouse fixture)
+
+REPO_INPUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "example_ecSeg", "input.tif")
 
 
 def _crafted_tiny_params():
@@ -70,6 +79,7 @@ def _make_folder(d):
     crowd[4:256:4, 5:296:4] = 128
     crowd[5:256:4, 5:296:4] = 128
     cv2.imwrite(os.path.join(d, "crowded.tif"), crowd, [cv2.IMWRITE_TIFF_COMPRESSION, 1])
+    shutil.copy(REPO_INPUT, os.path.join(d, "input.tif"))
     return sorted(os.listdir(d))
 
 
@@ -147,6 +157,24 @@ def test_port_main_in_other_forms_matches_jax_main(workdir, monkeypatch, env):
     _run_jax(jdir, monkeypatch)
     _run_port(tdir, monkeypatch, env)
     _assert_same_outputs(tdir, jdir, names)
+
+
+def test_command_line_path_reads_config_yaml(workdir, monkeypatch):
+    """``main`` with no config, as ``python -m ecseg_torch.pipelines.metaseg``
+    calls it: ``config.yaml`` from the working directory, read with PyYAML
+    unimportable; the outputs equal an in-process run's, byte for byte."""
+    for d in ("cli", "inproc"):
+        os.makedirs(workdir / d)
+        shutil.copy(REPO_INPUT, workdir / d / "input.tif")
+    names = ["input.tif"]
+    (workdir / "config.yaml").write_text("# metaseg only\nmetaseg:\n  inpath: ./cli  # the folder\n")
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "yaml", None)
+        assert port_metaseg.main(device="cpu") == 0
+    assert port_metaseg.main(config=PortConfig(raw={"metaseg": {"inpath": str(workdir / "inproc")}}), device="cpu") == 0
+    _assert_same_outputs(str(workdir / "cli"), str(workdir / "inproc"), names)
+    rows = (workdir / "cli" / "ec_quantification.csv").read_text().splitlines()
+    assert rows[0] == "image name,# of ec" and [r.rsplit(",", 1)[0] for r in rows[1:]] == names
 
 
 def test_missing_folder_exit_code(capsys):
