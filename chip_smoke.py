@@ -17,14 +17,17 @@ Phases (any failure raises; exit code 0 only when all pass):
    seeds on tile corners and edges, and seeds only off the mask) on the
    tile-edge masks of ``tests/_masks.py`` (``tile_masks``: checkerboard,
    diagonals through tile corners, staircase, frames on the 32 and 64
-   grids, a giant background with holes, full, empty), and B5 on its
-   tile-edge class maps (``tile_class_maps``: each mask as two classes,
-   classes on alternate tiles, stripes), at 2048^2 and at the ragged sizes
-   2047x2049, 33x4097, 1x2048 and 2048x1; B5
-   multiclass label, B6 multiclass flood and B9 label+flood (connectivity 1
-   and 2, on the map's odd classes) on a uniformly random 4-class map, a
-   column-striped class map, and a class-1 snake and spiral on class 2, at
-   the same two sizes (B5 beside its three-pass time); B8a count on the
+   grids, a giant background with holes, full, empty), B9 label+flood
+   (labels and flood) on the same masks with the same seeds and
+   connectivities, and B5 and B6 (with each seed pattern; ``off_mask``
+   seeds only class 0) on its tile-edge class maps (``tile_class_maps``:
+   each mask as two classes, classes on alternate tiles, stripes), at
+   2048^2 and at the ragged sizes 2047x2049, 33x4097, 1x2048 and 2048x1;
+   B5 multiclass label, B6 multiclass flood and B9 label+flood
+   (connectivity 1 and 2, on the map's odd classes) on a uniformly random
+   4-class map, a column-striped class map, and a class-1 snake and spiral
+   on class 2, at the same two sizes (B5, B6 and B9 beside their
+   three-pass times); B8a count on the
    random, snake and spiral masks at
    both sizes (connectivity 1 and 2); B8b stitch+count at the 1024^2 (two
    tiles in one launch) and 2048^2 plans for class_id 0-3, also against
@@ -146,8 +149,8 @@ CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
 }
 CONVT_TIMED = "xl up1"  # the shape of B11's timing row
 COUNT_SIZES = ((2048, 2048), (2048, 3072))  # B8a's stress masks
-TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))  # B2-B5 on the tile-edge masks
-# B2's to B5's ms on phase 2's masks and class maps in the three-pass form
+TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))  # B2-B6, B9 on the tile-edge maps
+# B2's to B6's and B9's ms on phase 2's masks and class maps in the three-pass form
 # that the tiled union-find replaced (B2, B3: this script before the
 # change; on an NVIDIA H100 80GB HBM3 at 700.00 W): (kernel, input,
 # connectivity) -> ms
@@ -161,8 +164,9 @@ THREE_PASS_MS = {
     ("flood_border", "random 2048x2048", 1): 0.238, ("flood_border", "snake 2048x2048", 1): 1.143,
     ("flood_border", "spiral 2048x2048", 1): 0.931, ("flood_border", "random 2048x3072", 1): 0.359,
     ("flood_border", "snake 2048x3072", 1): 1.326, ("flood_border", "spiral 2048x3072", 1): 1.024,
-    # B4 (sparse seeds, p = 0.001) and B5: the kernels alone, on preallocated
-    # buffers (scripts/ab_cc_tiled.py's base side, same card and limit)
+    # B4 (sparse seeds, p = 0.001), B5, B6 and B9 (sparse seeds; B9 on the
+    # odd classes): the kernels alone, on preallocated buffers
+    # (scripts/ab_cc_tiled.py's base side, same card and limit)
     ("flood_seeds", "random 2048x2048", 1): 0.234, ("flood_seeds", "random 2048x2048", 2): 1.258,
     ("flood_seeds", "snake 2048x2048", 1): 1.154, ("flood_seeds", "snake 2048x2048", 2): 1.341,
     ("flood_seeds", "spiral 2048x2048", 1): 0.943, ("flood_seeds", "spiral 2048x2048", 2): 1.045,
@@ -173,8 +177,24 @@ THREE_PASS_MS = {
     ("label_mc", "snake class map 2048x2048", 2): 1.490, ("label_mc", "spiral class map 2048x2048", 2): 1.191,
     ("label_mc", "uniform class map 2048x3072", 2): 0.440, ("label_mc", "stripes class map 2048x3072", 2): 2.273,
     ("label_mc", "snake class map 2048x3072", 2): 2.163, ("label_mc", "spiral class map 2048x3072", 2): 1.774,
+    ("flood_mc", "uniform class map 2048x2048", 2): 0.330,
+    ("label_flood", "uniform class map 2048x2048", 1): 0.237, ("label_flood", "uniform class map 2048x2048", 2): 1.280,
+    ("flood_mc", "stripes class map 2048x2048", 2): 1.677,
+    ("label_flood", "stripes class map 2048x2048", 1): 0.834, ("label_flood", "stripes class map 2048x2048", 2): 2.195,
+    ("flood_mc", "snake class map 2048x2048", 2): 1.513,
+    ("label_flood", "snake class map 2048x2048", 1): 1.142, ("label_flood", "snake class map 2048x2048", 2): 1.332,
+    ("flood_mc", "spiral class map 2048x2048", 2): 1.209,
+    ("label_flood", "spiral class map 2048x2048", 1): 0.847, ("label_flood", "spiral class map 2048x2048", 2): 1.013,
+    ("flood_mc", "uniform class map 2048x3072", 2): 0.507,
+    ("label_flood", "uniform class map 2048x3072", 1): 0.362, ("label_flood", "uniform class map 2048x3072", 2): 1.886,
+    ("flood_mc", "stripes class map 2048x3072", 2): 2.381,
+    ("label_flood", "stripes class map 2048x3072", 1): 1.223, ("label_flood", "stripes class map 2048x3072", 2): 3.139,
+    ("flood_mc", "snake class map 2048x3072", 2): 2.136,
+    ("label_flood", "snake class map 2048x3072", 1): 1.433, ("label_flood", "snake class map 2048x3072", 2): 1.818,
+    ("flood_mc", "spiral class map 2048x3072", 2): 1.717,
+    ("label_flood", "spiral class map 2048x3072", 1): 1.028, ("label_flood", "spiral class map 2048x3072", 2): 1.442,
 }
-REDESIGNED = {"label", "flood_border", "flood_seeds", "label_mc"}  # the kernels on the tiled union-find
+REDESIGNED = {"label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood"}  # the kernels on the tiled union-find
 COUNT_PLANS = ((1024, 1024, 2), (2048, 2048, 1))  # B8b's (h, w, tiles)
 FORWARD_TOL = 2e-3  # bf16 card vs float32 CPU probabilities, tile-count weights (the CPU test's PROB_ATOL)
 TAIL_AGREEMENT = 0.9999  # B10 vs its twin on random bf16: labels that must agree
@@ -360,12 +380,13 @@ def phase_kernels(K, tiling, rng, dev, errors):
 
 
 def phase_tile_masks(K, dev, errors):
-    """B2 (connectivity 1 and 2), B3 (on each mask and its complement) and
-    B4 (connectivity 1 and 2, each seed pattern of ``tests/_masks.py``:
+    """B2 (connectivity 1 and 2), B3 (on each mask and its complement), B4
+    and B9 (connectivity 1 and 2, each seed pattern of ``tests/_masks.py``:
     sparse, dense, on tile corners, on tile edges, only off the mask)
-    bit-equal to their twins on the tile-edge masks, and B5 on the
-    tile-edge class maps (``tile_class_maps``), at every ``TILE_SIZES``
-    size; times at 2048^2."""
+    bit-equal to their twins on the tile-edge masks, and B5 and B6 (each
+    seed pattern of the class map's nonzero pixels) on the tile-edge class
+    maps (``tile_class_maps``), at every ``TILE_SIZES`` size; times at
+    2048^2."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from _masks import seed_patterns, tile_class_maps, tile_masks
 
@@ -373,30 +394,44 @@ def phase_tile_masks(K, dev, errors):
         for name, m in tile_masks(h, w).items():
             mt = torch.from_numpy(m).to(dev)
             what = f"tile mask {name} {h}x{w}"
+            want_labels = {conn: K.label_plain(mt, conn) for conn in (1, 2)}
             for conn in (1, 2):
-                errors.compare("label", K.label(mt, conn), K.label_plain(mt, conn), f"{what} conn {conn}")
+                errors.compare("label", K.label(mt, conn), want_labels[conn], f"{what} conn {conn}")
             for t, side in ((mt, ""), (~mt, " complement")):
                 errors.compare("flood_border", K.flood_from_border(t), K.flood_from_border_plain(t), what + side)
             seeds = {p: torch.from_numpy(s).to(dev) for p, s in seed_patterns(m).items()}
             for p, st in seeds.items():
                 for conn in (1, 2):
-                    errors.compare("flood_seeds", K.flood_from_seeds(mt, st, conn), K.flood_from_seeds_plain(mt, st, conn), f"{what} {p} seeds conn {conn}")
+                    want = K.flood_from_seeds_plain(mt, st, conn)
+                    errors.compare("flood_seeds", K.flood_from_seeds(mt, st, conn), want, f"{what} {p} seeds conn {conn}")
+                    # B9's twin is (label_plain, flood_from_seeds_plain), both computed above
+                    errors.compare("label_flood", K.label_and_flood(mt, st, conn), (want_labels[conn], want), f"{what} {p} seeds conn {conn}")
             if (h, w) == TILE_SIZES[0]:
                 inv, sparse, dense = ~mt, seeds["sparse"], seeds["dense"]
                 print(
-                    f"B2/B3/B4 {what}: match plain; B2 conn 1 {cuda_ms(lambda: K.label(mt, 1), 5):.4f} ms, "
+                    f"B2/B3/B4/B9 {what}: match plain; B2 conn 1 {cuda_ms(lambda: K.label(mt, 1), 5):.4f} ms, "
                     f"conn 2 {cuda_ms(lambda: K.label(mt, 2), 5):.4f} ms; B3 {cuda_ms(lambda: K.flood_from_border(mt), 5):.4f} ms, "
                     f"complement {cuda_ms(lambda: K.flood_from_border(inv), 5):.4f} ms; B4 conn 2 sparse seeds "
-                    f"{cuda_ms(lambda: K.flood_from_seeds(mt, sparse, 2), 5):.4f} ms, dense {cuda_ms(lambda: K.flood_from_seeds(mt, dense, 2), 5):.4f} ms",
+                    f"{cuda_ms(lambda: K.flood_from_seeds(mt, sparse, 2), 5):.4f} ms, dense {cuda_ms(lambda: K.flood_from_seeds(mt, dense, 2), 5):.4f} ms; "
+                    f"B9 conn 2 sparse {cuda_ms(lambda: K.label_and_flood(mt, sparse, 2), 5):.4f} ms, "
+                    f"dense {cuda_ms(lambda: K.label_and_flood(mt, dense, 2), 5):.4f} ms",
                     flush=True,
                 )
         for name, cls in tile_class_maps(h, w).items():
             ct = torch.from_numpy(cls).to(dev)
             what = f"tile class map {name} {h}x{w}"
             errors.compare("label_mc", K.label_multiclass(ct), K.label_multiclass_plain(ct), what)
+            seeds = {p: torch.from_numpy(s).to(dev) for p, s in seed_patterns(cls > 0).items()}
+            for p, st in seeds.items():
+                errors.compare("flood_mc", K.flood_multiclass(ct, st), K.flood_multiclass_plain(ct, st), f"{what} {p} seeds")
             if (h, w) == TILE_SIZES[0]:
-                print(f"B5 {what}: matches plain; {cuda_ms(lambda: K.label_multiclass(ct), 5):.4f} ms", flush=True)
-        print(f"B2/B3/B4/B5 tile-edge masks and class maps {h}x{w}: all match plain", flush=True)
+                sparse, dense = seeds["sparse"], seeds["dense"]
+                print(
+                    f"B5/B6 {what}: match plain; B5 {cuda_ms(lambda: K.label_multiclass(ct), 5):.4f} ms; B6 sparse seeds "
+                    f"{cuda_ms(lambda: K.flood_multiclass(ct, sparse), 5):.4f} ms, dense {cuda_ms(lambda: K.flood_multiclass(ct, dense), 5):.4f} ms",
+                    flush=True,
+                )
+        print(f"B2-B6/B9 tile-edge masks and class maps {h}x{w}: all match plain", flush=True)
 
 
 def class_maps(rng, h, w):
@@ -426,8 +461,12 @@ def phase_multiclass_kernels(K, rng, dev, errors, sizes=((2048, 2048), (2048, 30
             print(
                 f"B5/B6/B9 {what}: match plain; B5 {cuda_ms(lambda: K.label_multiclass(ct), 5):.3f} ms "
                 f"(three-pass {THREE_PASS_MS['label_mc', what, 2]:.3f} ms), "
-                f"B6 {cuda_ms(lambda: K.flood_multiclass(ct, seeds), 5):.3f} ms, "
-                f"B9 conn 2 {cuda_ms(lambda: K.label_and_flood(odd, seeds, 2), 5):.3f} ms",
+                f"B6 {cuda_ms(lambda: K.flood_multiclass(ct, seeds), 5):.3f} ms "
+                f"(three-pass {THREE_PASS_MS['flood_mc', what, 2]:.3f} ms), "
+                f"B9 conn 1 {cuda_ms(lambda: K.label_and_flood(odd, seeds, 1), 5):.3f} ms "
+                f"(three-pass {THREE_PASS_MS['label_flood', what, 1]:.3f} ms), "
+                f"conn 2 {cuda_ms(lambda: K.label_and_flood(odd, seeds, 2), 5):.3f} ms "
+                f"(three-pass {THREE_PASS_MS['label_flood', what, 2]:.3f} ms)",
                 flush=True,
             )
 

@@ -18,49 +18,44 @@
 // the outputs written once (B3 2, B4/B6 3, B9 7 bytes/pixel: 8-29 MB at
 // 2048^2, 3-9 us at 3.35 TB/s).
 //
-// Design, B6/B9: label the traversable mask with the three-pass union-find
-// (label_launch in cc_label.cuh; B6 with its equal-class merge), mark the
-// component of every seeded pixel (flag[label] = 1, an idempotent plain
-// store), then gather out = traversable && flag[label].  The Pallas flood
-// iterated max-sweeps to a fixpoint, one step per pixel of geodesic
-// distance at worst; labeling first makes the cost independent of it.  B6
-// gets the int32 label map and the uint8 flag array from the wrapper as
-// scratch; B9 is the same sequence with the label map as its second output,
-// so the mask is labeled once where B4 + B2 labeled it twice.
+// Design: every entry builds the tiled union-find forest of cc_label.cuh
+// (uf_tiles_launch: each 32x32 tile united in shared memory, then one union
+// per run crossing a tile edge, then a compress pass from every tile
+// border) and gathers each pixel's root's flag: four launches, no memset.
+// The Pallas floods iterated max-sweeps to a fixpoint, one step per pixel
+// of geodesic distance at worst; labeling first makes the cost independent
+// of it; the tiles keep a giant component (B3's input, a class's
+// background) from meeting at one root in device memory (cc_label.cuh).
 //
-// Design, B3 and B4 (ecseg_flood_border, ecseg_flood): on the three passes
-// millions of merging threads met at one root in device memory when the
-// traversable mask was one giant component (B3's input, a class's
-// background: 0.85 ms on an H100 at 2048^2, against 2.5 us of bytes), and
-// the merge, memset, mark and gather were six launches (B4: 0.11 ms at the
-// main path's input).  Both build the tiled forest instead (uf_tiles_launch:
-// each 32x32 tile united in shared memory, then one union per run crossing
-// a tile edge), so a giant component makes about two global unions a tile,
-// and run four launches.
-// Their labels are scratch, so they never flatten them.  The tile pass
-// writes the flags (no memset), and the compress pass marks flag[root]: B3
-// for the perimeter's pixels; B4 for the pixels of every tile-local piece
-// that holds a seed, which the tile pass flagged from its shared-memory
-// forest, so the marking costs no launch and no walk of its own, and dense
-// seeds (a whole class) cost what sparse ones do.  The gather reads
-// flag[root(parent[i])], mostly one hop that a warp shares.  B4 is
-// templated on the same-class predicate, so B6 can take it.
+//   B3 (ecseg_flood_border)  the compress pass marks flag[root] for the
+//        pixels on the map's perimeter.
+//   B4 (ecseg_flood), B6 (ecseg_flood_mc)  the tile pass flags the pixels
+//        of every tile-local piece that holds a seed, from its
+//        shared-memory forest, and the compress pass marks those pieces'
+//        roots, so the marking costs no launch and no walk of its own and
+//        dense seeds (a whole class) cost what sparse ones do.  B6 is B4
+//        with the equal-class predicate (flood_seeds_launch<true>, 8-conn):
+//        a seed on class 0 lies on no piece and is ignored.
+//   B9 (ecseg_label_flood)  B4's forest, whose labels are the caller's
+//        output: the last pass writes each pixel's root as its label and
+//        its root's flag as its flood in one walk, so the mask is labeled
+//        once where B2 + B4 labeled it twice.
+// B3, B4 and B6 never flatten their forest (their labels are scratch).
+// The gather reads flag[root(parent[i])], mostly one hop that a warp
+// shares.  Flags are read only at roots, and a root's output is its own
+// flag, so every entry's output may serve as its flag array.
 
 #include "cc_label.cuh"
 
 namespace {
 
-__global__ void mark_seeds(const uint8_t* __restrict__ trav,
-                           const uint8_t* __restrict__ seeds,
-                           const int* __restrict__ labels,
-                           uint8_t* flag, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n && trav[i] && seeds[i]) flag[labels[i]] = 1;
-}
-
-// B3, B4: out = traversable && the pixel's root is flagged (background has
-// parent -1).  `flag` may be `out` itself: flags are read only at roots,
-// and a root's output is its own flag, so no read sees a changed value.
+// out = traversable && the pixel's root is flagged (background has parent
+// -1).  `flag` may be `out` itself: flags are read only at roots, and a
+// root's output is its own flag, so no read sees a changed value.  With
+// kFlatten (B9) every parent also becomes its root, as uf_resolve does: a
+// walk that reads a parent before or after that write finds an ancestor
+// either way.
+template <bool kFlatten>
 __global__ void gather_roots(int* parent, const uint8_t* flag, uint8_t* out,
                              int n) {
   constexpr int kPixels = ecseg::kPixelsPerThread;
@@ -77,36 +72,14 @@ __global__ void gather_roots(int* parent, const uint8_t* flag, uint8_t* out,
     const int x = ecseg::uf_walk_from(i, p[j]);
     const int r = ecseg::uf_find_warp<true>(parent, x);  // every lane calls it
     const int root = x < 0 ? p[j] : r;
+    if (kFlatten && root != p[j]) parent[i] = root;
     if (i < n) out[i] = root >= 0 ? flag[root] : 0;
   }
-}
-
-__global__ void gather_flags(const uint8_t* __restrict__ trav,
-                             const int* __restrict__ labels,
-                             const uint8_t* __restrict__ flag, uint8_t* out,
-                             int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = trav[i] ? flag[labels[i]] : 0;
 }
 
 }  // namespace
 
 namespace ecseg {
-
-// labels: (h, w) int32 (scratch, or B9's output); flag: (h*w) uint8
-// scratch; out: (h, w) bool.
-template <bool kSameClass>
-int flood_launch(const uint8_t* trav, const uint8_t* seeds, int32_t* labels,
-                 uint8_t* flag, uint8_t* out, int h, int w, int connectivity,
-                 cudaStream_t s) {
-  int n = h * w;
-  int blocks = (n + kThreads - 1) / kThreads;
-  label_launch<kSameClass>(trav, labels, h, w, connectivity, s);
-  cudaMemsetAsync(flag, 0, static_cast<size_t>(n), s);
-  mark_seeds<<<blocks, kThreads, 0, s>>>(trav, seeds, labels, flag, n);
-  gather_flags<<<blocks, kThreads, 0, s>>>(trav, labels, flag, out, n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // B3 on the tiled forest; `parent` and `flag` are scratch (`flag` may be
 // `out`).
@@ -115,19 +88,20 @@ inline int flood_border_launch(const uint8_t* trav, int32_t* parent,
                                cudaStream_t s) {
   int n = h * w;
   uf_tiles_launch(trav, parent, h, w, 1, s, flag);  // marks the perimeter's roots
-  gather_roots<<<pixel_blocks(n), kThreads, 0, s>>>(parent, flag, out, n);
+  gather_roots<false><<<pixel_blocks(n), kThreads, 0, s>>>(parent, flag, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B4 on the tiled forest; `parent` and `flag` are scratch (`flag` may be
-// `out`).
-template <bool kSameClass>
+// B4 (kSameClass false), B6 (true) and, with kFlatten, B9 on the tiled
+// forest; `flag` is scratch (it may be `out`), and so is `parent` unless
+// kFlatten, which makes it the canonical labels.
+template <bool kSameClass, bool kFlatten = false>
 int flood_seeds_launch(const uint8_t* trav, const uint8_t* seeds,
                        int32_t* parent, uint8_t* flag, uint8_t* out, int h,
                        int w, int connectivity, cudaStream_t s) {
   int n = h * w;
   uf_tiles_launch<kSameClass>(trav, parent, h, w, connectivity, s, flag, seeds);  // marks the seeds' roots
-  gather_roots<<<pixel_blocks(n), kThreads, 0, s>>>(parent, flag, out, n);
+  gather_roots<kFlatten><<<pixel_blocks(n), kThreads, 0, s>>>(parent, flag, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -154,15 +128,15 @@ extern "C" int ecseg_flood(const uint8_t* trav, const uint8_t* seeds,
 extern "C" int ecseg_flood_mc(const uint8_t* cls, const uint8_t* seeds,
                               int32_t* labels, uint8_t* flag, uint8_t* out,
                               int h, int w, void* stream) {
-  return ecseg::flood_launch<true>(cls, seeds, labels, flag, out, h, w, 2,
-                                   static_cast<cudaStream_t>(stream));
+  return ecseg::flood_seeds_launch<true>(cls, seeds, labels, flag, out, h, w,
+                                         2, static_cast<cudaStream_t>(stream));
 }
 
 // B9: `labels` is an output, the canonical labels of `mask`.
 extern "C" int ecseg_label_flood(const uint8_t* mask, const uint8_t* seeds,
                                  int32_t* labels, uint8_t* flag, uint8_t* out,
                                  int h, int w, int connectivity, void* stream) {
-  return ecseg::flood_launch<false>(mask, seeds, labels, flag, out, h, w,
-                                    connectivity,
-                                    static_cast<cudaStream_t>(stream));
+  return ecseg::flood_seeds_launch<false, true>(
+      mask, seeds, labels, flag, out, h, w, connectivity,
+      static_cast<cudaStream_t>(stream));
 }

@@ -4,9 +4,10 @@
 // Contract (ecseg_tpu/ops/cc_pallas.py label_pallas): every foreground pixel
 // gets the smallest flat index r*W+c of its component, background gets -1;
 // connectivity 1 (4-neighbour) or 2 (8-neighbour).  With kSameClass (B5,
-// label_multiclass_pallas) the map holds class ids, 0 is background, and
-// two neighbours join only when their classes are equal; the choice is a
-// template argument, so B2's merge loop carries no extra test.
+// label_multiclass_pallas; B6, flood_multiclass_pallas) the map holds class
+// ids, 0 is background, and two neighbours join only when their classes are
+// equal; the choice is a template argument, so the binary kernels' loops
+// carry no extra test.
 //
 // Linking hangs the larger root under the smaller one with atomicMin and
 // retries when another thread got there first (Playne & Hawick 2018;
@@ -19,23 +20,10 @@
 // racing unions shrink as they are read.  The same uf_find/uf_union serve a
 // parent array in device memory and one in shared memory.
 //
-// Two launches build the forest:
-//
-// label_launch (B6, B8, B9): three passes over the (H, W) map, one
-// thread per pixel, all state in the int32 output itself (the parent array):
-//   init     parent[i] = fg ? i : -1
-//   merge    each fg pixel unites with its already-scanned fg neighbours
-//            (left and up; up-left and up-right for 8-conn)
-//   flatten  parent[i] = find(i)
-// On a map that is one giant component (B3's input: a class's background,
-// nearly the whole canvas) millions of merging threads meet at one root in
-// device memory, and the merge builds row-long chains that flatten walks
-// again: B3 took 0.85 ms on an H100 at 2048^2 where its bytes need
-// 2.5 us.
-//
-// uf_tiles_launch (B2-B5; B5 with the equal-class predicate): a block-local
+// uf_tiles_launch builds the forest of every entry but B8 (which unites in
+// device memory from uf_init in its own passes, cc_count.cu): a block-local
 // union-find in shared memory before a global merge that touches only the
-// tiles' edges.
+// tiles' edges.  Three launches:
 //   tile     one block per 32x32 tile (5 KB of shared memory, 8 blocks an
 //            SM), each warp a band of 4 rows.  A row's runs come from one
 //            ballot (each pixel's parent is its run's first pixel); each
@@ -59,17 +47,26 @@
 //            all at once, so path halving collapses the chains of tile
 //            roots that concurrent unions built (pointer jumping); each
 //            walk then points its nodes at the root.
+// On a map that is one giant component, where one thread a pixel uniting in
+// device memory met millions of times at one root (B3 took 0.85 ms on an
+// H100 at 2048^2 so, against 2.5 us of bytes), this makes about two global
+// unions a tile.
 // The forest is then settled: no union is in flight, so no node becomes or
 // stops being a root, and the last pass walks it with plain loads that L1
 // may serve (uf_root; a stale parent is still an ancestor), mostly one hop,
 // and a pixel that is its own root does not walk at all.  Walked with the
 // volatile device-memory finds, that pass was half of B2's time on an H100,
 // bound by the latency of dependent L2 loads.
-// label_tiled_launch flattens the forest (B2, B5); B3 marks the roots of the
-// perimeter in the compress pass, B4 the roots of its seeded pieces (the
-// tile pass flags the tile-local pieces that hold a seed, the compress pass
-// carries the flags to the roots), and both gather each pixel's root's flag
-// without flattening (cc_flood.cu).
+//
+// The entries' launch sequences (four launches each):
+//   B2, B5   label_tiled_launch: the forest, then uf_resolve flattens it.
+//   B3       the forest marking the roots of the perimeter's pieces in the
+//            compress pass, then a gather of each pixel's root's flag
+//            without flattening (cc_flood.cu).
+//   B4, B6   the forest with the seeded tile pass (it flags the tile-local
+//            pieces that hold a seed; the compress pass carries the flags
+//            to the roots), then the same gather (B6 with kSameClass).
+//   B9       B4's forest, then one pass that flattens and gathers at once.
 
 #pragma once
 
@@ -157,42 +154,6 @@ __device__ __forceinline__ bool uf_joins(uint8_t nb, uint8_t own) {
   }
 }
 
-template <bool kSameClass>
-__global__ void uf_merge(const uint8_t* __restrict__ mask, int* parent, int h,
-                         int w, int connectivity) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w) return;
-  const uint8_t own = mask[i];
-  if (!own) return;
-  int r = i / w;
-  int c = i - r * w;
-  if (c > 0 && uf_joins<kSameClass>(mask[i - 1], own)) uf_union(parent, i, i - 1);
-  if (r > 0) {
-    int u = i - w;
-    if (uf_joins<kSameClass>(mask[u], own)) uf_union(parent, i, u);
-    if (connectivity == 2) {
-      if (c > 0 && uf_joins<kSameClass>(mask[u - 1], own)) uf_union(parent, i, u - 1);
-      if (c < w - 1 && uf_joins<kSameClass>(mask[u + 1], own)) uf_union(parent, i, u + 1);
-    }
-  }
-}
-
-__global__ void uf_flatten(const uint8_t* __restrict__ mask, int* parent, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n && mask[i]) parent[i] = uf_find(parent, i);
-}
-
-// Enqueue the three passes on `stream`; `labels` is (h, w) int32.
-template <bool kSameClass = false>
-inline void label_launch(const uint8_t* mask, int* labels, int h, int w,
-                         int connectivity, cudaStream_t stream) {
-  int n = h * w;
-  int blocks = (n + kThreads - 1) / kThreads;
-  uf_init<<<blocks, kThreads, 0, stream>>>(mask, labels, n);
-  uf_merge<kSameClass><<<blocks, kThreads, 0, stream>>>(mask, labels, h, w, connectivity);
-  uf_flatten<<<blocks, kThreads, 0, stream>>>(mask, labels, n);
-}
-
 // ---- the tiled form ------------------------------------------------------
 
 constexpr int kTile = 32;  // tile side: a warp spans a tile row
@@ -201,8 +162,8 @@ constexpr int kTileThreads = 256;
 // Stage 1: one block per tile (tiles row-major, `tiles_x` per tile row).
 // Pixels past the map's right or bottom edge are background.  `flag`, when
 // given, is written at every pixel of the tile: 0, or with kSeeded 1 at
-// every pixel of a tile-local piece that holds one of `seeds` (B4; the
-// compress pass carries it to the piece's root).  kSeeded is a template
+// every pixel of a tile-local piece that holds one of `seeds` (B4, B6, B9;
+// the compress pass carries it to the piece's root).  kSeeded is a template
 // argument, so the other kernels' tile pass carries none of its work.
 template <bool kSameClass, bool kSeeded = false>
 __global__ void __launch_bounds__(kTileThreads)
@@ -289,7 +250,7 @@ __global__ void __launch_bounds__(kTileThreads)
     }
   } while (__syncthreads_or(moved));
 
-  // B4: which local pieces hold a seed, in `val` (no longer read)
+  // B4, B6, B9: which local pieces hold a seed, in `val` (no longer read)
   uint8_t* seeded = &val[0][0];
   if constexpr (kSeeded) {
 #pragma unroll
@@ -377,7 +338,8 @@ __global__ void __launch_bounds__(64)
 // rounds; each walk then points every node it passed at the root, so the
 // per-pixel pass finds most roots in one hop.  `flag`, when given, gets
 // flag[root] = 1 for each fg pixel on the map's own perimeter (B3) or, with
-// `seeded`, for each fg pixel whose own flag the tile pass set (B4): every
+// `seeded`, for each fg pixel whose own flag the tile pass set (B4, B6,
+// B9): every
 // piece that reaches another tile has a pixel on its tile's border, and a
 // piece that does not is its component, its local root the global one.  A
 // walker may read a root's flag while another sets it; either value gives
@@ -412,7 +374,7 @@ constexpr int kPixelsPerThread = 4;  // of the per-pixel passes, blockDim apart
 // (-1) for background and for a root, which is its own answer.
 __device__ __forceinline__ int uf_walk_from(int i, int p) { return p == i ? -1 : p; }
 
-// Stage 3 of B2: every pixel's parent to its root.  Pixels hold tile-local
+// Stage 3 of B2 and B5: every pixel's parent to its root.  Pixels hold tile-local
 // roots, so the walk starts one hop up, once per warp and root.  Only this
 // thread writes parent[i], so its first load needs no volatile.
 __global__ void uf_resolve(int* parent, int n) {
@@ -440,7 +402,7 @@ inline int pixel_blocks(int n) {
 // most nodes one hop from their root.  `flag`, when given, is an (h*w)
 // uint8 array that ends up 1 at the root of every component that touches
 // the map's perimeter (B3) or, with `seeds` (h, w) uint8, that holds a
-// seed (B4), and 0 at every other root; its values off the roots are
+// seed (B4, B6, B9), and 0 at every other root; its values off the roots are
 // scratch, so the floods' output may serve as `flag`.
 template <bool kSameClass = false>
 inline void uf_tiles_launch(const uint8_t* mask, int* parent, int h, int w,

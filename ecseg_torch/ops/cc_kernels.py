@@ -14,10 +14,11 @@ counters.
 | B9 | label_and_flood     | csrc/cc_flood.cu     | cc_pallas.label_and_flood_pallas      |
 
 B2 (entry ``ecseg_label``), B3 (``ecseg_flood_border``), B4
-(``ecseg_flood``) and B5 (``ecseg_label_mc``) build the tiled union-find
-forest of csrc/cc_label.cuh: each 32x32 tile united in shared memory, then
-unions across tile edges only; B6, B8 and B9 the three global passes of
-``label_launch``.
+(``ecseg_flood``), B5 (``ecseg_label_mc``), B6 (``ecseg_flood_mc``) and B9
+(``ecseg_label_flood``) build the tiled union-find forest of
+csrc/cc_label.cuh: each 32x32 tile united in shared memory, then unions
+across tile edges only; B8 (csrc/cc_count.cu) unites in device memory from
+one thread a pixel.
 
 Dispatch is by where the input lies: a CPU tensor goes to the plain twin
 (``*_plain``), a CUDA tensor to the kernel, anything else raises.  There is
@@ -352,28 +353,23 @@ def label(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
     return out
 
 
-# the floods on the tiled forest read their flags only at roots, whose
-# output is their own flag, so their output serves as the flag array (one
-# allocation less a call)
-_FLAGS_IN_OUT = ("ecseg_flood_border", "ecseg_flood")
-
-
 def _flood(name, what, trav, seeds, *conn, labels=None):
     """Launch the flood entry ``name`` of csrc/cc_flood.cu and count it under
     ``what``; ``labels`` is the int32 label map it writes (scratch unless the
-    caller keeps it; B3's and B4's is a union-find forest, not labels).
-    ``seeds`` None: the border flood, whose entry takes no seeds."""
+    caller keeps it, as B9's; B3's, B4's and B6's is a union-find forest,
+    not labels).  ``seeds`` None: the border flood, whose entry takes no
+    seeds.  The floods read their flags only at roots, whose output is their
+    own flag, so the output serves as the flag array."""
     h, w = trav.shape
     out = torch.empty((h, w), dtype=torch.bool, device=trav.device)
     if out.numel() == 0:
         return out
     if labels is None:
         labels = torch.empty((h, w), dtype=torch.int32, device=trav.device)
-    flag = out if name in _FLAGS_IN_OUT else torch.empty((h * w,), dtype=torch.uint8, device=trav.device)
     seed_ptr = () if seeds is None else (seeds.data_ptr(),)
     _launch(
         name, trav.device, trav.data_ptr(), *seed_ptr,
-        labels.data_ptr(), flag.data_ptr(), out.data_ptr(), h, w, *conn,
+        labels.data_ptr(), out.data_ptr(), out.data_ptr(), h, w, *conn,
     )
     LAUNCHES[what] += 1
     return out

@@ -1,6 +1,7 @@
 """Time the port's B2 (``ecseg_label``), B3 (``ecseg_flood_border``), B4
-(``ecseg_flood``) and B5 (``ecseg_label_mc``) kernels against those of
-another checkout of the port, in turns on one CUDA card.
+(``ecseg_flood``), B5 (``ecseg_label_mc``), B6 (``ecseg_flood_mc``) and B9
+(``ecseg_label_flood``) kernels against those of another checkout of the
+port, in turns on one CUDA card.
 
     python3 scripts/ab_cc_tiled.py --base DIR [--reps 20] [--profile] [--out FILE]
 
@@ -10,19 +11,26 @@ temporary directory; this checkout's kernels through
 ``ecseg_torch._build``.  A base from before the tiled union-find has no
 ``ecseg_flood_border``: its border flood is ``ecseg_flood`` with a null
 seed pointer.  Both versions are called through ctypes on preallocated
-buffers, so the times are the kernels' own.  The masks are those of
+buffers, so the times are the kernels' own.  The floods get a flag
+buffer of their own on the base side (a base from before the tiled forest
+gathers from flags it must not share with its output) and their output as
+the flag buffer on this side, as ``ops/cc_kernels.py`` passes it.  The
+masks are those of
 ``chip_smoke.py``'s phase 2: random (p = 0.5), snake and spiral at 2048^2
 and 2048x3072, and the tile-edge masks of ``tests/_masks.py``
 (``tile_masks``) at 2048^2, 2047x2049, 33x4097, 1x2048 and 2048x1.  Per
 mask: B2 at connectivity 1 and 2, B3, B4 at connectivity 1 and 2 from
-sparse random seeds (p = 0.001, some off the mask) and B5 on the mask as
-a class map (0 and 1); then B5 on ``chip_smoke.class_maps`` (uniform,
-column-striped, snake and spiral class maps) at 2048^2 and 2048x3072.
+sparse random seeds (p = 0.001, some off the mask), B9 at connectivity 1
+and 2 from the same seeds, and B5 and B6 (the same seeds) on the mask as
+a class map (0 and 1); then B5, B6 and B9 (on the odd classes) from
+sparse seeds on ``chip_smoke.class_maps`` (uniform, column-striped, snake
+and spiral class maps) at 2048^2 and 2048x3072.
 Each is timed base, new, new, base (CUDA-event mean over ``--reps``
 back-to-back launches after one warm-up), and the two versions' outputs
-must be equal byte for byte.  With ``--profile``, each 2048^2 input's
-calls are also traced once by ``torch.profiler`` and each version's
-device time is split by kernel name (mean us per call).  Prints one line
+must be equal byte for byte (B9: labels and flood).  With ``--profile``,
+each 2048^2 input's calls are also traced once by ``torch.profiler`` and
+each version's device time is split by kernel name, that is by pass (mean
+us per call).  Prints one line
 per input and a JSON object last (also written to ``--out``).
 """
 
@@ -56,6 +64,7 @@ _LABEL = [_P, _P, _I, _I, _I, _P]
 _FLOOD = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
 _FLOOD_BORDER = [_P, _P, _P, _P, _I, _I, _P]
 _LABEL_MC = [_P, _P, _I, _I, _P]
+_FLOOD_MC = [_P, _P, _P, _P, _P, _I, _I, _P]
 
 
 def build_base(base: str, out_dir: str):
@@ -85,6 +94,8 @@ def build_base(base: str, out_dir: str):
         "flood_border": border,
         "flood_seeds": flood,
         "label_mc": _bind(libs["cc_label.cu"].ecseg_label_mc, _LABEL_MC),
+        "flood_mc": _bind(libs["cc_flood.cu"].ecseg_flood_mc, _FLOOD_MC),
+        "label_flood": _bind(libs["cc_flood.cu"].ecseg_label_flood, _FLOOD),
     }
 
 
@@ -94,6 +105,7 @@ def new_kernels():
     return {
         "label": K._cfunc("ecseg_label"), "flood_border": K._cfunc("ecseg_flood_border"),
         "flood_seeds": K._cfunc("ecseg_flood"), "label_mc": K._cfunc("ecseg_label_mc"),
+        "flood_mc": K._cfunc("ecseg_flood_mc"), "label_flood": K._cfunc("ecseg_label_flood"),
     }
 
 
@@ -176,31 +188,41 @@ def main() -> int:
 
             def pair(key, *args, res):
                 """(base, new, outputs) of kernel ``key``; an argument given
-                as a list holds the base's and the new side's values."""
+                as a list holds the base's and the new side's values, and
+                ``res`` is a tuple of such lists, the outputs to compare."""
                 def side(k, fns):
                     return lambda: call(fns[key], *[a[k] if isinstance(a, list) else a for a in args])
                 return side(0, base_k), side(1, new_k), res
 
+            seeds = torch.from_numpy(seed_rng.random((h, w)) < 0.001).cuda()
+            L = [t.data_ptr() for t in lab]
+            O = [t.data_ptr() for t in out]
+            F = [flag.data_ptr(), O[1]]  # the flags: a buffer of their own on the base side, the output here
             runs = {}
             if m is not None:
                 mt = torch.from_numpy(m).cuda()
-                seeds = torch.from_numpy(seed_rng.random((h, w)) < 0.001).cuda()
-                L = [t.data_ptr() for t in lab]
-                O = [t.data_ptr() for t in out]
                 for conn in (1, 2):
-                    runs[f"label conn {conn}"] = pair("label", mt.data_ptr(), L, h, w, conn, res=lab)
-                runs["flood_border"] = pair("flood_border", mt.data_ptr(), L, flag.data_ptr(), O, h, w, res=out)
+                    runs[f"label conn {conn}"] = pair("label", mt.data_ptr(), L, h, w, conn, res=(lab,))
+                runs["flood_border"] = pair("flood_border", mt.data_ptr(), L, flag.data_ptr(), O, h, w, res=(out,))
                 for conn in (1, 2):
                     runs[f"flood_seeds conn {conn}"] = pair(
-                        "flood_seeds", mt.data_ptr(), seeds.data_ptr(), L, flag.data_ptr(), O, h, w, conn, res=out
+                        "flood_seeds", mt.data_ptr(), seeds.data_ptr(), L, flag.data_ptr(), O, h, w, conn, res=(out,)
                     )
-            runs["label_mc"] = pair("label_mc", ct.data_ptr(), [t.data_ptr() for t in lab], h, w, res=lab)
+                b9_mask = mt
+            else:
+                b9_mask = ct % 2 == 1  # chip_smoke's B9 input: the odd classes
+            runs["label_mc"] = pair("label_mc", ct.data_ptr(), L, h, w, res=(lab,))
+            runs["flood_mc"] = pair("flood_mc", ct.data_ptr(), seeds.data_ptr(), L, F, O, h, w, res=(out,))
+            for conn in (1, 2):
+                runs[f"label_flood conn {conn}"] = pair(
+                    "label_flood", b9_mask.data_ptr(), seeds.data_ptr(), L, F, O, h, w, conn, res=(lab, out)
+                )
             row = {"mask": what}
             for key, (base, new, res) in runs.items():
                 base()
                 new()
                 torch.cuda.synchronize()
-                if not torch.equal(res[0], res[1]):
+                if not all(torch.equal(r[0], r[1]) for r in res):
                     raise RuntimeError(f"{key} on {what}: the new kernel's output differs from the base's")
                 t = [event_ms(f, args.reps) for f in (base, new, new, base)]
                 row[key] = {"base_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2, "turns": t}

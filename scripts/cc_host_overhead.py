@@ -9,10 +9,12 @@ called 2000 times back to back and timed on the host clock before the final
 synchronize, which is the enqueue cost a caller pays (on a 32x32 mask the
 card keeps up, so the host is the bound).  At 2048^2, on a map shaped like
 the main path's (nucleus discs of class 1, ecDNA dots of class 3, sparse
-class 2), B4 (``flood_from_seeds(raw != 0, raw == 3)``) and B5
-(``label_multiclass(raw)``) are also timed by CUDA events over 20 calls
-(what ``chip_smoke.py`` reports) and on the host clock over 200.  Prints
-one JSON object of microseconds per call.
+class 2), B4 (``flood_from_seeds(raw != 0, raw == 3)``), B5
+(``label_multiclass(raw)``), B6 (``flood_multiclass(raw, raw == 3)``) and
+B9 (``label_and_flood(raw != 0, raw == 1)``), the main path's calls, are
+also timed by CUDA events over 20 calls (what ``chip_smoke.py`` reports)
+and on the host clock over 200.  Prints one JSON object of microseconds
+per call.
 """
 
 import json
@@ -84,6 +86,8 @@ def main() -> int:
         "wrapper_label_multiclass_32sq": host_us(lambda: K.label_multiclass(m.to(torch.uint8))),
         "wrapper_label_32sq": host_us(lambda: K.label(m, 2)),
         "wrapper_flood_from_border_32sq": host_us(lambda: K.flood_from_border(m)),
+        "wrapper_flood_multiclass_32sq": host_us(lambda: K.flood_multiclass(m.to(torch.uint8), s)),
+        "wrapper_label_and_flood_32sq": host_us(lambda: K.label_and_flood(m, s, 2)),
     }
     rng = np.random.default_rng(0)
     img = np.zeros((2048, 2048), np.uint8)
@@ -97,12 +101,17 @@ def main() -> int:
         img[y : y + 3, x : x + 3] = 3
     img[rng.random((2048, 2048)) < 0.01] = 2
     raw = torch.from_numpy(img).to(dev)
-    fg, seeds = raw != 0, raw == 3
+    fg, seeds, nuc = raw != 0, raw == 3, raw == 1
+    calls = {
+        "B4": lambda: K.flood_from_seeds(fg, seeds, 2),
+        "B5": lambda: K.label_multiclass(raw),
+        "B6": lambda: K.flood_multiclass(raw, seeds),
+        "B9": lambda: K.label_and_flood(fg, nuc, 2),
+    }
     for k in range(3):
-        out[f"B4_2048sq_event_{k}"] = event_us(lambda: K.flood_from_seeds(fg, seeds, 2))
-        out[f"B4_2048sq_host_{k}"] = host_us(lambda: K.flood_from_seeds(fg, seeds, 2), 200)
-        out[f"B5_2048sq_event_{k}"] = event_us(lambda: K.label_multiclass(raw))
-        out[f"B5_2048sq_host_{k}"] = host_us(lambda: K.label_multiclass(raw), 200)
+        for b, fn in calls.items():
+            out[f"{b}_2048sq_event_{k}"] = event_us(fn)
+            out[f"{b}_2048sq_host_{k}"] = host_us(fn, 200)
     print(json.dumps({"root": ROOT, "card": torch.cuda.get_device_name(0), **{k: round(v, 2) for k, v in out.items()}}))
     return 0
 

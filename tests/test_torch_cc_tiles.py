@@ -7,9 +7,12 @@ component's minimum flat index, ``binary_fill_holes`` (which runs
 ``flood_from_border_plain`` on the CPU) against
 ``scipy.ndimage.binary_fill_holes``, ``flood_from_seeds_plain`` with every
 ``seed_patterns`` pattern against the scipy components that hold a seed,
-and ``label_multiclass_plain`` on ``TILE_CLASS_MAPS`` against scipy per
-class.  The kernels are held against the same twins on the same masks on
-the card (tests/test_torch_cuda.py)."""
+``label_multiclass_plain`` on ``TILE_CLASS_MAPS`` against scipy per
+class, ``flood_multiclass_plain`` on ``TILE_CLASS_MAPS`` with every seed
+pattern against the scipy components of each class that hold a seed, and
+``label_and_flood_plain`` (labels and flood) on ``TILE_MASKS`` with every
+seed pattern.  The kernels are held against the same twins on the same
+masks on the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -70,3 +73,29 @@ def test_multiclass_label_twin_matches_scipy(name):
     got = K.label_multiclass(torch.from_numpy(cls))
     assert got.dtype == torch.int32 and tuple(got.shape) == cls.shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", sorted(TILE_CLASS_MAPS))
+def test_multiclass_flood_twin_matches_scipy(name):
+    """Seeds on class 0 (the whole ``off_mask`` pattern) are ignored."""
+    cls = TILE_CLASS_MAPS[name]
+    for pattern, seeds in seed_patterns(cls > 0).items():
+        want = np.zeros(cls.shape, bool)
+        for c in np.unique(cls[cls > 0]):
+            lab = _canonical(cls == c, 2)
+            want |= np.isin(lab, lab[seeds & (cls == c)]) & (cls == c)
+        got = K.flood_multiclass(torch.from_numpy(cls), torch.from_numpy(seeds))
+        assert got.dtype == torch.bool and tuple(got.shape) == cls.shape
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=pattern)
+
+
+@pytest.mark.parametrize("conn", [1, 2])
+@pytest.mark.parametrize("name", sorted(TILE_MASKS))
+def test_label_and_flood_twin_matches_scipy_on_tile_masks(name, conn):
+    m = TILE_MASKS[name]
+    lab = _canonical(m, conn)
+    for pattern, seeds in seed_patterns(m).items():
+        got_lab, got_flood = K.label_and_flood(torch.from_numpy(m), torch.from_numpy(seeds), conn)
+        assert got_lab.dtype == torch.int32 and got_flood.dtype == torch.bool
+        np.testing.assert_array_equal(got_lab.numpy(), lab, err_msg=pattern)
+        np.testing.assert_array_equal(got_flood.numpy(), np.isin(lab, lab[seeds & m]) & m, err_msg=pattern)

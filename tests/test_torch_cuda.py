@@ -100,6 +100,41 @@ def test_tiled_multiclass_label_matches_twin(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_CLASS_MAPS))
+def test_tiled_multiclass_flood_matches_twin(cuda, name):
+    """B6 (B4's tiled forest with the equal-class predicate) bit-equal to
+    its twin on the tile class maps with every seed pattern (``off_mask``:
+    seeds only on class 0, all ignored), at 70x101 and 100x70."""
+    cases = [TILE_CLASS_MAPS[name]]
+    if name in tile_class_maps(1, 1):
+        cases.append(tile_class_maps(100, 70, seed=1)[name])
+    for cls_map in cases:
+        cls = torch.from_numpy(cls_map).to(cuda)
+        for pattern, seeds in seed_patterns(cls_map > 0).items():
+            s = torch.from_numpy(seeds).to(cuda)
+            got, want = K.flood_multiclass(cls, s), K.flood_multiclass_plain(cls, s)
+            assert torch.equal(got, want), (cls_map.shape, pattern)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_MASKS))
+def test_tiled_label_and_flood_matches_twin(cuda, name):
+    """B9 (B4's tiled forest, then one pass that flattens and gathers)
+    bit-equal to its twin in labels and flood on the tile-edge masks with
+    every seed pattern, connectivity 1 and 2, at 70x101 and 100x70."""
+    cases = [TILE_MASKS[name]]
+    if name in tile_masks(1, 1):
+        cases.append(tile_masks(100, 70, seed=1)[name])
+    for mask in cases:
+        m = torch.from_numpy(mask).to(cuda)
+        for pattern, seeds in seed_patterns(mask).items():
+            s = torch.from_numpy(seeds).to(cuda)
+            for conn in (1, 2):
+                got, want = K.label_and_flood(m, s, conn), K.label_and_flood_plain(m, s, conn)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (mask.shape, pattern, conn)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CLASS_MAPS))
 def test_multiclass_kernels_match_twins(cuda, name):
     cls = torch.from_numpy(CLASS_MAPS[name]).to(cuda)
