@@ -7,7 +7,9 @@ Phases (any failure raises; exit code 0 only when all pass):
 1. print the card's name and power limit; build the CUDA kernels from
    ``ecseg_torch/csrc`` (one nvcc per source, in parallel);
 2. hold each kernel against its plain PyTorch twin on the card, integer
-   bit-equality: B1 stitch at the 2048^2 plan (100 patches) and at 1024^2;
+   bit-equality: B1 stitch (random bytes 0-255) at the 2048^2 plan (100
+   patches), 2048x3072, 1024^2, 462x874, 306^2 and 256^2 (the two-corner
+   plan);
    B2 label (connectivity 1 and 2), B3 border flood and B4 seeded flood on
    random, snake and spiral masks at 2048^2 and at 2048x3072 (which also
    proves the port serves the banded TPU kernels' large-map contract), with
@@ -29,9 +31,11 @@ Phases (any failure raises; exit code 0 only when all pass):
    on class 2, at the same two sizes (B5, B6 and B9 beside their
    three-pass times); B8a count on the
    random, snake and spiral masks at
-   both sizes (connectivity 1 and 2); B8b stitch+count at the 1024^2 (two
-   tiles in one launch) and 2048^2 plans for class_id 0-3, also against
-   ``stitch_plain`` + ``==`` + the B8a twin; B10 fused decoder tail on 8
+   both sizes (connectivity 1 and 2); B8b stitch+count on 1, 2 and 32
+   tiles of the 1024^2 plan in one launch and on one 2048^2 tile, for
+   class_id 0-3 at connectivity 1 and 2, uint8 and int32 labels (one and
+   two tiles also against ``stitch_plain`` + ``==`` + the B8a twin), and
+   on the tile-edge masks written into 1024^2 patch stacks; B10 fused decoder tail on 8
    patches at both widths (c1/c2 64/32 and 128/64), bit-equal on
    integer-valued float32 (the CUDA-core form) and bf16 (the tensor-core
    form), >= 99.99 % label agreement on random bf16; B11 transpose conv at
@@ -136,7 +140,7 @@ TILE_KERNELS = {  # the tile-count path's kernels and B11, as KERNELS
 ALL_KERNELS = {**KERNELS, **TILE_KERNELS}
 # the device kernel each timed tile-path row must show in its profiler pass
 # (the bf16 forms of B10 and B11; B8's counting pass)
-KERNEL_NAMES = {"count": "count_tiles", "count_patches": "count_tiles", "fused_tail": "fused_tail_mma", "convt": "convt_mma"}
+KERNEL_NAMES = {"count": "count_tiles", "count_patches": "count_patch_tiles", "fused_tail": "fused_tail_mma", "convt": "convt_mma"}
 TAIL_WIDTHS = {"default": (64, 32), "xl": (128, 64)}  # B10's (c1, c2) per arch
 CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
     "half up4": (100, 16, 16, 512, 256),
@@ -194,8 +198,13 @@ THREE_PASS_MS = {
     ("flood_mc", "spiral class map 2048x3072", 2): 1.717,
     ("label_flood", "spiral class map 2048x3072", 1): 1.028, ("label_flood", "spiral class map 2048x3072", 2): 1.442,
 }
-REDESIGNED = {"label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood"}  # the kernels on the tiled union-find
-COUNT_PLANS = ((1024, 1024, 2), (2048, 2048, 1))  # B8b's (h, w, tiles)
+REDESIGNED = {  # kernel -> its redesign
+    **{k: "tiled union-find in shared memory" for k in ("label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood")},
+    "stitch": "quads of four pixels read through the plan's row/column descriptors, no source map",
+    "count_patches": "tiled union-find over the tiles' border slots, counted as pieces minus links, no per-pixel array",
+}
+STITCH_PLANS = ((2048, 2048), (2048, 3072), (1024, 1024), (462, 874), (306, 306), (256, 256))  # B1's equality plans
+COUNT_PLANS = ((1024, 1024, 1), (1024, 1024, 2), (1024, 1024, 32), (2048, 2048, 1))  # B8b's (h, w, tiles)
 FORWARD_TOL = 2e-3  # bf16 card vs float32 CPU probabilities, tile-count weights (the CPU test's PROB_ATOL)
 TAIL_AGREEMENT = 0.9999  # B10 vs its twin on random bf16: labels that must agree
 
@@ -284,6 +293,21 @@ def device_ms(fn, reps: int, tries: int = 5, kernel: str | None = None, event_ms
     raise RuntimeError(f"chip_smoke check failed: {tries} torch.profiler passes lost device records")
 
 
+def device_kernels(fn):
+    """Names of the device operations of one call of ``fn`` (one
+    ``torch.profiler`` pass after a warm-up; a spin kernel opens the window,
+    as in ``device_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name)
+
+
 @contextlib.contextmanager
 def post_form(form: str):
     """Set the environment of one post-processing form; restore it after."""
@@ -346,9 +370,9 @@ class Errors:
 
 
 def phase_kernels(K, tiling, rng, dev, errors):
-    for h, w in [(2048, 2048), (1024, 1024)]:
+    for h, w in STITCH_PLANS:
         pos = tuple(map(tuple, tiling.patch_positions(h, w)))
-        lp = torch.from_numpy(rng.integers(0, 4, (len(pos), 256, 256)).astype(np.uint8)).to(dev)
+        lp = torch.from_numpy(rng.integers(0, 256, (len(pos), 256, 256)).astype(np.uint8)).to(dev)
         errors.compare("stitch", K.stitch_labels(lp, pos), K.stitch_plain(lp, pos), f"{h}x{w} ({len(pos)} patches)")
         print(f"B1 stitch {h}x{w} patches={len(pos)}: matches plain; kernel {cuda_ms(lambda: K.stitch_labels(lp, pos), 20):.4f} ms", flush=True)
     for h, w in [(2048, 2048), (2048, 3072)]:
@@ -808,8 +832,13 @@ def phase_timings(K, dev, errors, results):
     cls8 = raw.to(torch.uint8)
     # bytes each function must move: inputs read once, outputs written once;
     # the stitch reads only the patch bytes that land on the canvas.
-    # No single PyTorch call computes any of them (library_ms null).
-    landed = int((K._source_map(pos, dev) >= 0).sum())
+    # No single PyTorch call computes B2-B9 (library_ms null); B1's nearest
+    # is a gather by the replayed source map (int64, cached outside the call)
+    src64 = K._source_map(pos, dev).long()
+    landed = int((src64 >= 0).sum())
+    flat = lp.reshape(-1)
+    library = {"stitch": lambda: torch.where(src64 >= 0, flat.take(src64.clamp(min=0)), 0)}
+    check(torch.equal(library["stitch"]().int(), raw), "B1's library gather != the stitch on the main path's input")
     cases = {
         "stitch": (lambda: K.stitch_labels(lp, pos), lambda: K.stitch_plain(lp, pos), landed + 4 * hw),
         "label": (lambda: K.label(nuc, 2), lambda: K.label_plain(nuc, 2), hw + 4 * hw),
@@ -833,11 +862,15 @@ def phase_timings(K, dev, errors, results):
             "pallas_function": fn, "launches": launches, "launches_form": LAUNCHES_FROM[key],
             "max_abs_err": errors.max[key], "matches_plain": errors.max[key] == 0,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": "bytes", "library_ms": cuda_ms(library[key], 20) if key in library else None,
         })
+        if key in library:
+            rows[-1]["library_call"] = "torch.where(src >= 0, flat.take(src.clamp(min=0)), 0)"
+            rows[-1]["library_kernels"] = device_kernels(library[key])
         if key in REDESIGNED:
-            rows[-1]["redesigned"] = "tiled union-find in shared memory"
-        print(f"{b} {name} at main-path shapes: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms", flush=True)
+            rows[-1]["redesigned"] = REDESIGNED[key]
+        lib = f", library {rows[-1]['library_ms']:.4f} ms ({len(rows[-1]['library_kernels'])} kernels)" if key in library else ""
+        print(f"{b} {name} at main-path shapes: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms{lib}", flush=True)
     return rows
 
 
@@ -855,31 +888,58 @@ def phase_xl_forward(rng, dev):
 
 
 def phase_count_kernels(K, tiling, rng, dev, errors):
-    """B8a on the stress masks; B8b on random class labels at the 1024^2
-    (two tiles, one launch) and 2048^2 plans, against its twin and against
+    """B8a on the stress masks; B8b on random class labels (the second half
+    of each batch sparse) on 1, 2 and 32 tiles of the 1024^2 plan in one
+    launch and one 2048^2 tile, every class at both connectivities, uint8
+    and int32 labels, against its twin and (one and two tiles) against
     ``stitch_plain`` + ``==`` + the B8a twin (at class 0 the pixels no copy
-    writes are background, as in the Pallas kernel)."""
+    writes are background, as in the Pallas kernel); then on the tile-edge
+    masks as class 3 over random classes 0-2, nine 1024^2 canvases in one
+    launch."""
     for h, w in COUNT_SIZES:
         for name, m in [("random", rng.random((h, w)) < 0.5), ("snake", snake(h, w)), ("spiral", spiral(h, w))]:
             mt = torch.from_numpy(m).to(dev)
             for conn in (1, 2):
                 errors.compare("count", K.count_components(mt, conn), K.count_components_plain(mt, conn), f"{name} {h}x{w} conn {conn}")
             print(f"B8a count {name} {h}x{w}: matches plain; conn 2 {cuda_ms(lambda: K.count_components(mt, 2), 5):.3f} ms", flush=True)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _masks import tile_masks
+
     for h, w, t in COUNT_PLANS:
         pos = tuple(map(tuple, tiling.patch_positions(h, w)))
-        lp = torch.from_numpy(rng.integers(0, 4, (t, len(pos), 256, 256)).astype(np.uint8)).to(dev)
+        lp_np = rng.integers(0, 4, (t, len(pos), 256, 256)).astype(np.uint8)
+        sparse = lp_np[t - t // 2 :]  # a view: the second half of the batch
+        sparse[rng.random(sparse.shape) < 0.97] = 0
+        lp = torch.from_numpy(lp_np).to(dev)
+        lp32 = lp.int()
         written = K.stitch_plain(torch.ones_like(lp[0]), pos) != 0
         for cls in range(4):
-            what = f"{h}x{w} ({t} x {len(pos)} patches) class {cls}"
-            got = K.count_from_patches(lp, pos, cls)
-            errors.compare("count_patches", got, K.count_from_patches_plain(lp, pos, cls), what)
-            for i in range(t):
-                mask = K.stitch_plain(lp[i], pos) == cls
-                if cls == 0:
-                    mask &= written
-                errors.compare("count_patches", (got[0][i], got[1][i]), K.count_components_plain(mask, 2), what + " (stitch_plain + ==)")
-        errors.compare("count_patches", K.count_from_patches(lp.int(), pos, 3), K.count_from_patches_plain(lp, pos, 3), f"{h}x{w} int32 labels")
-        print(f"B8b stitch+count {h}x{w}, {t} tile(s): matches plain for class 0-3; {cuda_ms(lambda: K.count_from_patches(lp, pos, 3), 5):.3f} ms", flush=True)
+            for conn in (1, 2):
+                what = f"{h}x{w} ({t} x {len(pos)} patches) class {cls} conn {conn}"
+                want = K.count_from_patches_plain(lp, pos, cls, conn)
+                got = K.count_from_patches(lp, pos, cls, conn)
+                errors.compare("count_patches", got, want, what)
+                errors.compare("count_patches", K.count_from_patches(lp32, pos, cls, conn), want, what + " int32 labels")
+                for i in range(t if t <= 2 else 0):
+                    mask = K.stitch_plain(lp[i], pos) == cls
+                    if cls == 0:
+                        mask &= written
+                    errors.compare("count_patches", (got[0][i], got[1][i]), K.count_components_plain(mask, conn), what + " (stitch_plain + ==)")
+        print(
+            f"B8b stitch+count {h}x{w}, {t} tile(s): matches plain for class 0-3, connectivity 1 and 2, uint8 and int32; "
+            f"{cuda_ms(lambda: K.count_from_patches(lp, pos, 3), 5):.4f} ms", flush=True,
+        )
+    h = w = 1024
+    pos = tuple(map(tuple, tiling.patch_positions(h, w)))
+    imgs = [np.where(m, 3, rng.integers(0, 3, (h, w))).astype(np.uint8) for m in tile_masks(h, w).values()]
+    lp = torch.from_numpy(np.stack([np.stack([img[y : y + 256, x : x + 256] for (y, x) in pos]) for img in imgs])).to(dev)
+    for cls in (3, 0):
+        for conn in (1, 2):
+            what = f"tile-edge masks as class 3 on {len(imgs)} 1024^2 canvases, class {cls} conn {conn}"
+            want = K.count_from_patches_plain(lp, pos, cls, conn)
+            errors.compare("count_patches", K.count_from_patches(lp, pos, cls, conn), want, what)
+            errors.compare("count_patches", K.count_from_patches(lp.int(), pos, cls, conn), want, what + " int32 labels")
+    print(f"B8b stitch+count on the tile-edge masks ({', '.join(tile_masks(1, 1))}) at 1024^2: matches plain", flush=True)
 
 
 def _tail_inputs(rng, c1, c2, n, integer, dtype, dev):
@@ -1038,6 +1098,7 @@ def tile_rows(K, dev, errors, results):
         "count_patches", lambda: K.count_from_patches(labels, positions, 3), lambda: K.count_from_patches_plain(labels, positions, 3),
         t * landed + 8 * t, 0, None, launches["default unfused"]["count_patches"], 20, errors,
         path="tile_count default unfused", input=f"{t} tiles x 25 patch labels (uint8) of the default path",
+        redesigned=REDESIGNED["count_patches"],
     ))
     def tail_cost(x, w):
         n, c1, c2 = x.shape[0], x.shape[3], w[0].shape[3]

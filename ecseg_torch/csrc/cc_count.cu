@@ -12,47 +12,61 @@
 //
 // Bound on an H100: memory.  The least traffic is the input read once and
 // two int32 per tile written: B8a 1 byte/pixel (4.2 MB at 2048^2, 1.3 us at
-// 3.35 TB/s); B8b the patch bytes that land on the canvases (26.2 MB for 32
-// 1024^2 tiles of uint8 labels, 7.8 us).  This design also writes and
-// re-reads an int32 parent array and reads B1's int32 source map.
+// 3.35 TB/s); B8b the patch bytes that land on the canvases (32.9 MB for 32
+// 1024^2 tiles of uint8 labels, 9.8 us).
 //
-// Design: B2's union-find (cc_label.cuh) without its flatten pass.  A
+// B8a: B2's union-find in device memory without its flatten pass.  A
 // component's root is its minimum flat index and the only pixel whose
 // parent is itself, so once every union has landed the count is the
 // number of pixels with parent[i] == i and the foreground is parent[i] >= 0.
-//   init   B8a: parent[i] = mask[i] ? i : -1 (uf_init);  B8b: the source
-//          map (last writer of the copy plan, per canvas pixel; the same
-//          map kernel B1 gathers with) picks each pixel's patch byte, and
-//          parent[i] = (src >= 0 && byte == class_id) ? i : -1
+//   init   parent[i] = mask[i] ? i : -1 (uf_init)
 //   merge  each foreground pixel unites with its already-scanned foreground
 //          neighbours; foreground is read off the sign of parent[], which
 //          never changes, so no mask array is kept
-//   count  a grid-stride loop per tile, a block reduction, two atomics per
-//          block into the tile's (count, px)
-// Tiles are the grid's y dimension and never unite: a neighbour is taken
-// only inside the same tile, and all flat indices of a tile share its
-// offset, so each root is still its component's minimum.
+//   count  a grid-stride loop, a block reduction, two atomics per block
+//
+// B8b: the tiled forest of cc_label.cuh, counted as it is built, with no
+// per-pixel array at all.  Three launches: a memset of the counts, then
+//   tile   one block per strip of four 32x32 tiles side by side of each
+//          canvas reads their class bytes through the plan's descriptors
+//          (stitch_plan.cuh; no source map): 16 pixels a thread, one
+//          descriptor and two aligned 16-byte loads where the 16 are one
+//          copy's consecutive labels, as four quads where they cross a
+//          patch seam.  A tile with no pixel of the class costs nothing
+//          more; the others unite in shared memory (uf_tile_local) one by
+//          one and add their foreground pixels and tile-local pieces to the
+//          canvas's (count, px), one atomic each a tile, and a byte a strip
+//          records which tiles those were.  Only a tile's border pixels can
+//          meet another tile, so the global forest has a node for each of
+//          them: 128 slots a tile (top row 0-31, bottom row 32-63, left
+//          column 64 + y, right column 96 + y), each foreground one
+//          pointing at its piece's least slot, which points at itself.
+//   edges  the unions across tile edges of cc_label.cuh (uf_edge_links,
+//          64 threads a tile, a strip a block, each neighbour's class read
+//          again through the plan; a tile the strip's byte marks empty has
+//          nothing to unite), as uf_link: each one that hangs a root under
+//          another ends one of the forest's roots and nothing makes one, so
+//          the canvas's count drops by the links made, whatever order they
+//          land in.
+// Components = tile-local pieces - links; a piece on no tile border is a
+// component of its own and never linked.
+// On the tile-count input (32 canvases of 1024^2, class 3 on 0.2 % of the
+// pixels, 13 % of the tiles) the tile pass is bound by reading the empty
+// tiles.  Measured on an H100 (tile pass, us): blocks looping over tiles,
+// a descriptor lookup a pixel, 110; a block a tile, a quad of four pixels
+// a thread, 64 (looping 103); four tiles a block, four quads a thread 75;
+// 16-pixel segments 55; eight tiles a block 64.
 
 #include "cc_label.cuh"
+#include "stitch_plan.cuh"
 
 namespace {
 
+using ecseg::kRows;
 using ecseg::kThreads;
+using ecseg::kTile;
 
-template <typename P>
-__global__ void init_from_patches(const P* __restrict__ patches,
-                                  const int32_t* __restrict__ src,
-                                  int class_id, int* parent, int hw,
-                                  long long patches_per_tile) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hw) return;
-  int t = blockIdx.y;
-  int s = src[i];
-  bool fg = s >= 0 &&
-            static_cast<int>(patches[t * patches_per_tile + s]) == class_id;
-  long long g = static_cast<long long>(t) * hw + i;
-  parent[g] = fg ? static_cast<int>(g) : -1;
-}
+// ---- B8a ------------------------------------------------------------------
 
 __global__ void merge_tiles(int* parent, int h, int w, int connectivity) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -121,6 +135,293 @@ int merge_and_count(int* parent, int t, int h, int w, int connectivity,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- B8b ------------------------------------------------------------------
+
+constexpr int kSlots = 4 * kTile;  // a tile's border slots
+
+__device__ __forceinline__ bool on_border(int ly, int lx) {
+  return ly == 0 || ly == kTile - 1 || lx == 0 || lx == kTile - 1;
+}
+
+__device__ __forceinline__ int border_slot(int ly, int lx) {
+  return ly == 0 ? lx : ly == kTile - 1 ? kTile + lx : lx == 0 ? 2 * kTile + ly : 3 * kTile + ly;
+}
+
+// One canvas of the batch: 1 where the plan's last copy holds class_id;
+// nodes are border slots (the edge pass reads only tiles' border pixels).
+template <typename P>
+struct PatchMap {
+  const P* labels;  // this canvas's (n, 256, 256) patch labels
+  ecseg::StitchPlan plan;
+  int class_id;
+  int tiles_x;
+  int node0;  // this canvas's first slot
+  __device__ __forceinline__ uint8_t at(int r, int c) const {
+    const int s = plan.src(r, c);
+    return s >= 0 && static_cast<int>(__ldg(labels + s)) == class_id;
+  }
+  __device__ __forceinline__ int node(int r, int c) const {
+    return node0 + ((r / kTile) * tiles_x + c / kTile) * kSlots + border_slot(r % kTile, c % kTile);
+  }
+};
+
+// 1 in byte k where labels[k] == class_id, k = 0..3 (consecutive labels)
+__device__ __forceinline__ uint32_t match4(const uint8_t* labels, int class_id) {
+  if (class_id < 0 || class_id > 255) return 0;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(labels);
+  const uint32_t* word = reinterpret_cast<const uint32_t*>(addr & ~uintptr_t{3});
+  const int shift = static_cast<int>(addr & 3);
+  const uint32_t lo = __ldg(word);
+  const uint32_t hi = shift ? __ldg(word + 1) : 0u;  // label 3 is in the next word
+  return __vcmpeq4(__funnelshift_r(lo, hi, 8 * shift), 0x01010101u * class_id) & 0x01010101u;
+}
+
+__device__ __forceinline__ uint32_t match4(const int32_t* labels, int class_id) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) m |= static_cast<uint32_t>(__ldg(labels + k) == class_id) << (8 * k);
+  return m;
+}
+
+constexpr int kStrip = 4;  // tiles a block of either pass, side by side
+
+// Sixteen consecutive labels from the aligned 16-byte words that hold them
+// (the offset is the same along a copy's columns, so a warp mostly takes
+// one branch of `match`), loaded by `fetch`, compared by `match`: byte i of
+// the result is 1 where label i == class_id.
+template <typename P>
+struct Seg16;
+
+template <int Q>
+__device__ __forceinline__ uint4 shift_words(const uint32_t (&w)[8], int r) {
+  return make_uint4(__funnelshift_r(w[Q], w[Q + 1], r), __funnelshift_r(w[Q + 1], w[Q + 2], r),
+                    __funnelshift_r(w[Q + 2], w[Q + 3], r), __funnelshift_r(w[Q + 3], w[Q + 4], r));
+}
+
+template <>
+struct Seg16<uint8_t> {
+  uint4 a, b;
+  int off = 0;  // byte offset of the first label in `a`
+  __device__ __forceinline__ void fetch(const uint8_t* p) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    const uint4* base = reinterpret_cast<const uint4*>(addr & ~uintptr_t{15});
+    off = static_cast<int>(addr & 15);
+    a = __ldg(base);
+    b = off ? __ldg(base + 1) : make_uint4(0, 0, 0, 0);  // label 15 is in the next word
+  }
+  __device__ __forceinline__ uint4 match(int class_id) const {
+    if (class_id < 0 || class_id > 255) return make_uint4(0, 0, 0, 0);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const int r = 8 * (off & 3);
+    uint4 v;
+    switch (off >> 2) {
+      case 0: v = shift_words<0>(w, r); break;
+      case 1: v = shift_words<1>(w, r); break;
+      case 2: v = shift_words<2>(w, r); break;
+      default: v = shift_words<3>(w, r); break;
+    }
+    const uint32_t c = 0x01010101u * class_id;
+    return make_uint4(__vcmpeq4(v.x, c) & 0x01010101u, __vcmpeq4(v.y, c) & 0x01010101u,
+                      __vcmpeq4(v.z, c) & 0x01010101u, __vcmpeq4(v.w, c) & 0x01010101u);
+  }
+};
+
+template <>
+struct Seg16<int32_t> {
+  int4 v[5];
+  int off = 0;  // label offset of the first label in v[0]
+  __device__ __forceinline__ void fetch(const int32_t* p) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    const int4* base = reinterpret_cast<const int4*>(addr & ~uintptr_t{15});
+    off = static_cast<int>((addr & 15) >> 2);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __ldg(base + k);
+    v[4] = off ? __ldg(base + 4) : make_int4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ uint4 match(int class_id) const {
+    int l[20];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      l[4 * k] = v[k].x;
+      l[4 * k + 1] = v[k].y;
+      l[4 * k + 2] = v[k].z;
+      l[4 * k + 3] = v[k].w;
+    }
+    uint32_t m[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int x = off == 0 ? l[i] : off == 1 ? l[i + 1] : off == 2 ? l[i + 2] : l[i + 3];
+      m[i >> 2] |= static_cast<uint32_t>(x == class_id) << (8 * (i & 3));
+    }
+    return make_uint4(m[0], m[1], m[2], m[3]);
+  }
+};
+
+// One tile with a pixel of the class, its 0/1 values in `val`, united in
+// shared memory by the block: its pieces and foreground pixels added to
+// `out` (its canvas's count and px), its foreground border pixels' slots
+// from `tile` * 128 on pointed at their piece's least slot.
+__device__ __forceinline__ void count_tile(uint8_t (*val)[kTile], int tile, int connectivity, int* local,
+                                           int* least, int* sums, int* __restrict__ parent, int* out) {
+  const int lane = threadIdx.x & 31;
+  const int band = (threadIdx.x >> 5) * kRows;
+  uint8_t own[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) own[j] = val[band + j][lane];
+  if (threadIdx.x < 2) sums[threadIdx.x] = 0;  // read after uf_tile_local's barriers
+  ecseg::uf_tile_local<false>(own, val, local, lane, band, connectivity);
+
+  int fg = 0, pieces = 0;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int k = (band + j) * kTile + lane;
+    const int r = local[k];
+    fg += r >= 0;
+    pieces += r == k;
+    least[k] = kSlots;
+  }
+  fg = __reduce_add_sync(0xffffffffu, fg);
+  pieces = __reduce_add_sync(0xffffffffu, pieces);
+  if (lane == 0) {
+    atomicAdd(&sums[0], pieces);
+    atomicAdd(&sums[1], fg);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int ly = band + j;
+    const int r = local[ly * kTile + lane];
+    if (r >= 0 && on_border(ly, lane)) atomicMin(&least[r], border_slot(ly, lane));
+  }
+  __syncthreads();
+  const int node0 = tile * kSlots;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int ly = band + j;
+    const int r = local[ly * kTile + lane];
+    if (r >= 0 && on_border(ly, lane)) parent[node0 + border_slot(ly, lane)] = node0 + least[r];
+  }
+  if (threadIdx.x == 0) {
+    if (sums[0]) atomicAdd(out, sums[0]);
+    if (sums[1]) atomicAdd(out + 1, sums[1]);
+  }
+  __syncthreads();  // the next tile reuses the shared arrays
+}
+
+// Tile pass: a block per strip of kStrip tiles side by side (blockIdx.x the
+// strip, blockIdx.y the canvas).  Thread q loads the 16 pixels 16(q % 8)..
+// +15 of strip row q / 8, one descriptor and two 16-byte loads where they
+// are one copy's consecutive labels (else as four quads), so each warp
+// loads the rows of its own band in every tile of the strip; the tiles
+// with a pixel of the class are then united one by one, and the strip's
+// byte in `occupied` says which they were (the edge pass reads it).
+template <typename P>
+__global__ void __launch_bounds__(ecseg::kTileThreads)
+    count_patch_tiles(const P* __restrict__ patches, long long per_tile,
+                      ecseg::StitchPlan plan, int class_id, int h, int w,
+                      int tiles_x, int strips_x, int connectivity,
+                      int* __restrict__ parent, uint8_t* __restrict__ occupied,
+                      int* __restrict__ out) {
+  __shared__ __align__(16) uint8_t val[kStrip][kTile][kTile];
+  __shared__ int local[kTile * kTile];
+  __shared__ int least[kTile * kTile];  // at a local root: its piece's least border slot
+  __shared__ int sums[2];               // a tile's pieces, foreground pixels
+  __shared__ unsigned warp_tiles[ecseg::kTileThreads / 32];
+  const int t = blockIdx.y;
+  const P* labels = patches + t * per_tile;
+  const int ty = blockIdx.x / strips_x;
+  const int tx0 = (blockIdx.x % strips_x) * kStrip;
+  const int qy = threadIdx.x >> 3;
+  const int seg = threadIdx.x & 7;  // tile seg / 2, its columns 16 (seg % 2)..+15
+  const int y = ty * kTile + qy;
+  const int x = tx0 * kTile + 16 * seg;
+  uint4 seg16 = make_uint4(0, 0, 0, 0);  // byte i: pixel x + i holds the class
+  if (y < h && x < w) {
+    const int2 row = plan.row(y);
+    const int4 col = plan.col(x);
+    if (x + 16 <= w && col.z >= 16) {  // one copy's consecutive labels, or all unreached
+      if (!(row.y & col.y)) {
+        Seg16<P> sl;
+        sl.fetch(labels + row.x + col.x);
+        seg16 = sl.match(class_id);
+      }
+    } else {  // across a patch seam or the map's right edge: four quads
+      uint32_t quad[4] = {0, 0, 0, 0};
+      for (int k = 0; k < 4; ++k) {
+        const int xk = x + 4 * k;
+        if (xk >= w) break;
+        const int4 ck = plan.col(xk);
+        if (xk + 4 <= w && ck.z >= 4) {
+          if (!(row.y & ck.y)) quad[k] = match4(labels + row.x + ck.x, class_id);
+        } else {
+          for (int i = 0; i < 4 && xk + i < w; ++i) {
+            const int s = plan.src(y, xk + i);
+            quad[k] |= static_cast<uint32_t>(s >= 0 && static_cast<int>(labels[s]) == class_id) << (8 * i);
+          }
+        }
+      }
+      seg16 = make_uint4(quad[0], quad[1], quad[2], quad[3]);
+    }
+  }
+  *reinterpret_cast<uint4*>(&val[seg >> 1][qy][16 * (seg & 1)]) = seg16;
+  // which tiles hold a pixel of the class: lane l loads tile (l % 8) / 2
+  const unsigned ballot = __ballot_sync(0xffffffffu, (seg16.x | seg16.y | seg16.z | seg16.w) != 0);
+  if ((threadIdx.x & 31) == 0) {
+    unsigned tiles = 0;
+#pragma unroll
+    for (int k = 0; k < kStrip; ++k) tiles |= ((ballot & (0x03030303u << (2 * k))) != 0) << k;
+    warp_tiles[threadIdx.x >> 5] = tiles;
+  }
+  __syncthreads();
+  unsigned tiles = 0;
+#pragma unroll
+  for (int k = 0; k < ecseg::kTileThreads / 32; ++k) tiles |= warp_tiles[k];
+  if (threadIdx.x == 0) occupied[t * gridDim.x + blockIdx.x] = static_cast<uint8_t>(tiles);
+  const int tile0 = (t * ((h + kTile - 1) / kTile) + ty) * tiles_x + tx0;
+  for (int k = 0; k < kStrip; ++k) {
+    if (tiles >> k & 1) count_tile(val[k], tile0 + k, connectivity, local, least, sums, parent, out + 2 * t);
+  }
+}
+
+// Edge pass: 64 threads a tile (uf_edge_links), a block per strip of
+// kStrip tiles as in the tile pass; a tile with no pixel of the class (its
+// bit in the strip's `occupied` byte clear) has none on its top row or
+// left column to unite.
+template <typename P>
+__global__ void __launch_bounds__(64 * kStrip)
+    count_patch_edges(const P* __restrict__ patches, long long per_tile,
+                      ecseg::StitchPlan plan, int class_id, int h, int w,
+                      int tiles_x, int strips_x, int connectivity, int* parent,
+                      const uint8_t* __restrict__ occupied, int* out) {
+  const int t = blockIdx.y;
+  const int ty = blockIdx.x / strips_x;
+  const int k = threadIdx.x >> 6;
+  const int tx = (blockIdx.x % strips_x) * kStrip + k;
+  const int tiles = tiles_x * ((h + kTile - 1) / kTile);
+  const PatchMap<P> m{patches + t * per_tile, plan, class_id, tiles_x, t * tiles * kSlots};
+  const bool here = occupied[t * gridDim.x + blockIdx.x] >> k & 1;
+  int links = here ? ecseg::uf_edge_links<false, true>(m, parent, h, w, ty * kTile, tx * kTile, connectivity,
+                                                       threadIdx.x & 63)
+                   : 0;
+  links = __reduce_add_sync(0xffffffffu, links);
+  if ((threadIdx.x & 31) == 0 && links) atomicSub(out + 2 * t, links);
+}
+
+template <typename P>
+void count_patches_launch(const P* patches, long long per_tile, ecseg::StitchPlan plan, int t, int h, int w,
+                          int class_id, int connectivity, int* parent, int* out, cudaStream_t s) {
+  const int tiles_x = (w + kTile - 1) / kTile;
+  const int tiles_y = (h + kTile - 1) / kTile;
+  const int strips_x = (tiles_x + kStrip - 1) / kStrip;
+  const dim3 grid(strips_x * tiles_y, t);
+  // the strips' bytes after the canvases' slots
+  uint8_t* occupied = reinterpret_cast<uint8_t*>(parent + static_cast<long long>(t) * tiles_x * tiles_y * kSlots);
+  count_patch_tiles<P><<<grid, ecseg::kTileThreads, 0, s>>>(patches, per_tile, plan, class_id, h, w, tiles_x,
+                                                           strips_x, connectivity, parent, occupied, out);
+  count_patch_edges<P><<<grid, 64 * kStrip, 0, s>>>(patches, per_tile, plan, class_id, h, w, tiles_x, strips_x,
+                                                    connectivity, parent, occupied, out);
+}
+
 }  // namespace
 
 // B8a: `mask` (h, w) bool; `parent` (h, w) int32 scratch; `out` int32[2].
@@ -133,24 +434,24 @@ extern "C" int ecseg_count(const uint8_t* mask, int32_t* parent, int h, int w,
 }
 
 // B8b: `patches` (t, n, 256, 256) uint8 (`wide` 0) or int32 (`wide` 1);
-// `src` (h, w) int32, flat index into one tile's patch stack or -1;
-// `parent` (t, h, w) int32 scratch; `out` int32[2t].
+// `plan` the descriptors of the (h, w) canvas (stitch_plan.cuh);
+// `parent` int32 scratch: 128 per 32x32 tile per canvas, then a byte per
+// strip of four tiles per canvas; `out` int32[2t].
 extern "C" int ecseg_count_patches(const void* patches, int wide,
-                                   const int32_t* src, int t,
+                                   const int32_t* plan, int t,
                                    long long patches_per_tile, int h, int w,
                                    int class_id, int connectivity,
                                    int32_t* parent, int32_t* out,
                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  dim3 grid((h * w + kThreads - 1) / kThreads, t);
+  cudaMemsetAsync(out, 0, 2 * sizeof(int32_t) * t, s);
+  const ecseg::StitchPlan sp = ecseg::stitch_plan(plan, w);
   if (wide) {
-    init_from_patches<int32_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const int32_t*>(patches), src, class_id, parent, h * w,
-        patches_per_tile);
+    count_patches_launch(static_cast<const int32_t*>(patches), patches_per_tile, sp, t, h, w, class_id,
+                         connectivity, parent, out, s);
   } else {
-    init_from_patches<uint8_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(patches), src, class_id, parent, h * w,
-        patches_per_tile);
+    count_patches_launch(static_cast<const uint8_t*>(patches), patches_per_tile, sp, t, h, w, class_id,
+                         connectivity, parent, out, s);
   }
-  return merge_and_count(parent, t, h, w, connectivity, out, s);
+  return static_cast<int>(cudaGetLastError());
 }

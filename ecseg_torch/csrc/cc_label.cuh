@@ -20,8 +20,10 @@
 // racing unions shrink as they are read.  The same uf_find/uf_union serve a
 // parent array in device memory and one in shared memory.
 //
-// uf_tiles_launch builds the forest of every entry but B8 (which unites in
-// device memory from uf_init in its own passes, cc_count.cu): a block-local
+// uf_tiles_launch builds the forest of every entry but B8 (B8a unites in
+// device memory from uf_init in its own passes; B8b runs the tile and edge
+// passes' shared parts, uf_tile_local and uf_edge_links, on a forest of the
+// tiles' border pixels only, cc_count.cu): a block-local
 // union-find in shared memory before a global merge that touches only the
 // tiles' edges.  Three launches:
 //   tile     one block per 32x32 tile (5 KB of shared memory, 8 blocks an
@@ -139,6 +141,26 @@ __device__ __forceinline__ void uf_union(int* parent, int a, int b) {
   }
 }
 
+// uf_union that says whether it linked: true when its atomicMin hung one
+// root under another.  Each such link ends exactly one root, and no write
+// makes a root (every write lowers a parent), so the roots left are the
+// roots before minus the links made, in whatever order they land (B8b).
+__device__ __forceinline__ bool uf_link(int* parent, int a, int b) {
+  while (true) {
+    a = uf_find(parent, a);
+    b = uf_find(parent, b);
+    if (a == b) return false;
+    if (a < b) {
+      int t = a;
+      a = b;
+      b = t;
+    }
+    int old = atomicMin(parent + a, b);
+    if (old == a) return true;
+    a = old;
+  }
+}
+
 __global__ void uf_init(const uint8_t* __restrict__ mask, int* parent, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) parent[i] = mask[i] ? i : -1;
@@ -158,34 +180,18 @@ __device__ __forceinline__ bool uf_joins(uint8_t nb, uint8_t own) {
 
 constexpr int kTile = 32;  // tile side: a warp spans a tile row
 constexpr int kTileThreads = 256;
+constexpr int kRows = kTile / (kTileThreads / 32);  // warp w holds rows 4w..4w+3
 
-// Stage 1: one block per tile (tiles row-major, `tiles_x` per tile row).
-// Pixels past the map's right or bottom edge are background.  `flag`, when
-// given, is written at every pixel of the tile: 0, or with kSeeded 1 at
-// every pixel of a tile-local piece that holds one of `seeds` (B4, B6, B9;
-// the compress pass carries it to the piece's root).  kSeeded is a template
-// argument, so the other kernels' tile pass carries none of its work.
-template <bool kSameClass, bool kSeeded = false>
-__global__ void __launch_bounds__(kTileThreads)
-    uf_tile(const uint8_t* __restrict__ mask, int* __restrict__ parent,
-            uint8_t* __restrict__ flag, const uint8_t* __restrict__ seeds,
-            int h, int w, int tiles_x, int connectivity) {
-  __shared__ uint8_t val[kTile][kTile];
-  __shared__ int local[kTile * kTile];  // tile-local parents, -1 background
-  const int y0 = (blockIdx.x / tiles_x) * kTile;
-  const int x0 = (blockIdx.x % tiles_x) * kTile;
-  const int lane = threadIdx.x & 31;
-  const int x = x0 + lane;
-  constexpr int kRows = kTile / (kTileThreads / 32);  // warp w: rows 4w..4w+3
-  const int band = (threadIdx.x >> 5) * kRows;
-
-  uint8_t own[kRows], seed[kRows];  // all loads in flight before any is used
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const int y = y0 + band + j;
-    own[j] = (y < h && x < w) ? mask[y * w + x] : 0;
-    seed[j] = (kSeeded && y < h && x < w) ? seeds[y * w + x] : 0;
-  }
+// The tile-local forest of one tile in shared memory, built by the whole
+// block: the lane's pixel in row band + j has value own[j] (0: background,
+// or past the map).  On return, after a barrier, val holds the values and
+// local[k] the row-major index of pixel k's tile-local root, the minimum of
+// its piece (-1 on background).
+template <bool kSameClass>
+__device__ __forceinline__ void uf_tile_local(const uint8_t (&own)[kRows],
+                                              uint8_t (*val)[kTile], int* local,
+                                              int lane, int band,
+                                              int connectivity) {
   // runs of each row: a pixel's parent is the first pixel of its run
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
@@ -249,6 +255,35 @@ __global__ void __launch_bounds__(kTileThreads)
       }
     }
   } while (__syncthreads_or(moved));
+}
+
+// Stage 1: one block per tile (tiles row-major, `tiles_x` per tile row).
+// Pixels past the map's right or bottom edge are background.  `flag`, when
+// given, is written at every pixel of the tile: 0, or with kSeeded 1 at
+// every pixel of a tile-local piece that holds one of `seeds` (B4, B6, B9;
+// the compress pass carries it to the piece's root).  kSeeded is a template
+// argument, so the other kernels' tile pass carries none of its work.
+template <bool kSameClass, bool kSeeded = false>
+__global__ void __launch_bounds__(kTileThreads)
+    uf_tile(const uint8_t* __restrict__ mask, int* __restrict__ parent,
+            uint8_t* __restrict__ flag, const uint8_t* __restrict__ seeds,
+            int h, int w, int tiles_x, int connectivity) {
+  __shared__ uint8_t val[kTile][kTile];
+  __shared__ int local[kTile * kTile];  // tile-local parents, -1 background
+  const int y0 = (blockIdx.x / tiles_x) * kTile;
+  const int x0 = (blockIdx.x % tiles_x) * kTile;
+  const int lane = threadIdx.x & 31;
+  const int x = x0 + lane;
+  const int band = (threadIdx.x >> 5) * kRows;
+
+  uint8_t own[kRows], seed[kRows];  // all loads in flight before any is used
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int y = y0 + band + j;
+    own[j] = (y < h && x < w) ? mask[y * w + x] : 0;
+    seed[j] = (kSeeded && y < h && x < w) ? seeds[y * w + x] : 0;
+  }
+  uf_tile_local<kSameClass>(own, val, local, lane, band, connectivity);
 
   // B4, B6, B9: which local pieces hold a seed, in `val` (no longer read)
   uint8_t* seeded = &val[0][0];
@@ -277,57 +312,87 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
-// Stage 2: 64 threads a tile, 0-31 its top row and 32-63 its left column.
-// Each pixel unites with its neighbours in the tiles above (top row: up;
-// at 8-conn up-left and up-right) and to the left (left column: left; at
-// 8-conn up-left and down-left), except where its predecessor along the
-// edge (left pixel on the top row, upper pixel on the left column), which
-// joins it inside the tile, has already reached the same pixels or they
-// share a tile-local set with one it reached.  Together the two roles
-// cover every pair of neighbours in different tiles.
+// A binary or class map in device memory, read by flat index; its nodes
+// are the flat indices (B2-B6, B9).  The map is read-only while the unions
+// write `parent`: __ldg says so, so its loads need not wait on the atomics.
+struct MaskMap {
+  const uint8_t* mask;
+  int w;
+  __device__ __forceinline__ uint8_t at(int r, int c) const { return __ldg(mask + r * w + c); }
+  __device__ __forceinline__ int node(int r, int c) const { return r * w + c; }
+};
+
+// Stage 2 for thread `role` of a tile's 64: 0-31 its top row, 32-63 its
+// left column (each half a whole warp).  Each pixel unites with its neighbours in the tiles
+// above (top row: up; at 8-conn up-left and up-right) and to the left (left
+// column: left; at 8-conn up-left and down-left), except where its
+// predecessor along the edge (left pixel on the top row, upper pixel on the
+// left column), which joins it inside the tile, has already reached the
+// same pixels or they share a tile-local set with one it reached.  Together
+// the two roles cover every pair of neighbours in different tiles.  `m`
+// gives each pixel's value (`at`) and its node in `parent` (`node`).  With
+// kCount the unions are uf_link and the links made are returned (else 0).
+template <bool kSameClass, bool kCount, class Map>
+__device__ __forceinline__ int uf_edge_links(const Map& m, int* parent, int h,
+                                             int w, int y0, int x0,
+                                             int connectivity, int role) {
+  int links = 0;
+  auto unite = [&](int a, int b) {
+    if constexpr (kCount) {
+      links += uf_link(parent, a, b);
+    } else {
+      uf_union(parent, a, b);
+    }
+  };
+  const int t = role & 31;
+  if (role < 32) {  // top row, neighbours in row y0 - 1
+    const int c = x0 + t;
+    if (y0 == 0 || c >= w) return links;
+    const uint8_t own = m.at(y0, c);
+    if (!own) return links;
+    const int i = m.node(y0, c);
+    const int u = y0 - 1;
+    const bool ju = uf_joins<kSameClass>(m.at(u, c), own);
+    const bool jl = t > 0 && uf_joins<kSameClass>(m.at(y0, c - 1), own);
+    const bool jul = c > 0 && uf_joins<kSameClass>(m.at(u, c - 1), own);
+    if (connectivity == 1) {
+      if (ju && !(jl && jul)) unite(i, m.node(u, c));
+    } else {
+      const bool jur = c < w - 1 && uf_joins<kSameClass>(m.at(u, c + 1), own);
+      if (ju && !jl) unite(i, m.node(u, c));
+      if (jul && !(t > 0 && (jl || ju))) unite(i, m.node(u, c - 1));
+      if (jur && !(ju && t < 31)) unite(i, m.node(u, c + 1));
+    }
+  } else {  // left column, neighbours in column x0 - 1
+    const int r = y0 + t;
+    if (x0 == 0 || r >= h) return links;
+    const uint8_t own = m.at(r, x0);
+    if (!own) return links;
+    const int i = m.node(r, x0);
+    const int l = x0 - 1;
+    const bool jleft = uf_joins<kSameClass>(m.at(r, l), own);
+    const bool jp = t > 0 && uf_joins<kSameClass>(m.at(r - 1, x0), own);
+    const bool jul = r > 0 && uf_joins<kSameClass>(m.at(r - 1, l), own);
+    if (connectivity == 1) {
+      if (jleft && !(jp && jul)) unite(i, m.node(r, l));
+    } else {
+      const bool jdl = r < h - 1 && uf_joins<kSameClass>(m.at(r + 1, l), own);
+      if (jleft && !jp) unite(i, m.node(r, l));
+      if (jul && !(t > 0 && (jp || jleft))) unite(i, m.node(r - 1, l));
+      if (jdl && !(jleft && t < 31)) unite(i, m.node(r + 1, l));
+    }
+  }
+  return links;
+}
+
+// Stage 2: 64 threads a tile (uf_edge_links).
 template <bool kSameClass>
 __global__ void __launch_bounds__(64)
     uf_tile_edges(const uint8_t* __restrict__ mask, int* parent, int h, int w,
                   int tiles_x, int connectivity) {
   const int y0 = (blockIdx.x / tiles_x) * kTile;
   const int x0 = (blockIdx.x % tiles_x) * kTile;
-  const int t = threadIdx.x & 31;
-  if (threadIdx.x < 32) {  // top row, neighbours in row y0 - 1
-    const int c = x0 + t;
-    if (y0 == 0 || c >= w) return;
-    const int i = y0 * w + c;
-    const uint8_t own = mask[i];
-    if (!own) return;
-    const int u = i - w;
-    const bool ju = uf_joins<kSameClass>(mask[u], own);
-    const bool jl = t > 0 && uf_joins<kSameClass>(mask[i - 1], own);
-    const bool jul = c > 0 && uf_joins<kSameClass>(mask[u - 1], own);
-    if (connectivity == 1) {
-      if (ju && !(jl && jul)) uf_union(parent, i, u);
-    } else {
-      const bool jur = c < w - 1 && uf_joins<kSameClass>(mask[u + 1], own);
-      if (ju && !jl) uf_union(parent, i, u);
-      if (jul && !(t > 0 && (jl || ju))) uf_union(parent, i, u - 1);
-      if (jur && !(ju && t < 31)) uf_union(parent, i, u + 1);
-    }
-  } else {  // left column, neighbours in column x0 - 1
-    const int r = y0 + t;
-    if (x0 == 0 || r >= h) return;
-    const int i = r * w + x0;
-    const uint8_t own = mask[i];
-    if (!own) return;
-    const bool jleft = uf_joins<kSameClass>(mask[i - 1], own);
-    const bool jp = t > 0 && uf_joins<kSameClass>(mask[i - w], own);
-    const bool jul = r > 0 && uf_joins<kSameClass>(mask[i - w - 1], own);
-    if (connectivity == 1) {
-      if (jleft && !(jp && jul)) uf_union(parent, i, i - 1);
-    } else {
-      const bool jdl = r < h - 1 && uf_joins<kSameClass>(mask[i + w - 1], own);
-      if (jleft && !jp) uf_union(parent, i, i - 1);
-      if (jul && !(t > 0 && (jp || jleft))) uf_union(parent, i, i - w - 1);
-      if (jdl && !(jleft && t < 31)) uf_union(parent, i, i + w - 1);
-    }
-  }
+  uf_edge_links<kSameClass, false>(MaskMap{mask, w}, parent, h, w, y0, x0, connectivity, threadIdx.x);
 }
 
 // Stage 2b: 128 threads a tile, a walker from each pixel of its border (top

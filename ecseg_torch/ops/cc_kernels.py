@@ -17,8 +17,12 @@ B2 (entry ``ecseg_label``), B3 (``ecseg_flood_border``), B4
 (``ecseg_flood``), B5 (``ecseg_label_mc``), B6 (``ecseg_flood_mc``) and B9
 (``ecseg_label_flood``) build the tiled union-find forest of
 csrc/cc_label.cuh: each 32x32 tile united in shared memory, then unions
-across tile edges only; B8 (csrc/cc_count.cu) unites in device memory from
-one thread a pixel.
+across tile edges only; B8b (``ecseg_count_patches``) counts on the same
+passes, over a forest of the tiles' border pixels; B8a (``ecseg_count``)
+unites in device memory from one thread a pixel.  B1 and B8b read the
+stitch plan as per-row and per-column descriptors (``stitch_descriptors``,
+checked against the replayed plan before first use), never a per-pixel
+source map.
 
 Dispatch is by where the input lies: a CPU tensor goes to the plain twin
 (``*_plain``), a CUDA tensor to the kernel, anything else raises.  There is
@@ -241,7 +245,7 @@ def count_from_patches_plain(
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ecseg_stitch": ("stitch.cu", [_P, _P, _P, _I, _P]),
+    "ecseg_stitch": ("stitch.cu", [_P, _P, _P, _I, _I, _P]),
     "ecseg_label": ("cc_label.cu", [_P, _P, _I, _I, _I, _P]),
     "ecseg_flood_border": ("cc_flood.cu", [_P, _P, _P, _P, _I, _I, _P]),
     "ecseg_flood": ("cc_flood.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
@@ -319,6 +323,92 @@ def _source_map(positions: Tuple[Tuple[int, int], ...], device: torch.device) ->
     return torch.from_numpy(src).to(device)
 
 
+def stitch_descriptors(src: np.ndarray) -> np.ndarray:
+    """The (H, W) source map of a stitch plan (``_source_map``) as the
+    per-column and per-row descriptors that kernels B1 and B8b read
+    (csrc/stitch_plan.cuh): int32, W columns of {C, bits, run, 0} then H
+    rows of {R, bits}.  Where a copy lands, src[y, x] = R[y] + C[x]; where
+    none does, the row's and the column's bits share one (a bit per distinct
+    set of unreached columns).  ``run``: how many columns from this one on
+    continue it (C one more each, the same bits).  ``_descriptors`` checks
+    the result against ``src``; this derivation only assumes the form."""
+    h, w = src.shape
+    src = src.astype(np.int64)
+    cov = src >= 0
+    # C from the row that most copies reach, R from a column each row
+    # shares with it, then C of the columns that row misses
+    y0 = int(cov.sum(1).argmax())
+    c = np.where(cov[y0], src[y0], 0)
+    shared = cov & cov[y0]
+    xr = shared.argmax(1)
+    r = np.where(shared.any(1), src[np.arange(h), xr] - c[xr], 0)
+    yc = cov.argmax(0)
+    c = np.where(cov.any(0) & ~cov[y0], src[yc, np.arange(w)] - r[yc], c)
+    rbits = np.zeros(h, np.uint32)
+    cbits = np.zeros(w, np.uint32)
+    bits = {}
+    for y in np.flatnonzero(~cov.all(1)):
+        unreached = ~cov[y]
+        key = unreached.tobytes()
+        if key not in bits:
+            if len(bits) == 32:
+                raise ValueError(f"stitch plan {h}x{w}: more than 32 distinct sets of unreached columns")
+            bits[key] = np.uint32(1 << len(bits))
+            cbits[unreached] |= bits[key]
+        rbits[y] |= bits[key]
+    run = np.ones(w, np.int64)
+    cont = (np.diff(c) == 1) & (cbits[1:] == cbits[:-1])  # column x + 1 continues x
+    for x in range(w - 2, -1, -1):
+        if cont[x]:
+            run[x] = run[x + 1] + 1
+    desc = np.zeros(4 * w + 2 * h, np.int32)
+    cols = desc[: 4 * w].reshape(w, 4)
+    rows = desc[4 * w :].reshape(h, 2)
+    cols[:, 0], cols[:, 1], cols[:, 2] = c, cbits.view(np.int32), run
+    rows[:, 0], rows[:, 1] = r, rbits.view(np.int32)
+    return desc
+
+
+def expand_descriptors(desc: np.ndarray, h: int, w: int) -> np.ndarray:
+    """The (h, w) source map that ``stitch_descriptors`` output stands for
+    (int64, -1 where no copy lands), computed as the kernels compute it."""
+    cols = desc[: 4 * w].reshape(w, 4).astype(np.int64)
+    rows = desc[4 * w : 4 * w + 2 * h].reshape(h, 2).astype(np.int64)
+    unreached = (rows[:, 1:2] & cols[None, :, 1]) != 0
+    return np.where(unreached, -1, rows[:, :1] + cols[None, :, 0])
+
+
+def check_descriptors(desc: np.ndarray, src: np.ndarray, what: str) -> None:
+    """Raise ``ValueError`` naming ``what`` unless ``desc`` reproduces the
+    source map ``src`` pixel for pixel and every column's ``run`` holds."""
+    h, w = src.shape
+    if desc.shape != (4 * w + 2 * h,):
+        raise ValueError(f"{what}: descriptors of shape {desc.shape}, expected ({4 * w + 2 * h},)")
+    bad = int((expand_descriptors(desc, h, w) != src).sum())
+    if bad:
+        raise ValueError(f"{what}: the row/column descriptors give another source than the plan at {bad} pixels")
+    cols = desc[: 4 * w].reshape(w, 4).astype(np.int64)
+    run = cols[:, 2]
+    nxt = np.append((np.diff(cols[:, 0]) == 1) & (cols[1:, 1] == cols[:-1, 1]), False)
+    holds = (run >= 1) & (np.arange(w) + run <= w) & ((run == 1) | (nxt & (np.append(run[1:], 0) >= run - 1)))
+    if not holds.all():
+        raise ValueError(f"{what}: column runs wrong at columns {np.flatnonzero(~holds)[:8].tolist()}")
+
+
+@functools.lru_cache(maxsize=8)
+def _descriptors(positions: Tuple[Tuple[int, int], ...], device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``stitch_descriptors`` of a geometry on ``device``, an (H, W) int32
+    view of one element there), checked against the replayed plan before
+    first use (a mismatch raises; nothing falls back to the source map).
+    ``empty_like`` of the view allocates a canvas for less host time than
+    ``empty`` with a dtype and a device (B1 is host-bound)."""
+    src = _source_map(positions, torch.device("cpu")).numpy()
+    h, w = src.shape
+    desc = stitch_descriptors(src)
+    check_descriptors(desc, src, f"the {h}x{w} stitch plan of {len(positions)} patches")
+    return torch.from_numpy(desc).to(device), torch.empty(1, dtype=torch.int32, device=device).expand(h, w)
+
+
 def stitch_labels(label_patches: torch.Tensor, positions: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """B1: (N, SCW, SCW) uint8 patch labels -> (H, W) int32 canvas."""
     if label_patches.device.type == "cpu":
@@ -330,9 +420,9 @@ def stitch_labels(label_patches: torch.Tensor, positions: Sequence[Tuple[int, in
             f"stitch_labels: {len(pos)} positions need ({len(pos)}, {SCW}, {SCW}) "
             f"patches, got {tuple(label_patches.shape)}"
         )
-    src = _source_map(pos, label_patches.device)
-    out = torch.empty_like(src)
-    _launch("ecseg_stitch", label_patches.device, label_patches.data_ptr(), src.data_ptr(), out.data_ptr(), out.numel())
+    desc, canvas = _descriptors(pos, label_patches.device)
+    out = torch.empty_like(canvas)
+    _launch("ecseg_stitch", label_patches.device, label_patches.data_ptr(), desc.data_ptr(), out.data_ptr(), *out.shape)
     LAUNCHES["stitch"] += 1
     return out
 
@@ -464,7 +554,7 @@ def count_from_patches(
     ``positions``, its ``== class_id`` mask and that mask's (number of
     components, foreground pixels), in one launch; 0-d int32 tensors, or
     (T,) each for a batch (T, N, SCW, SCW) of tiles.  The canvas is never
-    materialised."""
+    materialised, nor any per-pixel array."""
     _check_conn(connectivity)
     if label_patches.device.type == "cpu":
         return count_from_patches_plain(label_patches, positions, class_id, connectivity)
@@ -481,16 +571,20 @@ def count_from_patches(
             f"count_from_patches: {len(pos)} positions need ({len(pos)}, {SCW}, {SCW}) "
             f"patches per tile, got {tuple(label_patches.shape)}"
         )
-    src = _source_map(pos, label_patches.device)
-    h, w = src.shape
-    if t * h * w >= 2**31 or t > 65535:
+    desc, canvas = _descriptors(pos, label_patches.device)
+    h, w = canvas.shape
+    tiles_y, tiles_x = -(-h // 32), -(-w // 32)
+    slots = 4 * 32 * tiles_y * tiles_x  # the kernel's border slots a canvas
+    if t * slots >= 2**31 or t > 65535:
         raise ValueError(f"count_from_patches: {t} tiles of {h}x{w} overflow the kernel's int32 indices")
     out = torch.empty((t, 2), dtype=torch.int32, device=label_patches.device)
     if t:
-        parent = torch.empty((t, h, w), dtype=torch.int32, device=label_patches.device)
+        # the slots, then a byte per strip of four 32x32 tiles a canvas
+        strips = tiles_y * -(-tiles_x // 4)
+        parent = torch.empty(t * slots + -(-t * strips // 4), dtype=torch.int32, device=label_patches.device)
         _launch(
             "ecseg_count_patches", label_patches.device, lp.data_ptr(), int(lp.dtype == torch.int32),
-            src.data_ptr(), t, len(pos) * SCW * SCW, h, w, int(class_id), connectivity,
+            desc.data_ptr(), t, len(pos) * SCW * SCW, h, w, int(class_id), connectivity,
             parent.data_ptr(), out.data_ptr(),
         )
         LAUNCHES["count_patches"] += 1

@@ -7,7 +7,7 @@ its asymmetric rim copies and the ``:242`` axis mix-up, because the stitched
 borders feed the argmax that defines the public ``labels/*.npy``.  The plan's
 rectangles overlap and the last copy wins; the device stitch (kernel B1,
 ``ops/cc_kernels.stitch_labels``) therefore replays the plan once per
-geometry into a per-pixel source map.
+geometry and reduces it to per-row and per-column descriptors.
 """
 
 from __future__ import annotations

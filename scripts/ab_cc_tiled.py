@@ -1,14 +1,18 @@
-"""Time the port's B2 (``ecseg_label``), B3 (``ecseg_flood_border``), B4
-(``ecseg_flood``), B5 (``ecseg_label_mc``), B6 (``ecseg_flood_mc``) and B9
+"""Time the port's B1 (``ecseg_stitch``), B2 (``ecseg_label``), B3
+(``ecseg_flood_border``), B4 (``ecseg_flood``), B5 (``ecseg_label_mc``), B6
+(``ecseg_flood_mc``), B8b (``ecseg_count_patches``) and B9
 (``ecseg_label_flood``) kernels against those of another checkout of the
 port, in turns on one CUDA card.
 
-    python3 scripts/ab_cc_tiled.py --base DIR [--reps 20] [--profile] [--out FILE]
+    python3 scripts/ab_cc_tiled.py --base DIR [--reps 20] [--rounds 3] [--profile] [--out FILE]
 
-DIR is another checkout of the repository (the base).  Its ``cc_label.cu``
-and ``cc_flood.cu`` are built with this checkout's nvcc flags into a
-temporary directory; this checkout's kernels through
-``ecseg_torch._build``.  A base from before the tiled union-find has no
+DIR is another checkout of the repository (the base).  Its ``stitch.cu``,
+``cc_label.cu``, ``cc_flood.cu`` and ``cc_count.cu`` are built with this
+checkout's nvcc flags into a temporary directory; this checkout's kernels
+through ``ecseg_torch._build``.  A base whose B1 and B8b read the per-pixel
+source map (no ``csrc/stitch_plan.cuh``) gets that map and, for B8b, a
+full (T, H, W) parent array; a newer one the plan's descriptors and the
+border-slot scratch, as ``ops/cc_kernels.py`` passes them.  A base from before the tiled union-find has no
 ``ecseg_flood_border``: its border flood is ``ecseg_flood`` with a null
 seed pointer.  Both versions are called through ctypes on preallocated
 buffers, so the times are the kernels' own.  The floods get a flag
@@ -25,13 +29,21 @@ and 2 from the same seeds, and B5 and B6 (the same seeds) on the mask as
 a class map (0 and 1); then B5, B6 and B9 (on the odd classes) from
 sparse seeds on ``chip_smoke.class_maps`` (uniform, column-striped, snake
 and spiral class maps) at 2048^2 and 2048x3072.
-Each is timed base, new, new, base (CUDA-event mean over ``--reps``
-back-to-back launches after one warm-up), and the two versions' outputs
-must be equal byte for byte (B9: labels and flood).  With ``--profile``,
-each 2048^2 input's calls are also traced once by ``torch.profiler`` and
+B1 runs on random classes at the 2048^2 (100 patches), 2048x3072 and
+1024^2 plans; B8b at class 3 on 32 tiles of the 1024^2 plan (the
+tile-count path's batch: class 3 on the bright squares of bench's tile
+recipe, uniform random classes, sparse classes, all class 3; uint8, and
+int32 on the random ones, at connectivity 2, the random ones also at 1)
+and on one 2048^2 tile.
+Each is timed in ``--rounds`` rounds of base, new, new, base (each turn a
+CUDA-event mean over ``--reps`` back-to-back launches after one warm-up),
+and reported as the median of each side's turns (a single outlier turn
+moved the means); the two versions' outputs must be equal byte for byte
+(B9: labels and flood).  With ``--profile``, each 2048^2 input's calls and
+every B1 and B8b input's are also traced once by ``torch.profiler`` and
 each version's device time is split by kernel name, that is by pass (mean
-us per call).  Prints one line
-per input and a JSON object last (also written to ``--out``).
+us per call).  Prints one line per input and a JSON object last (also
+written to ``--out``).
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import argparse
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -65,17 +78,21 @@ _FLOOD = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
 _FLOOD_BORDER = [_P, _P, _P, _P, _I, _I, _P]
 _LABEL_MC = [_P, _P, _I, _I, _P]
 _FLOOD_MC = [_P, _P, _P, _P, _P, _I, _I, _P]
+_COUNT_PATCHES = [_P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P]
+STITCH_PLANS = ((2048, 2048), (2048, 3072), (1024, 1024))
 
 
 def build_base(base: str, out_dir: str):
-    """{kernel: ctypes function} of the base checkout's kernels; the border
-    flood takes (trav, labels, flag, out, h, w, stream) in either form."""
+    """({kernel: ctypes function} of the base checkout's kernels, whether its
+    B1 and B8b read the plan's descriptors); the border flood takes (trav,
+    labels, flag, out, h, w, stream) in either form."""
     from ecseg_torch import _build
 
     csrc = os.path.join(base, "ecseg_torch", "csrc")
+    descriptors = os.path.exists(os.path.join(csrc, "stitch_plan.cuh"))
     libs = {}
     procs = []
-    for src in ("cc_label.cu", "cc_flood.cu"):
+    for src in ("stitch.cu", "cc_label.cu", "cc_flood.cu", "cc_count.cu"):
         so = os.path.join(out_dir, f"lib{src[:-3]}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", so, os.path.join(csrc, src)]
         procs.append((src, so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -90,22 +107,26 @@ def build_base(base: str, out_dir: str):
     else:
         border = lambda trav, lab, flag, out, h, w, stream: flood(trav, None, lab, flag, out, h, w, 1, stream)
     return {
+        "stitch": _bind(libs["stitch.cu"].ecseg_stitch, [_P, _P, _P, _I, _I, _P] if descriptors else [_P, _P, _P, _I, _P]),
         "label": _bind(libs["cc_label.cu"].ecseg_label, _LABEL),
         "flood_border": border,
         "flood_seeds": flood,
         "label_mc": _bind(libs["cc_label.cu"].ecseg_label_mc, _LABEL_MC),
         "flood_mc": _bind(libs["cc_flood.cu"].ecseg_flood_mc, _FLOOD_MC),
+        "count_patches": _bind(libs["cc_count.cu"].ecseg_count_patches, _COUNT_PATCHES),
         "label_flood": _bind(libs["cc_flood.cu"].ecseg_label_flood, _FLOOD),
-    }
+    }, descriptors
 
 
 def new_kernels():
     from ecseg_torch.ops import cc_kernels as K
 
     return {
+        "stitch": K._cfunc("ecseg_stitch"),
         "label": K._cfunc("ecseg_label"), "flood_border": K._cfunc("ecseg_flood_border"),
         "flood_seeds": K._cfunc("ecseg_flood"), "label_mc": K._cfunc("ecseg_label_mc"),
-        "flood_mc": K._cfunc("ecseg_flood_mc"), "label_flood": K._cfunc("ecseg_label_flood"),
+        "flood_mc": K._cfunc("ecseg_flood_mc"), "count_patches": K._cfunc("ecseg_count_patches"),
+        "label_flood": K._cfunc("ecseg_label_flood"),
     }
 
 
@@ -158,10 +179,110 @@ def kernel_us(fn, reps):
     return out
 
 
+def time_pair(key, base, new, res, what, args):
+    """One row entry: outputs equal, then ``--rounds`` of base, new, new,
+    base; medians of each side's turns (and the split by pass)."""
+    base()
+    new()
+    torch.cuda.synchronize()
+    if not all(torch.equal(r[0], r[1]) for r in res):
+        raise RuntimeError(f"{key} on {what}: the new kernel's output differs from the base's")
+    turns = [event_ms(f, args.reps) for _ in range(args.rounds) for f in (base, new, new, base)]
+    entry = {
+        "base_ms": statistics.median(turns[0::4] + turns[3::4]),
+        "new_ms": statistics.median(turns[1::4] + turns[2::4]),
+        "turns": turns,
+    }
+    return entry
+
+
+def profile_into(entry, key, what, base, new, args):
+    entry["base_us_by_kernel"] = kernel_us(base, args.reps)
+    entry["new_us_by_kernel"] = kernel_us(new, args.reps)
+    for side in ("base", "new"):
+        parts = ", ".join(f"{n} {us:.1f}" for n, us in entry[f"{side}_us_by_kernel"].items())
+        print(f"  {what} {key} {side} device us: {parts}", flush=True)
+
+
+def stitch_count_rows(base_k, descriptors, new_k, stream, args):
+    """B1 and B8b rows: the base side gets the per-pixel source map (and,
+    for B8b, a full parent array) unless it reads descriptors."""
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import tiling
+    from ecseg_torch.ops.tiling import SCW
+
+    def call(fn, *a):
+        rc = fn(*a, stream)
+        if rc:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+    rng = np.random.default_rng(3)
+    rows = []
+    for h, w in STITCH_PLANS:
+        pos = tuple(map(tuple, tiling.patch_positions(h, w)))
+        lp = torch.from_numpy(rng.integers(0, 4, (len(pos), 256, 256)).astype(np.uint8)).cuda()
+        desc, src = K._descriptors(pos, lp.device)[0], K._source_map(pos, lp.device)
+        out = [torch.empty((h, w), dtype=torch.int32, device="cuda") for _ in range(2)]
+        if descriptors:
+            base = lambda: call(base_k["stitch"], lp.data_ptr(), desc.data_ptr(), out[0].data_ptr(), h, w)
+        else:
+            base = lambda: call(base_k["stitch"], lp.data_ptr(), src.data_ptr(), out[0].data_ptr(), h * w)
+        new = lambda: call(new_k["stitch"], lp.data_ptr(), desc.data_ptr(), out[1].data_ptr(), h, w)
+        what = f"stitch {h}x{w} ({len(pos)} patches)"
+        row = {"mask": what, "stitch": time_pair("stitch", base, new, (out,), what, args)}
+        if args.profile:
+            profile_into(row["stitch"], "stitch", what, base, new, args)
+        rows.append(row)
+        print(f"{what}: stitch {row['stitch']['base_ms']:.4f} -> {row['stitch']['new_ms']:.4f} ms", flush=True)
+
+    def labels(kind, t, n):
+        if kind == "tile recipe":  # bench's tiles, class 3 on their bright squares
+            from ecseg_torch.pipelines import tile_count
+
+            patches, _ = tile_count.tile_patches(tile_count.synthetic_tiles(t, 0))
+            return np.where(patches[..., 0] == 230, 3, 0).astype(np.uint8)
+        if kind == "all class 3":
+            return np.full((t, n, 256, 256), 3, np.uint8)
+        lp = rng.integers(0, 4, (t, n, 256, 256)).astype(np.uint8)
+        if kind == "sparse":
+            lp[rng.random(lp.shape) < 0.97] = 0
+        return lp
+
+    cases = [(1024, 1024, 32, kind, dtype, conn) for kind, dtype, conn in (
+        ("tile recipe", torch.uint8, 2), ("random", torch.uint8, 2), ("random", torch.uint8, 1), ("random", torch.int32, 2),
+        ("sparse", torch.uint8, 2), ("all class 3", torch.uint8, 2),
+    )] + [(2048, 2048, 1, "random", torch.uint8, 2)]
+    for h, w, t, kind, dtype, conn in cases:
+        pos = tuple(map(tuple, tiling.patch_positions(h, w)))
+        lp = torch.from_numpy(labels(kind, t, len(pos))).to("cuda", dtype)
+        desc, src = K._descriptors(pos, lp.device)[0], K._source_map(pos, lp.device)
+        # the new kernel's scratch: border slots, then a byte per strip of four tiles
+        slots = t * 4 * 32 * (-(-h // 32)) * (-(-w // 32)) + t * (-(-h // 32)) * (-(-w // 128))
+        parent = [torch.empty(slots if descriptors else t * h * w, dtype=torch.int32, device="cuda"),
+                  torch.empty(slots, dtype=torch.int32, device="cuda")]
+        out = [torch.empty((t, 2), dtype=torch.int32, device="cuda") for _ in range(2)]
+        wide = int(dtype == torch.int32)
+
+        def side(k, fn, plan):
+            return lambda: call(fn, lp.data_ptr(), wide, plan.data_ptr(), t, len(pos) * SCW * SCW, h, w, 3, conn,
+                                parent[k].data_ptr(), out[k].data_ptr())
+
+        base = side(0, base_k["count_patches"], desc if descriptors else src)
+        new = side(1, new_k["count_patches"], desc)
+        what = f"count_patches {t} x {h}x{w} {kind} {str(dtype)[6:]} conn {conn}"
+        row = {"mask": what, "count_patches": time_pair("count_patches", base, new, (out,), what, args)}
+        if args.profile:
+            profile_into(row["count_patches"], "count_patches", what, base, new, args)
+        rows.append(row)
+        print(f"{what}: count_patches {row['count_patches']['base_ms']:.4f} -> {row['count_patches']['new_ms']:.4f} ms", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", required=True)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -169,11 +290,11 @@ def main() -> int:
         print("ab_cc_tiled: no CUDA device is available", file=sys.stderr)
         return 1
     with tempfile.TemporaryDirectory(prefix="ab_cc_") as tmp:
-        base_k = build_base(os.path.abspath(args.base), tmp)
+        base_k, descriptors = build_base(os.path.abspath(args.base), tmp)
         new_k = new_kernels()
         stream = torch.cuda.current_stream().cuda_stream
         seed_rng = np.random.default_rng(2)
-        rows = []
+        rows = stitch_count_rows(base_k, descriptors, new_k, stream, args)
         for what, m, cls in masks():
             h, w = cls.shape
             ct = torch.from_numpy(cls).cuda()
@@ -219,19 +340,9 @@ def main() -> int:
                 )
             row = {"mask": what}
             for key, (base, new, res) in runs.items():
-                base()
-                new()
-                torch.cuda.synchronize()
-                if not all(torch.equal(r[0], r[1]) for r in res):
-                    raise RuntimeError(f"{key} on {what}: the new kernel's output differs from the base's")
-                t = [event_ms(f, args.reps) for f in (base, new, new, base)]
-                row[key] = {"base_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2, "turns": t}
+                row[key] = time_pair(key, base, new, res, what, args)
                 if args.profile and (h, w) == (2048, 2048):
-                    row[key]["base_us_by_kernel"] = kernel_us(base, args.reps)
-                    row[key]["new_us_by_kernel"] = kernel_us(new, args.reps)
-                    for side in ("base", "new"):
-                        parts = ", ".join(f"{n} {us:.1f}" for n, us in row[key][f"{side}_us_by_kernel"].items())
-                        print(f"  {what} {key} {side} device us: {parts}", flush=True)
+                    profile_into(row[key], key, what, base, new, args)
             rows.append(row)
             print(
                 f"{what}: " + "; ".join(f"{k} {row[k]['base_ms']:.4f} -> {row[k]['new_ms']:.4f} ms" for k in runs),
@@ -240,7 +351,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
-    result = {"card": smi, "reps": args.reps, "rows": rows}
+    result = {"card": smi, "reps": args.reps, "rounds": args.rounds, "rows": rows}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -34,7 +34,14 @@ def _leaves(tree):
 
 
 _BOOLS = ["yes", "Yes", "YES", "no", "No", "NO", "true", "True", "TRUE", "false", "False", "FALSE", "on", "On", "ON", "off", "Off", "OFF"]
-_WORD = st.text(st.sampled_from("abcxyzXY_/.-0123456789"), min_size=1, max_size=12).filter(lambda s: s[0] not in "-.")
+# plain words that safe_load reads as strings: the alphabet also spells
+# octal, hex, binary and underscored numbers and dates ("00", "0x1f",
+# "1_0", "2020-01-01"), which the subset refuses (test_reader_never_guesses)
+# and which safe_load may not even construct ("0b_" raises)
+_STR_TAG = "tag:yaml.org,2002:str"
+_WORD = st.text(st.sampled_from("abcxyzXY_/.-0123456789"), min_size=1, max_size=12).filter(
+    lambda s: s[0] not in "-." and yaml.resolver.Resolver().resolve(yaml.ScalarNode, s, (True, False)) == _STR_TAG
+)
 _SCALARS = st.one_of(
     st.integers(-10**12, 10**12).map(str),
     st.integers(0, 10**6).map(lambda i: f"+{i}"),

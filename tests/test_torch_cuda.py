@@ -149,13 +149,45 @@ def test_multiclass_kernels_match_twins(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(2048, 2048), (462, 874), (306, 306), (2048, 3072)])
+@pytest.mark.parametrize("h,w", [(2048, 2048), (462, 874), (306, 306), (2048, 3072), (256, 256), (1024, 1024)])
 def test_stitch_kernel_matches_twin(cuda, h, w):
+    """Random bytes 0-255, so every byte lane of the kernel's four-byte
+    loads shows; the patch stack also from an odd offset of its storage,
+    so the quads' loads straddle words everywhere."""
     key = tuple(map(tuple, tiling.patch_positions(h, w)))
-    lp = torch.from_numpy(
-        np.random.default_rng(h + w).integers(0, 4, size=(len(key), 256, 256)).astype(np.uint8)
-    ).to(cuda)
+    rng = np.random.default_rng(h + w)
+    lp = torch.from_numpy(rng.integers(0, 256, size=(len(key), 256, 256)).astype(np.uint8)).to(cuda)
     assert torch.equal(K.stitch_labels(lp, key), K.stitch_plain(lp, key))
+    odd = torch.empty(lp.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(lp.shape)
+    odd.copy_(lp)
+    assert torch.equal(K.stitch_labels(odd, key), K.stitch_plain(lp, key))
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_descriptors_that_do_not_match(cuda, monkeypatch):
+    """B1 and B8b read the plan's descriptors, checked against the replayed
+    plan before their first launch: a mismatch raises and launches
+    nothing."""
+    key = tuple(map(tuple, tiling.patch_positions(306, 306)))
+    derive = K.stitch_descriptors
+
+    def off(src):
+        desc = derive(src)
+        desc[0] += 1  # C of column 0
+        return desc
+
+    monkeypatch.setattr(K, "stitch_descriptors", off)
+    K._descriptors.cache_clear()
+    K.reset_launches()
+    lp = torch.zeros((len(key), 256, 256), dtype=torch.uint8, device=cuda)
+    try:
+        with pytest.raises(ValueError, match="306x306 stitch plan"):
+            K.stitch_labels(lp, key)
+        with pytest.raises(ValueError, match="306x306 stitch plan"):
+            K.count_from_patches(lp, key)
+    finally:
+        K._descriptors.cache_clear()
+    assert set(K.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.cuda
@@ -213,6 +245,57 @@ def test_count_patches_kernel_matches_twin(cuda, h, w):
                 assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (dtype, cls, conn)
                 one = K.count_from_patches(t[1], pos, cls, conn)
                 assert (int(one[0]), int(one[1])) == (int(want[0][1]), int(want[1][1]))
+
+
+def _count_both_dtypes(t, pos, cls, conn, what):
+    """B8b on uint8 and int32 labels against the twin."""
+    want = K.count_from_patches_plain(t, pos, cls, conn)
+    for dtype in (torch.uint8, torch.int32):
+        got = K.count_from_patches(t.to(dtype), pos, cls, conn)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (what, dtype, cls, conn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_MASKS))
+def test_count_patches_kernel_on_tile_masks(cuda, name):
+    """B8b, which counts 32x32 tiles' pieces minus the links across their
+    edges, on each tile-edge mask written into patch stacks as class 3 over
+    random classes 0-2: the mask itself placed across the canvas's tile
+    edges on the 306^2 plan (unreached rim), and the same family at the
+    462x874 and 1024^2 canvas sizes (the single row and column and the
+    empty map placed as on the 306^2 plan); classes 3 and 0, both connectivities,
+    uint8 and int32 labels."""
+    rng = np.random.default_rng(len(name))
+    m = TILE_MASKS[name]
+    for h, w in [(306, 306), (462, 874), (1024, 1024)]:
+        pos = tuple(map(tuple, tiling.patch_positions(h, w)))
+        families = tile_masks(h, w)
+        if (h, w) != (306, 306) and name in families:
+            canvas = families[name]
+        else:  # the mask itself (also the single row and column)
+            canvas = np.zeros((h, w), bool)
+            canvas[29 : 29 + m.shape[0], 30 : 30 + m.shape[1]] = m
+        img = np.where(canvas, 3, rng.integers(0, 3, (h, w))).astype(np.uint8)
+        lp = torch.from_numpy(np.stack([img[y : y + 256, x : x + 256] for (y, x) in pos])[None]).to(cuda)
+        for cls in (3, 0):
+            for conn in (1, 2):
+                _count_both_dtypes(lp, pos, cls, conn, f"{name} {h}x{w}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 32])
+def test_count_patches_kernel_tile_batches(cuda, t):
+    """T canvases of the tile-count path's 1024^2 plan (25 patches each)
+    in one launch, dense and sparse classes, every class and connectivity,
+    uint8 and int32 labels."""
+    pos = tuple(map(tuple, tiling.patch_positions(1024, 1024)))
+    rng = np.random.default_rng(t)
+    lp = rng.integers(0, 4, size=(t, len(pos), 256, 256)).astype(np.uint8)
+    lp[t // 2 :] = np.where(rng.random(lp[t // 2 :].shape) < 0.97, 0, lp[t // 2 :])  # sparse classes
+    lp = torch.from_numpy(lp).to(cuda)
+    for cls in range(4):
+        for conn in (1, 2):
+            _count_both_dtypes(lp, pos, cls, conn, f"{t} tiles")
 
 
 def _tail_args(rng, c1, c2, ncls, integer, dtype, device):

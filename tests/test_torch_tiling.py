@@ -86,7 +86,8 @@ def test_stitch_twin_matches_pallas_and_host(h, w, rng):
 
 @pytest.mark.parametrize("h,w", [(2048, 2048), (700, 900)])
 def test_stitch_source_map_matches_twin(h, w, rng):
-    """The B1 kernel reads the plan replayed into a per-pixel source map;
+    """The plan replayed into a per-pixel source map (from which the B1 and
+    B8b kernels' row/column descriptors are derived and checked):
     gathering through that map on the host equals the twin's replay."""
     key = tuple(map(tuple, tt.patch_positions(h, w)))
     lp = torch.from_numpy(rng.integers(0, 4, size=(len(key), 256, 256)).astype(np.uint8))
