@@ -31,7 +31,8 @@ Phases (any failure raises; exit code 0 only when all pass):
    on class 2, at the same two sizes (B5, B6 and B9 beside their
    three-pass times); B8a count on the
    random, snake and spiral masks at
-   both sizes (connectivity 1 and 2); B8b stitch+count on 1, 2 and 32
+   both sizes and on the tile-edge masks at every size (connectivity 1 and
+   2); B8b stitch+count on 1, 2 and 32
    tiles of the 1024^2 plan in one launch and on one 2048^2 tile, for
    class_id 0-3 at connectivity 1 and 2, uint8 and int32 labels (one and
    two tiles also against ``stitch_plain`` + ``==`` + the B8a twin), and
@@ -60,10 +61,25 @@ Phases (any failure raises; exit code 0 only when all pass):
    folder with a copy of ``example_ecSeg/input.tif`` (LZW, predictor 2) and
    a synthetic 2048^2 image this script writes as LZW (no cv2): exit code
    0, two CSV rows, labels equal to the host oracle and byte-equal to an
-   in-process ``main``, and the host decode times of both files;
+   in-process ``main``, and the host decode times of both files.  Then
+   ``make metaseg && make meta_overlay`` as a user runs them: the two
+   command lines on a folder of three 2048^2 RGB uint16 LZW TIFFs (blue a
+   synthetic DAPI image, red and green seeded FISH dots and blobs; one
+   image's FISH below color_sensitivity) and one grayscale TIFF, and
+   ``meta_overlay.main`` in-process on a copy (launch counters set to 0
+   just before, read just after: ``OVERLAY_LAUNCHES`` per RGB image, B2
+   and B8a).  Checks: exit codes 0, three CSV rows byte-equal to the
+   in-process run's and to the host oracle's, the ``red/``/``green/``
+   PNGs decode to 255 - the channel, B8a equal to its twin on every
+   image's ec, fish_nc and fish2_nc masks, ``overlay_stats`` equal to the
+   host oracle with seeded chromosome blobs; the stage times per image.
+   Then ``python3 -m ecseg_torch.pipelines.fish_distance`` (host only) on
+   a synthetic stat_fish output folder, its CSV byte-equal to an
+   in-process host computation;
 4. time each kernel at the main path's shapes beside its plain twin and its
    memory bound: the CUDA-event mean over back-to-back calls (``ms``) and
    the device-only time from one ``torch.profiler`` pass (``device_ms``);
+   B7, whose contract B2 and B4 serve, as B2 on a 2048x3072 mask;
    and one 100-patch forward at the XL widths;
 5. drive the tile-count path (``ecseg_torch.pipelines.tile_count.run``,
    bench.py's per-tile bf16 ecDNA count) with the default device at the
@@ -76,7 +92,9 @@ Phases (any failure raises; exit code 0 only when all pass):
    B8b, B10 (beside the cuDNN chain it replaces, at both widths) and B11
    (beside cuDNN's transpose conv + ReLU at every decoder level) timed as
    in 4, with bounds from bytes and operations, achieved TFLOP/s and the
-   share of the bound; each timed row's profiler pass must show the
+   share of the bound (B8a on metaseg image 0's ecDNA mask and on the
+   overlay's fish2_nc mask, its launches from the meta_overlay run); each
+   timed row's profiler pass must show the
    wrapper's own kernel by name, and a pass whose device sum differs from
    the CUDA-event mean by more than 25 % is repeated; B8a, B8b and B10
    bit-equal to their twins on the timed inputs, B10 on the whole level-1
@@ -138,9 +156,14 @@ TILE_KERNELS = {  # the tile-count path's kernels and B11, as KERNELS
     "convt": ("B11", "conv2d_transpose_packed", "ecseg_torch/csrc/convt.cu", "ecseg_tpu/ops/convt_pallas.py:157", "conv2d_transpose_packed"),
 }
 ALL_KERNELS = {**KERNELS, **TILE_KERNELS}
+# the kernel launches of one RGB image through ``meta_overlay.main``: B2 on
+# ec, fish_nc and chrom (8-connected) and in the two HSR size filters
+# (4-connected), B8a on ec, fish_nc and fish2_nc
+OVERLAY_LAUNCHES = {key: {"label": 5, "count": 3}.get(key, 0) for key in ALL_KERNELS}
+OVERLAY_SENSITIVITY = 85  # the meta_overlay phase's color_sensitivity (the repository's config.yaml)
 # the device kernel each timed tile-path row must show in its profiler pass
 # (the bf16 forms of B10 and B11; B8's counting pass)
-KERNEL_NAMES = {"count": "count_tiles", "count_patches": "count_patch_tiles", "fused_tail": "fused_tail_mma", "convt": "convt_mma"}
+KERNEL_NAMES = {"count": "count_mask_tiles", "count_patches": "count_patch_tiles", "fused_tail": "fused_tail_mma", "convt": "convt_mma"}
 TAIL_WIDTHS = {"default": (64, 32), "xl": (128, 64)}  # B10's (c1, c2) per arch
 CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
     "half up4": (100, 16, 16, 512, 256),
@@ -153,6 +176,7 @@ CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
 }
 CONVT_TIMED = "xl up1"  # the shape of B11's timing row
 COUNT_SIZES = ((2048, 2048), (2048, 3072))  # B8a's stress masks
+BANDED_SHAPE = (2048, 3072)  # B7's timing map: over the JAX package's fast-memory limit, so it labels it in bands
 TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))  # B2-B6, B9 on the tile-edge maps
 # B2's to B6's and B9's ms on phase 2's masks and class maps in the three-pass form
 # that the tiled union-find replaced (B2, B3: this script before the
@@ -202,6 +226,7 @@ REDESIGNED = {  # kernel -> its redesign
     **{k: "tiled union-find in shared memory" for k in ("label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood")},
     "stitch": "quads of four pixels read through the plan's row/column descriptors, no source map",
     "count_patches": "tiled union-find over the tiles' border slots, counted as pieces minus links, no per-pixel array",
+    "count": "tiled union-find over the tiles' border slots, counted as pieces minus links, no per-pixel array",
 }
 STITCH_PLANS = ((2048, 2048), (2048, 3072), (1024, 1024), (462, 874), (306, 306), (256, 256))  # B1's equality plans
 COUNT_PLANS = ((1024, 1024, 1), (1024, 1024, 2), (1024, 1024, 32), (2048, 2048, 1))  # B8b's (h, w, tiles)
@@ -403,11 +428,19 @@ def phase_kernels(K, tiling, rng, dev, errors):
             )
 
 
+def label_counts(labels):
+    """B8a's twin on a mask that ``label_plain`` has labelled: (components,
+    foreground pixels), the roots and the labelled pixels, as 0-d int32."""
+    lab = labels.reshape(-1)
+    idx = torch.arange(lab.numel(), device=lab.device)
+    return (lab == idx).sum().to(torch.int32), (lab >= 0).sum().to(torch.int32)
+
+
 def phase_tile_masks(K, dev, errors):
-    """B2 (connectivity 1 and 2), B3 (on each mask and its complement), B4
-    and B9 (connectivity 1 and 2, each seed pattern of ``tests/_masks.py``:
-    sparse, dense, on tile corners, on tile edges, only off the mask)
-    bit-equal to their twins on the tile-edge masks, and B5 and B6 (each
+    """B2 and B8a (connectivity 1 and 2), B3 (on each mask and its
+    complement), B4 and B9 (connectivity 1 and 2, each seed pattern of
+    ``tests/_masks.py``: sparse, dense, on tile corners, on tile edges, only
+    off the mask) bit-equal to their twins on the tile-edge masks, and B5 and B6 (each
     seed pattern of the class map's nonzero pixels) on the tile-edge class
     maps (``tile_class_maps``), at every ``TILE_SIZES`` size; times at
     2048^2."""
@@ -421,6 +454,7 @@ def phase_tile_masks(K, dev, errors):
             want_labels = {conn: K.label_plain(mt, conn) for conn in (1, 2)}
             for conn in (1, 2):
                 errors.compare("label", K.label(mt, conn), want_labels[conn], f"{what} conn {conn}")
+                errors.compare("count", K.count_components(mt, conn), label_counts(want_labels[conn]), f"{what} conn {conn}")
             for t, side in ((mt, ""), (~mt, " complement")):
                 errors.compare("flood_border", K.flood_from_border(t), K.flood_from_border_plain(t), what + side)
             seeds = {p: torch.from_numpy(s).to(dev) for p, s in seed_patterns(m).items()}
@@ -433,7 +467,8 @@ def phase_tile_masks(K, dev, errors):
             if (h, w) == TILE_SIZES[0]:
                 inv, sparse, dense = ~mt, seeds["sparse"], seeds["dense"]
                 print(
-                    f"B2/B3/B4/B9 {what}: match plain; B2 conn 1 {cuda_ms(lambda: K.label(mt, 1), 5):.4f} ms, "
+                    f"B2/B3/B4/B8a/B9 {what}: match plain; B8a conn 2 {cuda_ms(lambda: K.count_components(mt, 2), 5):.4f} ms; "
+                    f"B2 conn 1 {cuda_ms(lambda: K.label(mt, 1), 5):.4f} ms, "
                     f"conn 2 {cuda_ms(lambda: K.label(mt, 2), 5):.4f} ms; B3 {cuda_ms(lambda: K.flood_from_border(mt), 5):.4f} ms, "
                     f"complement {cuda_ms(lambda: K.flood_from_border(inv), 5):.4f} ms; B4 conn 2 sparse seeds "
                     f"{cuda_ms(lambda: K.flood_from_seeds(mt, sparse, 2), 5):.4f} ms, dense {cuda_ms(lambda: K.flood_from_seeds(mt, dense, 2), 5):.4f} ms; "
@@ -455,7 +490,7 @@ def phase_tile_masks(K, dev, errors):
                     f"{cuda_ms(lambda: K.flood_multiclass(ct, sparse), 5):.4f} ms, dense {cuda_ms(lambda: K.flood_multiclass(ct, dense), 5):.4f} ms",
                     flush=True,
                 )
-        print(f"B2-B6/B9 tile-edge masks and class maps {h}x{w}: all match plain", flush=True)
+        print(f"B2-B6/B8a/B9 tile-edge masks and class maps {h}x{w}: all match plain", flush=True)
 
 
 def class_maps(rng, h, w):
@@ -821,6 +856,301 @@ def phase_command_line(args, rng, dev, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def synthetic_overlay_rgb(rng, h, w, dim=False):
+    """uint16 RGB input of meta_overlay: blue is ``synthetic_dapi``; green
+    and red are seeded FISH signal on black: 3x3 dots (9 px, under the HSR
+    size filter's 20) on the ecDNA dots, some in both channels, on the
+    nuclei (which the statistics mask out) and on the background, and 6x6
+    blobs (36 px) that the filter keeps.  With ``dim`` every FISH pixel is
+    20000 (78 after the 8-bit conversion, below color_sensitivity 85)."""
+    blue = synthetic_dapi(rng, h, w, crowded=False)
+    red, green = np.zeros((h, w), np.uint16), np.zeros((h, w), np.uint16)
+    level = 20000 if dim else 50000
+    ec, nuc = np.argwhere(blue == 60000), np.argwhere(blue == 33000)
+    anywhere = np.stack([rng.integers(0, h, 4000), rng.integers(0, w, 4000)], 1)
+
+    def dots(channels, points, n, size):
+        for y, x in points[rng.integers(0, len(points), n)]:
+            for ch in channels:
+                ch[y : y + size, x : x + size] = level
+
+    dots([green], ec, 60, 3)
+    dots([red], ec, 60, 3)
+    dots([red, green], ec, 30, 3)
+    dots([green], nuc, 40, 3)
+    dots([red], nuc, 40, 3)
+    dots([green], anywhere, 150, 3)
+    dots([red], anywhere, 150, 3)
+    dots([green], anywhere, 20, 6)
+    dots([red], anywhere, 20, 6)
+    dots([red, green], anywhere, 10, 6)
+    return np.stack([red, green, blue], axis=-1)
+
+
+def _write_lzw_tiff(job):
+    """(path, image): write the image as an LZW strip TIFF (a process-pool
+    job; the encoder is Python)."""
+    path, img = job
+    with open(path, "wb") as f:
+        f.write(lzw_tiff_bytes(img))
+
+
+def write_lzw_tiffs(jobs):
+    """``_write_lzw_tiff`` of every (path, image) in ``jobs`` at once, one
+    worker process each."""
+    import concurrent.futures as cf
+    import multiprocessing
+
+    with cf.ProcessPoolExecutor(max_workers=len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        list(pool.map(_write_lzw_tiff, jobs))
+
+
+def overlay_host_row(name, red, green, nuclei, chrom, ec):
+    """One fish_quantification.csv row from the port's host oracles (the
+    reference's dataflow, meta_overlay.py:68-83, on scipy)."""
+    from ecseg_torch.ops.cc import count_cc
+    from ecseg_torch.ops.meta_post import count_HSR, count_colocalization
+    from ecseg_torch.pipelines.meta_overlay import COLUMNS
+
+    fish, fish2 = green & ~nuclei, red & ~nuclei
+    t = 20
+    stats = {
+        "num_ecDNA": count_cc(ec),
+        "num_FISH": count_cc(fish & ~chrom),
+        "num_ecDNA_FISH": count_colocalization(ec, fish),
+        "num_HSR": count_HSR(chrom, fish, t),
+        "num_FISH2": count_cc(fish2 & ~chrom),
+        "num_FISH_FISH2": count_colocalization(fish & ~chrom, fish2 & ~chrom),
+        "num_ecDNA_FISH2": count_colocalization(ec, fish2),
+        "num_ecDNA_FISH_FISH2": count_colocalization(ec, fish2 & fish),
+        "num_HSR2": count_HSR(chrom, fish2, t),
+    }
+    return [name] + [stats[key] for _, key in COLUMNS[1:]]
+
+
+def read_png_gray(path):
+    """Pixels of an 8-bit grayscale PNG (colour type 0, no interlace) whose
+    rows all use filter 0, as ``imgio.write_png_gray`` writes them; anything
+    else fails the check."""
+    import zlib
+
+    buf = read_bytes(path)
+    check(buf[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(buf):
+        (n,) = struct.unpack(">I", buf[pos : pos + 4])
+        tag, data = buf[pos + 4 : pos + 8], buf[pos + 8 : pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = ihdr
+    check((depth, ctype, interlace) == (8, 0, 0), f"{path}: PNG header {ihdr}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    check(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return rows[:, 1:]
+
+
+def phase_meta_overlay(args, rng, dev, errors, results):
+    """``make metaseg && make meta_overlay`` as a user runs them: in a
+    directory with a ``config.yaml`` holding both sections and the demo
+    weights, on a folder of three 2048^2 RGB uint16 LZW TIFFs (blue a
+    ``synthetic_dapi`` image, red and green seeded FISH signal; the third
+    image's FISH all below color_sensitivity) and one grayscale TIFF,
+    ``python3 -m ecseg_torch.pipelines.metaseg`` and then ``python3 -m
+    ecseg_torch.pipelines.meta_overlay`` (with ``ECSEG_TRACE=1``), then
+    ``meta_overlay.main`` in-process on a copy of the folder with every
+    launch counter set to 0 just before and read just after.  Checks: exit
+    codes 0; three CSV rows (the grayscale image skipped), byte-equal to the
+    in-process run's and to the host oracle's on the same ``labels/*.npy``
+    and thresholded channels; each ``red/`` and ``green/`` PNG decodes to
+    255 - the channel; ``OVERLAY_LAUNCHES`` per RGB image; B8a bit-equal to
+    its twin on every image's ec, fish_nc and fish2_nc masks; and
+    ``overlay_stats`` on the card equal to the host oracle on image 0 with
+    seeded chromosome blobs in place of its (empty) chromosome class."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.demo import demo_metaseg_params
+    from ecseg_torch.models.weights import params_to_numpy, save_npz
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops.overlay_gpu import overlay_stats
+    from ecseg_torch.pipelines import meta_overlay
+    from ecseg_torch.pipelines.metaseg import write_csv
+    from ecseg_torch.runtime import trace
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="ecseg_overlay_")
+    try:
+        save_npz(os.path.join(work, "models", "metaseg.npz"), params_to_numpy(demo_metaseg_params(torch.Generator().manual_seed(args.seed))))
+        imgs = os.path.join(work, "imgs")
+        os.makedirs(imgs)
+        names = [f"fish{k}.tif" for k in range(3)]
+        rgbs = [synthetic_overlay_rgb(rng, SIZE, SIZE, dim=k == 2) for k in range(3)]
+        t0 = time.perf_counter()
+        write_lzw_tiffs([(os.path.join(imgs, n), img) for n, img in zip(names, rgbs)])
+        encode_s = time.perf_counter() - t0
+        imgio.write_tiff(os.path.join(imgs, "gray.tif"), synthetic_dapi(rng, SIZE, SIZE, crowded=False))
+        t0 = time.perf_counter()
+        got = imgio.imread_rgb(os.path.join(imgs, names[0]))
+        decode_s = time.perf_counter() - t0
+        check(got.dtype == np.uint16 and np.array_equal(got, rgbs[0]), "the RGB LZW file does not decode to the image written")
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            f.write(f"metaseg:\n  inpath: ./imgs\nmeta_overlay:\n  inpath: ./imgs\n  color_sensitivity: {OVERLAY_SENSITIVITY}\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        cli_s = {}
+        procs = {}
+        for task, extra in (("metaseg", {}), ("meta_overlay", {"ECSEG_TRACE": "1"})):
+            t0 = time.perf_counter()
+            procs[task] = subprocess.run([sys.executable, "-m", f"ecseg_torch.pipelines.{task}"], cwd=work, env=dict(env, **extra),
+                                         capture_output=True, text=True, timeout=600)
+            cli_s[task] = time.perf_counter() - t0
+            check(procs[task].returncode == 0, f"python -m ecseg_torch.pipelines.{task} exited {procs[task].returncode}:\n{procs[task].stdout[-2000:]}\n{procs[task].stderr[-4000:]}")
+            if task == "metaseg":
+                with open(os.path.join(imgs, "ec_quantification.csv")) as f:
+                    check(len(f.read().splitlines()) == 5, "metaseg's CSV does not hold four rows")
+                inproc = os.path.join(work, "inproc")
+                shutil.copytree(imgs, inproc)  # metaseg's outputs, before meta_overlay's
+        out = procs["meta_overlay"].stdout
+        check("isn't an RGB image" in out, "meta_overlay did not skip the grayscale image")
+        print("meta_overlay command line's stage table:\n" + out[out.find("[ecseg trace]"):].strip(), flush=True)
+
+        tracer = trace.tracer()
+        tracer.enabled = True
+        tracer.reset()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        rc = meta_overlay.main(config=Config(raw={"meta_overlay": {"inpath": inproc, "color_sensitivity": OVERLAY_SENSITIVITY}}))
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        stages = tracer.times()
+        tracer.enabled = False
+        check(rc == 0, f"in-process meta_overlay.main returned {rc}")
+        for key, n in OVERLAY_LAUNCHES.items():
+            check(launches[key] == n * len(names), f"meta_overlay: {key} launched {launches[key]} times, expected {n * len(names)}")
+        csv_path = lambda d: os.path.join(d, "fish_quantification.csv")
+        lines = read_bytes(csv_path(imgs)).decode().splitlines()
+        check(len(lines) == 4, f"fish_quantification.csv rows: {lines}")
+        check(read_bytes(csv_path(imgs)) == read_bytes(csv_path(inproc)), "meta_overlay command line: CSV bytes != in-process run's")
+
+        # the host oracle on the same label maps and thresholded channels
+        rows, fish2_nc = [], None
+        for path in imgio.get_imgs(imgs):
+            name = os.path.basename(path)
+            if name not in names:
+                continue
+            u8 = imgio.u16_to_u8(rgbs[names.index(name)])
+            for ch, sub in ((0, "red"), (1, "green")):
+                check(np.array_equal(read_png_gray(os.path.join(imgs, sub, name + ".png")), 255 - u8[..., ch]), f"{sub}/{name}.png != 255 - the channel")
+            red, green = u8[..., 0] > OVERLAY_SENSITIVITY, u8[..., 1] > OVERLAY_SENSITIVITY
+            seg = np.load(os.path.join(imgs, "labels", name[:-4] + ".npy"))
+            nuclei, chrom, ec = seg == 1, seg == 2, seg == 3
+            rows.append(overlay_host_row(name, red, green, nuclei, chrom, ec))
+            fish_nc = green & ~nuclei & ~chrom
+            masks = {"ec": ec, "fish_nc": fish_nc, "fish2_nc": red & ~nuclei & ~chrom}
+            for mname, m in masks.items():
+                mt = torch.from_numpy(m).to(dev)
+                for conn in (1, 2):
+                    errors.compare("count", K.count_components(mt, conn), K.count_components_plain(mt, conn), f"{name}'s {mname} mask conn {conn}")
+            if name == names[0]:
+                fish2_nc = torch.from_numpy(masks["fish2_nc"]).to(dev)
+                blobs = np.zeros_like(chrom)
+                for y, x in rng.integers(0, SIZE - 40, (300, 2)):
+                    blobs[y : y + int(rng.integers(5, 40)), x : x + int(rng.integers(5, 40))] = True
+                blobs &= ~ec
+                want = overlay_host_row(name, red, green, nuclei, blobs, ec)
+                stats = overlay_stats(red, green, nuclei, blobs, ec, device=dev)
+                got = meta_overlay.image_row(name, stats, SIZE * SIZE)
+                check(got == want, f"overlay_stats with chromosome blobs: {got} != host oracle {want}")
+                check(want[-1] > 0 and want[-2] > 0, f"the chromosome blobs hold no FISH blob of 20 px or more: {want}")
+        oracle = os.path.join(work, "oracle.csv")
+        write_csv(oracle, [c for c, _ in meta_overlay.COLUMNS], rows)
+        check(read_bytes(oracle) == read_bytes(csv_path(imgs)), f"meta_overlay CSV != host oracle's:\n{read_bytes(csv_path(imgs)).decode()}\n{read_bytes(oracle).decode()}")
+        dim_row = next(ln for ln in lines[1:] if ln.startswith(names[2] + ","))
+        check(dim_row.count('"(0, 0.0)"') == 2, f"the dim image's FISH counts are not (0, 0.0): {dim_row}")
+        results["overlay_launches"] = launches
+        results["overlay_fish2_nc"] = fish2_nc
+        results["overlay"] = {
+            "images": len(names), "wall_s": wall, "stages_s": stages, "cli_s": cli_s, "encode_s": encode_s,
+            "decode_s": decode_s, "launches": {k: v for k, v in launches.items() if v}, "csv_rows": lines[1:],
+        }
+        print(
+            f"meta_overlay: command lines metaseg {cli_s['metaseg']:.2f} s, meta_overlay {cli_s['meta_overlay']:.2f} s (process start "
+            f"included); in-process main on {len(names)} RGB images + 1 grayscale in {wall:.3f} s; launches {results['overlay']['launches']}; "
+            f"CSV equals the host oracle and the command line's; PNGs decode to 255 - channel; RGB LZW decode {1e3 * decode_s:.1f} ms, "
+            f"3 encodes in parallel {encode_s:.1f} s", flush=True,
+        )
+        for name, ts in sorted(stages.items()):
+            print(f"  stage {name:24s} n={len(ts)} total {sum(ts):.4f} s; per image ms: " + " ".join(f"{1e3 * t:.2f}" for t in ts), flush=True)
+        print("fish_quantification.csv:\n" + "\n".join(lines), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def synthetic_cells(rng, h, w, n_cells):
+    """A stat_fish-like segmentation (int64 discs, 0 background) and an RGB
+    uint8 LSQ image with two red, three green and four blue probe pixels in
+    each cell (tests/test_fish_distance.py's generator at another size, with
+    few enough red blobs that most cells pass max_centromeric_spots 3)."""
+    seg = np.zeros((h, w), np.int64)
+    lsq = np.zeros((h, w, 3), np.uint8)
+    yy, xx = np.ogrid[:h, :w]
+    for lab in range(1, n_cells + 1):
+        cy, cx, r = rng.integers(20, h - 20), rng.integers(20, w - 20), int(rng.integers(10, 18))
+        disk = ((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r) & (seg == 0)
+        seg[disk] = lab
+        ys, xs = np.nonzero(disk)
+        for ch, k in ((0, 2), (1, 3), (2, 4)):
+            take = rng.choice(len(ys), size=min(k, len(ys)), replace=False) if len(ys) else []
+            lsq[ys[take], xs[take], ch] = 200
+    return seg, lsq
+
+
+def phase_fish_distance(rng, results):
+    """``python3 -m ecseg_torch.pipelines.fish_distance`` (host only, no
+    kernel) on a synthetic stat_fish output folder: two images, each with
+    ``annotated/<name>/<name>__segmentation_min_cut.npy`` and an LZW RGB
+    ``<name>_lsq.tif``.  Checks: exit code 0 and CSV bytes equal to an
+    in-process host computation (``folder_distances`` + ``write_csv``)."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.pipelines import fish_distance
+    from ecseg_torch.pipelines.metaseg import write_csv
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="ecseg_fishdist_")
+    try:
+        folder = os.path.join(work, "interseg")
+        os.makedirs(folder)
+        for k in range(2):
+            name = f"cells{k}"
+            seg, lsq = synthetic_cells(rng, 512, 512, 40)
+            imgio.write_tiff(os.path.join(folder, f"{name}.tif"), lsq)
+            ann = os.path.join(folder, "annotated", name)
+            os.makedirs(ann)
+            np.save(os.path.join(ann, f"{name}__segmentation_min_cut.npy"), seg)
+            with open(os.path.join(ann, f"{name}_lsq.tif"), "wb") as f:
+                f.write(lzw_tiff_bytes(lsq))
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            f.write("fish_distance_calculation:\n  inpath: ./interseg\n  centromere_probe_color: green\n"
+                    "  fish_probe_color: red\n  max_centromeric_spots: 3\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ecseg_torch.pipelines.fish_distance"], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m ecseg_torch.pipelines.fish_distance exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        distances = fish_distance.folder_distances(folder, 1, 0, 3)
+        want = os.path.join(work, "want.csv")
+        write_csv(want, ["normalized_distance"], [(d,) for d in distances])
+        got = read_bytes(os.path.join(folder, "centromere_distances.csv"))
+        check(got == read_bytes(want), "fish_distance command line: CSV bytes != the in-process host computation's")
+        check(len(distances) > 10 and all(np.isfinite(distances)), f"fish_distance: {len(distances)} distances, finite {np.isfinite(distances).all()}")
+        results["fish_distance"] = {"cli_s": cli_s, "rows": len(distances)}
+        print(f"fish_distance command line: {len(distances)} distances in {cli_s:.2f} s (process start included), CSV equals the host computation", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_timings(K, dev, errors, results):
     lp, pos, raw = results.pop("inputs")
     results["ec_mask"] = raw == 3  # B8a's timing input (tile phase)
@@ -871,7 +1201,35 @@ def phase_timings(K, dev, errors, results):
             rows[-1]["redesigned"] = REDESIGNED[key]
         lib = f", library {rows[-1]['library_ms']:.4f} ms ({len(rows[-1]['library_kernels'])} kernels)" if key in library else ""
         print(f"{b} {name} at main-path shapes: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms{lib}", flush=True)
+    rows.append(banded_row(K, dev, errors, results))
     return rows
+
+
+def banded_row(K, dev, errors, results):
+    """B7's row.  The JAX package's banded labeler and flood carry B2's and
+    B4's contracts on maps too large for its fast memory; the port's B2 and
+    B4 kernels take any size, so they serve it (bit-equal at 2048x3072 in
+    phase 2).  Timed as B2 on a 2048x3072 random mask; its launches are
+    those of the B2 and B4 wrappers in the default form's run."""
+    h, w = BANDED_SHAPE
+    m = torch.rand((h, w), generator=torch.Generator(device=dev).manual_seed(7), device=dev) < 0.5
+    kern, plain = (lambda: K.label(m, 2)), (lambda: K.label_plain(m, 2))
+    errors.compare("label", kern(), plain(), f"random {h}x{w} (the banded contract's map)")
+    launches = results["launches"]["default"]
+    row = {
+        "name": "label_banded", "b": "B7", "route": "cuda", "source": KERNELS["label"][2],
+        "replaces": "ecseg_tpu/ops/cc_pallas_banded.py:230", "pallas_function": "label_banded/flood_banded",
+        "served_by": "label (B2) and flood_from_seeds (B4), which take any map size",
+        "launches": launches["label"] + launches["flood_seeds"], "launches_form": "default",
+        "max_abs_err": max(errors.max["label"], errors.max["flood_seeds"]),
+        "ms": cuda_ms(kern, 20), "device_ms": device_ms(kern, 20), "plain_ms": cuda_ms(plain, 1),
+        "bound_ms": 1e3 * 5 * h * w / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": None,
+        "input": f"random p = 0.5 mask, {h}x{w}, connectivity 2 (B2)",
+    }
+    row["matches_plain"] = row["max_abs_err"] == 0
+    print(f"B7 label_banded (served by B2) at {h}x{w}: kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms), "
+          f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms, launches {row['launches']}", flush=True)
+    return row
 
 
 def phase_xl_forward(rng, dev):
@@ -1088,10 +1446,20 @@ def tile_rows(K, dev, errors, results):
     launches = results["tile_launches"]
     rows = []
     ec = results.pop("ec_mask")
+    fish2_nc = results.pop("overlay_fish2_nc")
+    # the overlay's own B8a input, beside the row's
+    errors.compare("count", K.count_components(fish2_nc, 2), K.count_components_plain(fish2_nc, 2), "the overlay's fish2_nc mask")
+    fish2_ms = cuda_ms(lambda: K.count_components(fish2_nc, 2), 20)
+    fish2_dev_ms, fish2_kernel_ms = device_ms(lambda: K.count_components(fish2_nc, 2), 20, kernel=KERNEL_NAMES["count"], event_ms=fish2_ms)
     rows.append(_timed_row(
-        "count", lambda: K.count_components(ec, 2), lambda: K.count_components_plain(ec, 2), ec.numel() + 8, 0, None, 0, 20, errors,
-        path=None, input="metaseg image 0's ecDNA mask (2048^2); on no path (the JAX package calls it only from its oversize fallback and tests)",
+        "count", lambda: K.count_components(ec, 2), lambda: K.count_components_plain(ec, 2), ec.numel() + 8, 0, None,
+        results["overlay_launches"]["count"], 20, errors, path="meta_overlay",
+        input="metaseg image 0's ecDNA mask (2048^2); launches from meta_overlay.main on 3 RGB images",
+        redesigned=REDESIGNED["count"],
+        fish2_nc={"input": "the overlay's image-0 fish2_nc mask (2048^2)", "ms": fish2_ms, "device_ms": fish2_dev_ms,
+                  "kernel_device_ms": fish2_kernel_ms, "px": int(fish2_nc.sum())},
     ))
+    print(f"B8a on the overlay's fish2_nc mask: {fish2_ms:.4f} ms (device {fish2_dev_ms:.4f} ms)", flush=True)
     t = labels.shape[0]
     landed = int((K._source_map(positions, dev) >= 0).sum())
     rows.append(_timed_row(
@@ -1206,6 +1574,8 @@ def main() -> int:
     phase_tail_kernels(np.random.default_rng(args.seed + 3), dev, errors, results)
     phase_main_path(args, rng, dev, errors, results)
     phase_command_line(args, np.random.default_rng(args.seed + 4), dev, results)
+    phase_meta_overlay(args, np.random.default_rng(args.seed + 5), dev, errors, results)
+    phase_fish_distance(np.random.default_rng(args.seed + 6), results)
     rows = phase_timings(K, dev, errors, results)
     xl_ms = phase_xl_forward(rng, dev)
     per_tile = phase_tile_count(K, dev, results)
@@ -1213,6 +1583,7 @@ def main() -> int:
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
     print(json.dumps({"command_line": results["command_line"], "card": smi}))
+    print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -18,5 +18,8 @@ and keeps the same task interface, folder layout and output bytes.  Rules:
 
 Ported so far: the metaseg task (``pipelines/metaseg.py``), with its
 post-processing in each form the JAX package's ``ECSEG_MC_LABEL`` and
-``ECSEG_MC_MERGE`` select (the multiclass form by default).
+``ECSEG_MC_MERGE`` select (the multiclass form by default); meta_overlay
+(``pipelines/meta_overlay.py``) and fish_distance_calculation
+(``pipelines/fish_distance.py``, host only); bench.py's per-tile count
+(``pipelines/tile_count.py``).
 """

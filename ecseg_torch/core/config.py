@@ -1,5 +1,6 @@
-"""Typed configuration (the metaseg section of the reference's ``config.yaml``,
-reference config.yaml:14-15).  Same schema and errors as
+"""Typed configuration (the metaseg, meta_overlay and
+fish_distance_calculation sections of the reference's ``config.yaml``,
+reference config.yaml:10-19).  Same schema and errors as
 ``ecseg_tpu/core/config.py``.
 
 The files are read by :func:`parse_yaml_subset`, not PyYAML, so the port
@@ -34,6 +35,39 @@ class MetasegConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MetaOverlayConfig:
+    """reference config.yaml:10-12; sensitivity validated 0-255
+    (reference meta_overlay.py:34-36)."""
+
+    inpath: str
+    color_sensitivity: int
+
+    def __post_init__(self):
+        if self.color_sensitivity < 0 or self.color_sensitivity > 255:
+            raise ConfigError("color_sensitivity can only be between 0 and 255")
+
+
+@dataclasses.dataclass(frozen=True)
+class FishDistanceConfig:
+    """reference config.yaml:16-19."""
+
+    inpath: str
+    centromere_probe_color: str
+    fish_probe_color: str
+    max_centromeric_spots: int
+
+    _COLOR_TO_INDEX = {"red": 0, "green": 1, "blue": 2}
+
+    @property
+    def centromere_probe_index(self) -> int:
+        return self._COLOR_TO_INDEX[self.centromere_probe_color]
+
+    @property
+    def fish_probe_index(self) -> int:
+        return self._COLOR_TO_INDEX[self.fish_probe_color]
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     raw: Mapping[str, Any]
     path: Optional[str] = None
@@ -47,6 +81,25 @@ class Config:
     def metaseg(self) -> MetasegConfig:
         s = self._section("metaseg")
         return MetasegConfig(inpath=_require(s, "inpath", "metaseg"))
+
+    @property
+    def meta_overlay(self) -> MetaOverlayConfig:
+        s = self._section("meta_overlay")
+        return MetaOverlayConfig(
+            inpath=_require(s, "inpath", "meta_overlay"),
+            color_sensitivity=_require(s, "color_sensitivity", "meta_overlay"),
+        )
+
+    @property
+    def fish_distance_calculation(self) -> FishDistanceConfig:
+        task = "fish_distance_calculation"
+        s = self._section(task)
+        return FishDistanceConfig(
+            inpath=_require(s, "inpath", task),
+            centromere_probe_color=_require(s, "centromere_probe_color", task),
+            fish_probe_color=_require(s, "fish_probe_color", task),
+            max_centromeric_spots=_require(s, "max_centromeric_spots", task),
+        )
 
 
 def load_config(path: str = "config.yaml") -> Config:

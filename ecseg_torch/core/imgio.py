@@ -13,8 +13,10 @@ the reference's channel-order and rounding semantics
   installed.
 - :func:`save_label_png` writes the metaseg palette PNG with ``zlib``; the
   contract is pixel-level (the decoded colours), as in the JAX package.
-- :func:`save_gray_inverted` writes the ``dapi/`` image as an uncompressed
-  TIFF (the JAX package's default encoding too).
+- :func:`save_gray_inverted` writes metaseg's ``dapi/`` image as an
+  uncompressed TIFF (the JAX package's default encoding too) and
+  meta_overlay's ``red/`` and ``green/`` images as 8-bit grayscale PNGs
+  (``zlib``); the contract is the decoded pixels, not the file bytes.
 """
 
 from __future__ import annotations
@@ -253,6 +255,21 @@ def write_png_indexed(path: str, index: np.ndarray, palette: np.ndarray) -> None
         f.write(png)
 
 
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """8-bit grayscale PNG (colour type 0) of an (H, W) uint8 image."""
+    h, w = img.shape
+    rows = np.zeros((h, w + 1), np.uint8)  # filter byte 0 (None) per row
+    rows[:, 1:] = img
+    png = (
+        b"\x89PNG\r\n\x1a\n"
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + _png_chunk(b"IEND", b"")
+    )
+    with open(path, "wb") as f:
+        f.write(png)
+
+
 # --------------------------------------------------------------------------
 # reference semantics
 # --------------------------------------------------------------------------
@@ -297,11 +314,17 @@ def save_label_png(path: str, labels: np.ndarray) -> None:
 
 
 def save_gray_inverted(path: str, img: np.ndarray) -> None:
-    """Write ``255 - img`` as a grayscale TIFF (reference src/utils.py:112,
-    src/image_tools.py:143-144), creating the directory."""
-    if not path.lower().endswith((".tif", ".tiff")):
-        raise IOError(f"failed to write {path}: only .tif outputs are supported")
+    """Write ``255 - img`` as a grayscale TIFF or, for a ``.png`` path, PNG
+    (reference src/utils.py:112, src/image_tools.py:143-144), creating the
+    directory."""
+    lower = path.lower()
+    if lower.endswith((".tif", ".tiff")):
+        write = write_tiff
+    elif lower.endswith(".png"):
+        write = write_png_gray
+    else:
+        raise IOError(f"failed to write {path}: only .tif and .png outputs are supported")
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
-    write_tiff(path, 255 - np.asarray(img, dtype=np.uint8))
+    write(path, 255 - np.asarray(img, dtype=np.uint8))

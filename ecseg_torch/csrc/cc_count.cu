@@ -11,51 +11,48 @@
 // class_id 0).
 //
 // Bound on an H100: memory.  The least traffic is the input read once and
-// two int32 per tile written: B8a 1 byte/pixel (4.2 MB at 2048^2, 1.3 us at
+// two int32 per map written: B8a 1 byte/pixel (4.2 MB at 2048^2, 1.3 us at
 // 3.35 TB/s); B8b the patch bytes that land on the canvases (32.9 MB for 32
 // 1024^2 tiles of uint8 labels, 9.8 us).
 //
-// B8a: B2's union-find in device memory without its flatten pass.  A
-// component's root is its minimum flat index and the only pixel whose
-// parent is itself, so once every union has landed the count is the
-// number of pixels with parent[i] == i and the foreground is parent[i] >= 0.
-//   init   parent[i] = mask[i] ? i : -1 (uf_init)
-//   merge  each foreground pixel unites with its already-scanned foreground
-//          neighbours; foreground is read off the sign of parent[], which
-//          never changes, so no mask array is kept
-//   count  a grid-stride loop, a block reduction, two atomics per block
-//
-// B8b: the tiled forest of cc_label.cuh, counted as it is built, with no
-// per-pixel array at all.  Three launches: a memset of the counts, then
+// Both forms count on the tiled forest of cc_label.cuh, as it is built,
+// with no per-pixel array at all.  They differ only in where a pixel's 0/1
+// comes from: B8a reads its bool mask row-major, B8b the class bytes of its
+// patch stack through the plan's descriptors (stitch_plan.cuh; no source
+// map).  Three launches: a memset of the counts, then
 //   tile   one block per strip of four 32x32 tiles side by side of each
-//          canvas reads their class bytes through the plan's descriptors
-//          (stitch_plan.cuh; no source map): 16 pixels a thread, one
-//          descriptor and two aligned 16-byte loads where the 16 are one
-//          copy's consecutive labels, as four quads where they cross a
-//          patch seam.  A tile with no pixel of the class costs nothing
-//          more; the others unite in shared memory (uf_tile_local) one by
-//          one and add their foreground pixels and tile-local pieces to the
-//          canvas's (count, px), one atomic each a tile, and a byte a strip
-//          records which tiles those were.  Only a tile's border pixels can
-//          meet another tile, so the global forest has a node for each of
-//          them: 128 slots a tile (top row 0-31, bottom row 32-63, left
-//          column 64 + y, right column 96 + y), each foreground one
-//          pointing at its piece's least slot, which points at itself.
+//          map: 16 pixels a thread.  B8a loads them with one 16-byte load
+//          where the row segment is aligned, else with two aligned ones
+//          and a funnel shift (byte by byte only past the map's right
+//          edge); B8b with one descriptor and two aligned 16-byte loads
+//          where the 16 are one copy's consecutive labels, as four quads
+//          where they cross a patch seam.  A tile with no foreground costs
+//          nothing more; the others unite in shared memory (uf_tile_local)
+//          one by one and add their foreground pixels and tile-local
+//          pieces to the map's (count, px), one atomic each a tile, and a
+//          byte a strip records which tiles those were.  Only a tile's
+//          border pixels can meet another tile, so the global forest has a
+//          node for each of them: 128 slots a tile (top row 0-31, bottom
+//          row 32-63, left column 64 + y, right column 96 + y), each
+//          foreground one pointing at its piece's least slot, which points
+//          at itself.
 //   edges  the unions across tile edges of cc_label.cuh (uf_edge_links,
-//          64 threads a tile, a strip a block, each neighbour's class read
-//          again through the plan; a tile the strip's byte marks empty has
+//          64 threads a tile, a strip a block, each neighbour's value read
+//          again from the source; a tile the strip's byte marks empty has
 //          nothing to unite), as uf_link: each one that hangs a root under
 //          another ends one of the forest's roots and nothing makes one, so
-//          the canvas's count drops by the links made, whatever order they
+//          the map's count drops by the links made, whatever order they
 //          land in.
 // Components = tile-local pieces - links; a piece on no tile border is a
 // component of its own and never linked.
 // On the tile-count input (32 canvases of 1024^2, class 3 on 0.2 % of the
-// pixels, 13 % of the tiles) the tile pass is bound by reading the empty
+// pixels, 13 % of the tiles) B8b's tile pass is bound by reading the empty
 // tiles.  Measured on an H100 (tile pass, us): blocks looping over tiles,
 // a descriptor lookup a pixel, 110; a block a tile, a quad of four pixels
 // a thread, 64 (looping 103); four tiles a block, four quads a thread 75;
-// 16-pixel segments 55; eight tiles a block 64.
+// 16-pixel segments 55; eight tiles a block 64.  B8a, which once united in
+// device memory from one thread a pixel (init, merge and count passes over
+// an (H, W) parent array), shares these passes.
 
 #include "cc_label.cuh"
 #include "stitch_plan.cuh"
@@ -63,81 +60,10 @@
 namespace {
 
 using ecseg::kRows;
-using ecseg::kThreads;
 using ecseg::kTile;
 
-// ---- B8a ------------------------------------------------------------------
-
-__global__ void merge_tiles(int* parent, int h, int w, int connectivity) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w) return;
-  int g = blockIdx.y * h * w + i;
-  if (parent[g] < 0) return;
-  int r = i / w;
-  int c = i - r * w;
-  if (c > 0 && parent[g - 1] >= 0) ecseg::uf_union(parent, g, g - 1);
-  if (r > 0) {
-    int u = g - w;
-    if (parent[u] >= 0) ecseg::uf_union(parent, g, u);
-    if (connectivity == 2) {
-      if (c > 0 && parent[u - 1] >= 0) ecseg::uf_union(parent, g, u - 1);
-      if (c < w - 1 && parent[u + 1] >= 0) ecseg::uf_union(parent, g, u + 1);
-    }
-  }
-}
-
-// out[2t] += roots of tile t, out[2t + 1] += its foreground pixels.
-__global__ void count_tiles(const int* __restrict__ parent, int hw,
-                            int* out) {
-  int t = blockIdx.y;
-  const int* p = parent + static_cast<long long>(t) * hw;
-  int base = t * hw;
-  int roots = 0, px = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < hw;
-       i += gridDim.x * blockDim.x) {
-    int v = p[i];
-    px += v >= 0;
-    roots += v == base + i;
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    roots += __shfl_down_sync(0xffffffffu, roots, o);
-    px += __shfl_down_sync(0xffffffffu, px, o);
-  }
-  __shared__ int part[2][kThreads / 32];
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    part[0][warp] = roots;
-    part[1][warp] = px;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 1; k < kThreads / 32; ++k) {
-      roots += part[0][k];
-      px += part[1][k];
-    }
-    if (roots) atomicAdd(out + 2 * t, roots);
-    if (px) atomicAdd(out + 2 * t + 1, px);
-  }
-}
-
-// merge + count of T tiles of (h, w) whose parent[] is initialised.
-int merge_and_count(int* parent, int t, int h, int w, int connectivity,
-                    int32_t* out, cudaStream_t s) {
-  int hw = h * w;
-  cudaMemsetAsync(out, 0, 2 * sizeof(int32_t) * t, s);
-  dim3 grid((hw + kThreads - 1) / kThreads, t);
-  merge_tiles<<<grid, kThreads, 0, s>>>(parent, h, w, connectivity);
-  // enough blocks to fill the card, at least 8 pixels a thread
-  int per_tile = (hw + 8 * kThreads - 1) / (8 * kThreads);
-  int cap = 1024 / t > 1 ? 1024 / t : 1;
-  dim3 cgrid(per_tile < cap ? per_tile : cap, t);
-  count_tiles<<<cgrid, kThreads, 0, s>>>(parent, hw, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- B8b ------------------------------------------------------------------
-
 constexpr int kSlots = 4 * kTile;  // a tile's border slots
+constexpr int kStrip = 4;          // tiles a block of either pass, side by side
 
 __device__ __forceinline__ bool on_border(int ly, int lx) {
   return ly == 0 || ly == kTile - 1 || lx == 0 || lx == kTile - 1;
@@ -147,19 +73,26 @@ __device__ __forceinline__ int border_slot(int ly, int lx) {
   return ly == 0 ? lx : ly == kTile - 1 ? kTile + lx : lx == 0 ? 2 * kTile + ly : 3 * kTile + ly;
 }
 
-// One canvas of the batch: 1 where the plan's last copy holds class_id;
-// nodes are border slots (the edge pass reads only tiles' border pixels).
+// One canvas of B8b's batch: 1 where the plan's last copy holds class_id.
 template <typename P>
-struct PatchMap {
+struct PatchValues {
   const P* labels;  // this canvas's (n, 256, 256) patch labels
   ecseg::StitchPlan plan;
   int class_id;
-  int tiles_x;
-  int node0;  // this canvas's first slot
   __device__ __forceinline__ uint8_t at(int r, int c) const {
     const int s = plan.src(r, c);
     return s >= 0 && static_cast<int>(__ldg(labels + s)) == class_id;
   }
+};
+
+// The edge pass's map: a pixel's value from `values` (PatchValues, or B8a's
+// ecseg::MaskMap), its node the slot of the border pixel in its tile.
+template <class V>
+struct SlotMap {
+  V values;
+  int tiles_x;
+  int node0;  // this map's first slot
+  __device__ __forceinline__ uint8_t at(int r, int c) const { return values.at(r, c); }
   __device__ __forceinline__ int node(int r, int c) const {
     return node0 + ((r / kTile) * tiles_x + c / kTile) * kSlots + border_slot(r % kTile, c % kTile);
   }
@@ -182,8 +115,6 @@ __device__ __forceinline__ uint32_t match4(const int32_t* labels, int class_id) 
   for (int k = 0; k < 4; ++k) m |= static_cast<uint32_t>(__ldg(labels + k) == class_id) << (8 * k);
   return m;
 }
-
-constexpr int kStrip = 4;  // tiles a block of either pass, side by side
 
 // Sixteen consecutive labels from the aligned 16-byte words that hold them
 // (the offset is the same along a copy's columns, so a warp mostly takes
@@ -257,10 +188,58 @@ struct Seg16<int32_t> {
   }
 };
 
-// One tile with a pixel of the class, its 0/1 values in `val`, united in
-// shared memory by the block: its pieces and foreground pixels added to
-// `out` (its canvas's count and px), its foreground border pixels' slots
-// from `tile` * 128 on pointed at their piece's least slot.
+// Byte i: pixel (y, x + i) of B8b's canvas holds the class (y < h, x < w).
+// One descriptor and two 16-byte loads where the 16 are one copy's
+// consecutive labels (else as four quads).
+template <typename P>
+__device__ __forceinline__ uint4 seg16(const PatchValues<P>& v, int y, int x, int w) {
+  const int2 row = v.plan.row(y);
+  const int4 col = v.plan.col(x);
+  if (x + 16 <= w && col.z >= 16) {  // one copy's consecutive labels, or all unreached
+    if (row.y & col.y) return make_uint4(0, 0, 0, 0);
+    Seg16<P> sl;
+    sl.fetch(v.labels + row.x + col.x);
+    return sl.match(v.class_id);
+  }
+  // across a patch seam or the map's right edge: four quads
+  uint32_t quad[4] = {0, 0, 0, 0};
+  for (int k = 0; k < 4; ++k) {
+    const int xk = x + 4 * k;
+    if (xk >= w) break;
+    const int4 ck = v.plan.col(xk);
+    if (xk + 4 <= w && ck.z >= 4) {
+      if (!(row.y & ck.y)) quad[k] = match4(v.labels + row.x + ck.x, v.class_id);
+    } else {
+      for (int i = 0; i < 4 && xk + i < w; ++i) {
+        const int s = v.plan.src(y, xk + i);
+        quad[k] |= static_cast<uint32_t>(s >= 0 && static_cast<int>(v.labels[s]) == v.class_id) << (8 * i);
+      }
+    }
+  }
+  return make_uint4(quad[0], quad[1], quad[2], quad[3]);
+}
+
+// Byte i: pixel (y, x + i) of B8a's bool mask is set (y < h, x < w).  The
+// mask's bytes are 0 or 1, so they are the result as loaded: one 16-byte
+// load where the segment is aligned (every row when w % 16 == 0), two
+// aligned ones shifted together where it is not, byte loads only past the
+// right edge.
+__device__ __forceinline__ uint4 seg16(const ecseg::MaskMap& m, int y, int x, int w) {
+  const uint8_t* p = m.mask + y * w + x;
+  if (x + 16 <= w) {
+    Seg16<uint8_t> sl;
+    sl.fetch(p);
+    return sl.match(1);
+  }
+  uint32_t q[4] = {0, 0, 0, 0};
+  for (int i = 0; x + i < w; ++i) q[i >> 2] |= static_cast<uint32_t>(__ldg(p + i) != 0) << (8 * (i & 3));
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// One tile with foreground, its 0/1 values in `val`, united in shared
+// memory by the block: its pieces and foreground pixels added to `out`
+// (its map's count and px), its foreground border pixels' slots from
+// `tile` * 128 on pointed at their piece's least slot.
 __device__ __forceinline__ void count_tile(uint8_t (*val)[kTile], int tile, int connectivity, int* local,
                                            int* least, int* sums, int* __restrict__ parent, int* out) {
   const int lane = threadIdx.x & 31;
@@ -308,64 +287,31 @@ __device__ __forceinline__ void count_tile(uint8_t (*val)[kTile], int tile, int 
   __syncthreads();  // the next tile reuses the shared arrays
 }
 
-// Tile pass: a block per strip of kStrip tiles side by side (blockIdx.x the
-// strip, blockIdx.y the canvas).  Thread q loads the 16 pixels 16(q % 8)..
-// +15 of strip row q / 8, one descriptor and two 16-byte loads where they
-// are one copy's consecutive labels (else as four quads), so each warp
-// loads the rows of its own band in every tile of the strip; the tiles
-// with a pixel of the class are then united one by one, and the strip's
-// byte in `occupied` says which they were (the edge pass reads it).
-template <typename P>
-__global__ void __launch_bounds__(ecseg::kTileThreads)
-    count_patch_tiles(const P* __restrict__ patches, long long per_tile,
-                      ecseg::StitchPlan plan, int class_id, int h, int w,
-                      int tiles_x, int strips_x, int connectivity,
-                      int* __restrict__ parent, uint8_t* __restrict__ occupied,
-                      int* __restrict__ out) {
+// Tile pass of map t (blockIdx.x the strip of kStrip tiles side by side):
+// thread q loads the 16 pixels 16(q % 8)..+15 of strip row q / 8 from
+// `values` (seg16), so each warp loads the rows of its own band in every
+// tile of the strip; the tiles with foreground are then united one by
+// one, and the strip's byte in `occupied` says which they were (the edge
+// pass reads it).
+template <class V>
+__device__ __forceinline__ void tile_pass(const V& values, int t, int h, int w, int tiles_x, int strips_x,
+                                          int connectivity, int* __restrict__ parent,
+                                          uint8_t* __restrict__ occupied, int* __restrict__ out) {
   __shared__ __align__(16) uint8_t val[kStrip][kTile][kTile];
   __shared__ int local[kTile * kTile];
   __shared__ int least[kTile * kTile];  // at a local root: its piece's least border slot
   __shared__ int sums[2];               // a tile's pieces, foreground pixels
   __shared__ unsigned warp_tiles[ecseg::kTileThreads / 32];
-  const int t = blockIdx.y;
-  const P* labels = patches + t * per_tile;
   const int ty = blockIdx.x / strips_x;
   const int tx0 = (blockIdx.x % strips_x) * kStrip;
   const int qy = threadIdx.x >> 3;
   const int seg = threadIdx.x & 7;  // tile seg / 2, its columns 16 (seg % 2)..+15
   const int y = ty * kTile + qy;
   const int x = tx0 * kTile + 16 * seg;
-  uint4 seg16 = make_uint4(0, 0, 0, 0);  // byte i: pixel x + i holds the class
-  if (y < h && x < w) {
-    const int2 row = plan.row(y);
-    const int4 col = plan.col(x);
-    if (x + 16 <= w && col.z >= 16) {  // one copy's consecutive labels, or all unreached
-      if (!(row.y & col.y)) {
-        Seg16<P> sl;
-        sl.fetch(labels + row.x + col.x);
-        seg16 = sl.match(class_id);
-      }
-    } else {  // across a patch seam or the map's right edge: four quads
-      uint32_t quad[4] = {0, 0, 0, 0};
-      for (int k = 0; k < 4; ++k) {
-        const int xk = x + 4 * k;
-        if (xk >= w) break;
-        const int4 ck = plan.col(xk);
-        if (xk + 4 <= w && ck.z >= 4) {
-          if (!(row.y & ck.y)) quad[k] = match4(labels + row.x + ck.x, class_id);
-        } else {
-          for (int i = 0; i < 4 && xk + i < w; ++i) {
-            const int s = plan.src(y, xk + i);
-            quad[k] |= static_cast<uint32_t>(s >= 0 && static_cast<int>(labels[s]) == class_id) << (8 * i);
-          }
-        }
-      }
-      seg16 = make_uint4(quad[0], quad[1], quad[2], quad[3]);
-    }
-  }
-  *reinterpret_cast<uint4*>(&val[seg >> 1][qy][16 * (seg & 1)]) = seg16;
-  // which tiles hold a pixel of the class: lane l loads tile (l % 8) / 2
-  const unsigned ballot = __ballot_sync(0xffffffffu, (seg16.x | seg16.y | seg16.z | seg16.w) != 0);
+  const uint4 seg16s = y < h && x < w ? seg16(values, y, x, w) : make_uint4(0, 0, 0, 0);
+  *reinterpret_cast<uint4*>(&val[seg >> 1][qy][16 * (seg & 1)]) = seg16s;
+  // which tiles hold foreground: lane l loads tile (l % 8) / 2
+  const unsigned ballot = __ballot_sync(0xffffffffu, (seg16s.x | seg16s.y | seg16s.z | seg16s.w) != 0);
   if ((threadIdx.x & 31) == 0) {
     unsigned tiles = 0;
 #pragma unroll
@@ -383,22 +329,19 @@ __global__ void __launch_bounds__(ecseg::kTileThreads)
   }
 }
 
-// Edge pass: 64 threads a tile (uf_edge_links), a block per strip of
-// kStrip tiles as in the tile pass; a tile with no pixel of the class (its
-// bit in the strip's `occupied` byte clear) has none on its top row or
-// left column to unite.
-template <typename P>
-__global__ void __launch_bounds__(64 * kStrip)
-    count_patch_edges(const P* __restrict__ patches, long long per_tile,
-                      ecseg::StitchPlan plan, int class_id, int h, int w,
-                      int tiles_x, int strips_x, int connectivity, int* parent,
-                      const uint8_t* __restrict__ occupied, int* out) {
-  const int t = blockIdx.y;
+// Edge pass of map t: 64 threads a tile (uf_edge_links), a block per strip
+// of kStrip tiles as in the tile pass; a tile with no foreground (its bit
+// in the strip's `occupied` byte clear) has none on its top row or left
+// column to unite.
+template <class V>
+__device__ __forceinline__ void edge_pass(const V& values, int t, int h, int w, int tiles_x, int strips_x,
+                                          int connectivity, int* parent, const uint8_t* __restrict__ occupied,
+                                          int* out) {
   const int ty = blockIdx.x / strips_x;
   const int k = threadIdx.x >> 6;
   const int tx = (blockIdx.x % strips_x) * kStrip + k;
   const int tiles = tiles_x * ((h + kTile - 1) / kTile);
-  const PatchMap<P> m{patches + t * per_tile, plan, class_id, tiles_x, t * tiles * kSlots};
+  const SlotMap<V> m{values, tiles_x, t * tiles * kSlots};
   const bool here = occupied[t * gridDim.x + blockIdx.x] >> k & 1;
   int links = here ? ecseg::uf_edge_links<false, true>(m, parent, h, w, ty * kTile, tx * kTile, connectivity,
                                                        threadIdx.x & 63)
@@ -407,30 +350,79 @@ __global__ void __launch_bounds__(64 * kStrip)
   if ((threadIdx.x & 31) == 0 && links) atomicSub(out + 2 * t, links);
 }
 
+// B8a's passes over its one mask.
+__global__ void __launch_bounds__(ecseg::kTileThreads)
+    count_mask_tiles(const uint8_t* __restrict__ mask, int h, int w, int tiles_x, int strips_x, int connectivity,
+                     int* __restrict__ parent, uint8_t* __restrict__ occupied, int* __restrict__ out) {
+  tile_pass(ecseg::MaskMap{mask, w}, 0, h, w, tiles_x, strips_x, connectivity, parent, occupied, out);
+}
+
+__global__ void __launch_bounds__(64 * kStrip)
+    count_mask_edges(const uint8_t* __restrict__ mask, int h, int w, int tiles_x, int strips_x, int connectivity,
+                     int* parent, const uint8_t* __restrict__ occupied, int* out) {
+  edge_pass(ecseg::MaskMap{mask, w}, 0, h, w, tiles_x, strips_x, connectivity, parent, occupied, out);
+}
+
+// B8b's passes, canvas blockIdx.y of the batch.
+template <typename P>
+__global__ void __launch_bounds__(ecseg::kTileThreads)
+    count_patch_tiles(const P* __restrict__ patches, long long per_tile, ecseg::StitchPlan plan, int class_id,
+                      int h, int w, int tiles_x, int strips_x, int connectivity, int* __restrict__ parent,
+                      uint8_t* __restrict__ occupied, int* __restrict__ out) {
+  const int t = blockIdx.y;
+  tile_pass(PatchValues<P>{patches + t * per_tile, plan, class_id}, t, h, w, tiles_x, strips_x, connectivity,
+            parent, occupied, out);
+}
+
+template <typename P>
+__global__ void __launch_bounds__(64 * kStrip)
+    count_patch_edges(const P* __restrict__ patches, long long per_tile, ecseg::StitchPlan plan, int class_id,
+                      int h, int w, int tiles_x, int strips_x, int connectivity, int* parent,
+                      const uint8_t* __restrict__ occupied, int* out) {
+  const int t = blockIdx.y;
+  edge_pass(PatchValues<P>{patches + t * per_tile, plan, class_id}, t, h, w, tiles_x, strips_x, connectivity,
+            parent, occupied, out);
+}
+
+// The passes' grid and the strips' bytes, which follow the t maps' slots
+// in `parent`.
+struct Layout {
+  int tiles_x, strips_x;
+  dim3 grid;
+  uint8_t* occupied;
+  Layout(int t, int h, int w, int* parent) {
+    tiles_x = (w + kTile - 1) / kTile;
+    const int tiles_y = (h + kTile - 1) / kTile;
+    strips_x = (tiles_x + kStrip - 1) / kStrip;
+    grid = dim3(strips_x * tiles_y, t);
+    occupied = reinterpret_cast<uint8_t*>(parent + static_cast<long long>(t) * tiles_x * tiles_y * kSlots);
+  }
+};
+
 template <typename P>
 void count_patches_launch(const P* patches, long long per_tile, ecseg::StitchPlan plan, int t, int h, int w,
                           int class_id, int connectivity, int* parent, int* out, cudaStream_t s) {
-  const int tiles_x = (w + kTile - 1) / kTile;
-  const int tiles_y = (h + kTile - 1) / kTile;
-  const int strips_x = (tiles_x + kStrip - 1) / kStrip;
-  const dim3 grid(strips_x * tiles_y, t);
-  // the strips' bytes after the canvases' slots
-  uint8_t* occupied = reinterpret_cast<uint8_t*>(parent + static_cast<long long>(t) * tiles_x * tiles_y * kSlots);
-  count_patch_tiles<P><<<grid, ecseg::kTileThreads, 0, s>>>(patches, per_tile, plan, class_id, h, w, tiles_x,
-                                                           strips_x, connectivity, parent, occupied, out);
-  count_patch_edges<P><<<grid, 64 * kStrip, 0, s>>>(patches, per_tile, plan, class_id, h, w, tiles_x, strips_x,
-                                                    connectivity, parent, occupied, out);
+  const Layout l(t, h, w, parent);
+  count_patch_tiles<P><<<l.grid, ecseg::kTileThreads, 0, s>>>(patches, per_tile, plan, class_id, h, w, l.tiles_x,
+                                                             l.strips_x, connectivity, parent, l.occupied, out);
+  count_patch_edges<P><<<l.grid, 64 * kStrip, 0, s>>>(patches, per_tile, plan, class_id, h, w, l.tiles_x,
+                                                      l.strips_x, connectivity, parent, l.occupied, out);
 }
 
 }  // namespace
 
-// B8a: `mask` (h, w) bool; `parent` (h, w) int32 scratch; `out` int32[2].
+// B8a: `mask` (h, w) bool; `parent` int32 scratch: 128 per 32x32 tile,
+// then a byte per strip of four tiles; `out` int32[2].
 extern "C" int ecseg_count(const uint8_t* mask, int32_t* parent, int h, int w,
                            int connectivity, int32_t* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  int n = h * w;
-  ecseg::uf_init<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(mask, parent, n);
-  return merge_and_count(parent, 1, h, w, connectivity, out, s);
+  cudaMemsetAsync(out, 0, 2 * sizeof(int32_t), s);
+  const Layout l(1, h, w, parent);
+  count_mask_tiles<<<l.grid, ecseg::kTileThreads, 0, s>>>(mask, h, w, l.tiles_x, l.strips_x, connectivity, parent,
+                                                         l.occupied, out);
+  count_mask_edges<<<l.grid, 64 * kStrip, 0, s>>>(mask, h, w, l.tiles_x, l.strips_x, connectivity, parent,
+                                                  l.occupied, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B8b: `patches` (t, n, 256, 256) uint8 (`wide` 0) or int32 (`wide` 1);

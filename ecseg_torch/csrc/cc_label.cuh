@@ -20,10 +20,9 @@
 // racing unions shrink as they are read.  The same uf_find/uf_union serve a
 // parent array in device memory and one in shared memory.
 //
-// uf_tiles_launch builds the forest of every entry but B8 (B8a unites in
-// device memory from uf_init in its own passes; B8b runs the tile and edge
-// passes' shared parts, uf_tile_local and uf_edge_links, on a forest of the
-// tiles' border pixels only, cc_count.cu): a block-local
+// uf_tiles_launch builds the forest of every entry but B8 (B8a and B8b run
+// the tile and edge passes' shared parts, uf_tile_local and uf_edge_links,
+// on a forest of the tiles' border pixels only, cc_count.cu): a block-local
 // union-find in shared memory before a global merge that touches only the
 // tiles' edges.  Three launches:
 //   tile     one block per 32x32 tile (5 KB of shared memory, 8 blocks an
@@ -144,7 +143,7 @@ __device__ __forceinline__ void uf_union(int* parent, int a, int b) {
 // uf_union that says whether it linked: true when its atomicMin hung one
 // root under another.  Each such link ends exactly one root, and no write
 // makes a root (every write lowers a parent), so the roots left are the
-// roots before minus the links made, in whatever order they land (B8b).
+// roots before minus the links made, in whatever order they land (B8).
 __device__ __forceinline__ bool uf_link(int* parent, int a, int b) {
   while (true) {
     a = uf_find(parent, a);
@@ -159,11 +158,6 @@ __device__ __forceinline__ bool uf_link(int* parent, int a, int b) {
     if (old == a) return true;
     a = old;
   }
-}
-
-__global__ void uf_init(const uint8_t* __restrict__ mask, int* parent, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) parent[i] = mask[i] ? i : -1;
 }
 
 // Does neighbour value `nb` join a pixel of (nonzero) value `own`?
@@ -313,7 +307,8 @@ __global__ void __launch_bounds__(kTileThreads)
 }
 
 // A binary or class map in device memory, read by flat index; its nodes
-// are the flat indices (B2-B6, B9).  The map is read-only while the unions
+// are the flat indices (B2-B6, B9; B8a reads its values through it and
+// counts on border slots, cc_count.cu).  The map is read-only while the unions
 // write `parent`: __ldg says so, so its loads need not wait on the atomics.
 struct MaskMap {
   const uint8_t* mask;

@@ -17,9 +17,9 @@ B2 (entry ``ecseg_label``), B3 (``ecseg_flood_border``), B4
 (``ecseg_flood``), B5 (``ecseg_label_mc``), B6 (``ecseg_flood_mc``) and B9
 (``ecseg_label_flood``) build the tiled union-find forest of
 csrc/cc_label.cuh: each 32x32 tile united in shared memory, then unions
-across tile edges only; B8b (``ecseg_count_patches``) counts on the same
-passes, over a forest of the tiles' border pixels; B8a (``ecseg_count``)
-unites in device memory from one thread a pixel.  B1 and B8b read the
+across tile edges only; B8a (``ecseg_count``) and B8b
+(``ecseg_count_patches``) count on the same passes, over a forest of the
+tiles' border pixels, B8a reading its mask row-major.  B1 and B8b read the
 stitch plan as per-row and per-column descriptors (``stitch_descriptors``,
 checked against the replayed plan before first use), never a per-pixel
 source map.
@@ -529,9 +529,22 @@ def _check_conn(connectivity: int) -> None:
         raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
 
 
+def _count_scratch(t: int, h: int, w: int, what: str) -> int:
+    """int32 elements of B8's scratch for ``t`` maps of (h, w): 128 border
+    slots per 32x32 tile, then a byte per strip of four tiles (csrc/cc_count.cu);
+    raises, naming ``what``, where its int32 indices would overflow."""
+    tiles_y, tiles_x = -(-h // 32), -(-w // 32)
+    slots = 4 * 32 * tiles_y * tiles_x
+    if t * slots >= 2**31 or t > 65535:
+        raise ValueError(f"{what}: {t} maps of {h}x{w} overflow the kernel's int32 indices")
+    return t * slots + -(-t * tiles_y * -(-tiles_x // 4) // 4)
+
+
 def count_components(mask: torch.Tensor, connectivity: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     """B8a: (number of components, foreground pixels) of a (H, W) bool mask,
-    0-d int32 tensors on the mask's device."""
+    0-d int32 tensors on the mask's device.  Three launches and no per-pixel
+    scratch: the tile-local pieces of 32x32 tiles minus the links across
+    their edges."""
     _check_conn(connectivity)
     if mask.device.type == "cpu":
         return count_components_plain(mask, connectivity)
@@ -541,7 +554,7 @@ def count_components(mask: torch.Tensor, connectivity: int = 2) -> Tuple[torch.T
         zero = torch.zeros((), dtype=torch.int32, device=mask.device)
         return zero, zero.clone()
     out = torch.empty(2, dtype=torch.int32, device=mask.device)  # zeroed by the kernel's memset
-    parent = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    parent = torch.empty(_count_scratch(1, h, w, "count_components"), dtype=torch.int32, device=mask.device)
     _launch("ecseg_count", mask.device, mask.data_ptr(), parent.data_ptr(), h, w, connectivity, out.data_ptr())
     LAUNCHES["count"] += 1
     return out[0], out[1]
@@ -573,15 +586,10 @@ def count_from_patches(
         )
     desc, canvas = _descriptors(pos, label_patches.device)
     h, w = canvas.shape
-    tiles_y, tiles_x = -(-h // 32), -(-w // 32)
-    slots = 4 * 32 * tiles_y * tiles_x  # the kernel's border slots a canvas
-    if t * slots >= 2**31 or t > 65535:
-        raise ValueError(f"count_from_patches: {t} tiles of {h}x{w} overflow the kernel's int32 indices")
+    scratch = _count_scratch(t, h, w, "count_from_patches")
     out = torch.empty((t, 2), dtype=torch.int32, device=label_patches.device)
     if t:
-        # the slots, then a byte per strip of four 32x32 tiles a canvas
-        strips = tiles_y * -(-tiles_x // 4)
-        parent = torch.empty(t * slots + -(-t * strips // 4), dtype=torch.int32, device=label_patches.device)
+        parent = torch.empty(scratch, dtype=torch.int32, device=label_patches.device)
         _launch(
             "ecseg_count_patches", label_patches.device, lp.data_ptr(), int(lp.dtype == torch.int32),
             desc.data_ptr(), t, len(pos) * SCW * SCW, h, w, int(class_id), connectivity,

@@ -1,5 +1,6 @@
 """metaseg post-processing on the host: the exact-parity oracle (twin of
-``ecseg_tpu/ops/meta_post.py``) and the input preprocessing.
+``ecseg_tpu/ops/meta_post.py``), the input preprocessing, and the
+meta_overlay statistics' oracles (``count_HSR``, ``count_colocalization``).
 
 ``meta_inference`` reproduces reference src/image_tools.py:15-84 operation
 for operation, quirks included, because its output IS the public
@@ -156,3 +157,31 @@ def meta_preprocess(img: np.ndarray) -> np.ndarray:
     if np.sum(th3) > img.shape[0] * img.shape[1] * 0.5:
         img = ~img
     return img
+
+
+def count_HSR(chrom: np.ndarray, fish: np.ndarray, hsr_size_threshold: int) -> int:
+    """Chromosome components overlapping >= 1 px of (size-filtered) FISH
+    (reference src/image_tools.py:103-112)."""
+    fish = morph.remove_small_objects(fish, hsr_size_threshold)
+    return _count_overlapping_labels(cc_label(chrom), fish)
+
+
+def count_colocalization(ob1: np.ndarray, ob2: np.ndarray) -> int:
+    """Components of ob1 overlapping >= 1 px of ob2
+    (reference src/image_tools.py:126-134)."""
+    return _count_overlapping_labels(cc_label(ob1), ob2)
+
+
+def _count_overlapping_labels(labels: np.ndarray, other: np.ndarray) -> int:
+    """Labels from ``np.unique(labels)[1:]`` with >= 1 px of the boolean or
+    integer mask ``other``: one pass instead of the reference's per-label
+    image rescan (``np.sum((labels == r) * other) >= 1``, identical for
+    such masks).  ``[1:]`` drops the first unique value whatever it is, so
+    an all-foreground map loses its one component (reference
+    src/image_tools.py:108,131) -- replicated."""
+    other = np.asarray(other)
+    if not (other.dtype == bool or np.issubdtype(other.dtype, np.integer)):
+        raise TypeError(f"_count_overlapping_labels takes a bool or integer mask, got {other.dtype}")
+    candidates = np.unique(labels)[1:]
+    overlapped = np.unique(labels[other != 0])
+    return int(np.isin(candidates, overlapped).sum())

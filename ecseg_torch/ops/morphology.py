@@ -1,6 +1,6 @@
 """Binary/grey morphology with skimage-compatible semantics on scipy (host
-side; twin of ``ecseg_tpu/ops/morphology.py``, the subset the metaseg host
-oracle uses)."""
+side; twin of ``ecseg_tpu/ops/morphology.py``, the subset the metaseg and
+meta_overlay host oracles use)."""
 
 from __future__ import annotations
 
@@ -36,3 +36,18 @@ def opening(image: np.ndarray, footprint: np.ndarray) -> np.ndarray:
 
 def binary_fill_holes(image: np.ndarray) -> np.ndarray:
     return ndi.binary_fill_holes(np.asarray(image, bool))
+
+
+def remove_small_objects(mask: np.ndarray, min_size: float, connectivity: int = 1) -> np.ndarray:
+    """Remove connected components with strictly fewer than ``min_size``
+    pixels (skimage.morphology.remove_small_objects semantics)."""
+    mask = np.asarray(mask, bool)
+    if min_size <= 1:
+        return mask.copy()
+    labels, n = ndi.label(mask, structure=ndi.generate_binary_structure(2, connectivity))
+    if n == 0:
+        return mask.copy()
+    sizes = np.bincount(labels.ravel())
+    keep = sizes >= min_size
+    keep[0] = False
+    return keep[labels]

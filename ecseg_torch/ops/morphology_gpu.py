@@ -1,13 +1,14 @@
 """Binary morphology on device tensors (twin of
-``ecseg_tpu/ops/morphology_tpu.py:53-70,114-128``): dilation and erosion as
-ORs/ANDs of shifted copies, and 4-connected hole filling on kernel B3."""
+``ecseg_tpu/ops/morphology_tpu.py:53-96,114-128``): dilation and erosion as
+ORs/ANDs of shifted copies, 4-connected hole filling on kernel B3, and the
+removal of small components on kernel B2."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .cc_kernels import flood_from_border
+from .cc_kernels import flood_from_border, label
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int, fill: bool) -> torch.Tensor:
@@ -49,3 +50,17 @@ def binary_fill_holes(mask: torch.Tensor) -> torch.Tensor:
     background pixel not 4-connected to the border."""
     bg = ~mask
     return mask | (bg & ~flood_from_border(bg))
+
+
+def remove_small_objects(mask: torch.Tensor, min_size, connectivity: int = 1) -> torch.Tensor:
+    """skimage.morphology.remove_small_objects: the components (B2 labels
+    at ``connectivity``) with fewer than ``min_size`` pixels removed; each
+    component's size by one count of the labels and a gather back to the
+    pixels."""
+    mask = mask.bool()
+    h, w = mask.shape
+    n = h * w
+    lab = label(mask, connectivity).reshape(-1)
+    flat = torch.where(lab < 0, n, lab).long()
+    sizes = torch.bincount(flat, minlength=n + 1)
+    return mask & (sizes[flat] >= min_size).view(h, w)

@@ -20,7 +20,6 @@ and the Keras-H5 executor.
 
 from __future__ import annotations
 
-import csv
 import os
 import sys
 from typing import Optional, Sequence, Tuple
@@ -30,6 +29,7 @@ import torch
 
 from ..core import imgio
 from ..core.config import Config, load_config
+from ..core.csvio import write_csv
 from ..device import DeviceLike, resolve_device
 from ..models.metaseg_unet import MetasegUNet
 from ..models.weights import load_npz, params_from_numpy
@@ -104,16 +104,6 @@ def post_process(raw: torch.Tensor) -> Tuple[np.ndarray, int, bool]:
     with stage("metaseg.host_redo"):
         I = meta_inference(raw.cpu().numpy().astype(np.int64))
         return I, count_cc(I == 3)[0], ok
-
-
-def write_csv(path: str, header: Sequence[str], rows) -> None:
-    """Byte-equal to pandas' ``DataFrame(rows, columns=header).to_csv(path,
-    index=False)`` for str/int cells: comma-separated, minimal quoting,
-    ``\\n`` line ends."""
-    with open(path, "w", newline="", encoding="utf-8") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(header)
-        writer.writerows(rows)
 
 
 def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) -> int:

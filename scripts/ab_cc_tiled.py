@@ -1,8 +1,8 @@
 """Time the port's B1 (``ecseg_stitch``), B2 (``ecseg_label``), B3
 (``ecseg_flood_border``), B4 (``ecseg_flood``), B5 (``ecseg_label_mc``), B6
-(``ecseg_flood_mc``), B8b (``ecseg_count_patches``) and B9
-(``ecseg_label_flood``) kernels against those of another checkout of the
-port, in turns on one CUDA card.
+(``ecseg_flood_mc``), B8a (``ecseg_count``), B8b (``ecseg_count_patches``)
+and B9 (``ecseg_label_flood``) kernels against those of another checkout of
+the port, in turns on one CUDA card.
 
     python3 scripts/ab_cc_tiled.py --base DIR [--reps 20] [--rounds 3] [--profile] [--out FILE]
 
@@ -12,7 +12,9 @@ checkout's nvcc flags into a temporary directory; this checkout's kernels
 through ``ecseg_torch._build``.  A base whose B1 and B8b read the per-pixel
 source map (no ``csrc/stitch_plan.cuh``) gets that map and, for B8b, a
 full (T, H, W) parent array; a newer one the plan's descriptors and the
-border-slot scratch, as ``ops/cc_kernels.py`` passes them.  A base from before the tiled union-find has no
+border-slot scratch, as ``ops/cc_kernels.py`` passes them.  A base whose
+B8a unites in device memory (``uf_init`` in ``csrc/cc_label.cuh``) gets an
+(H, W) parent array, a newer one the border-slot scratch.  A base from before the tiled union-find has no
 ``ecseg_flood_border``: its border flood is ``ecseg_flood`` with a null
 seed pointer.  Both versions are called through ctypes on preallocated
 buffers, so the times are the kernels' own.  The floods get a flag
@@ -29,6 +31,10 @@ and 2 from the same seeds, and B5 and B6 (the same seeds) on the mask as
 a class map (0 and 1); then B5, B6 and B9 (on the odd classes) from
 sparse seeds on ``chip_smoke.class_maps`` (uniform, column-striped, snake
 and spiral class maps) at 2048^2 and 2048x3072.
+B8a runs at connectivity 2 (1 too on the random mask) on metaseg's
+stitched ecDNA mask (``raw == 3``) and meta_overlay's fish2_nc mask of one
+``chip_smoke.synthetic_overlay_rgb`` image through the demo weights, and
+on the random, snake and spiral masks, all 2048^2.
 B1 runs on random classes at the 2048^2 (100 patches), 2048x3072 and
 1024^2 plans; B8b at class 3 on 32 tiles of the 1024^2 plan (the
 tile-count path's batch: class 3 on the bright squares of bench's tile
@@ -40,7 +46,7 @@ CUDA-event mean over ``--reps`` back-to-back launches after one warm-up),
 and reported as the median of each side's turns (a single outlier turn
 moved the means); the two versions' outputs must be equal byte for byte
 (B9: labels and flood).  With ``--profile``, each 2048^2 input's calls and
-every B1 and B8b input's are also traced once by ``torch.profiler`` and
+every B1, B8a and B8b input's are also traced once by ``torch.profiler`` and
 each version's device time is split by kernel name, that is by pass (mean
 us per call).  Prints one line per input and a JSON object last (also
 written to ``--out``).
@@ -79,17 +85,21 @@ _FLOOD_BORDER = [_P, _P, _P, _P, _I, _I, _P]
 _LABEL_MC = [_P, _P, _I, _I, _P]
 _FLOOD_MC = [_P, _P, _P, _P, _P, _I, _I, _P]
 _COUNT_PATCHES = [_P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P]
+_COUNT = [_P, _P, _I, _I, _I, _P, _P]
 STITCH_PLANS = ((2048, 2048), (2048, 3072), (1024, 1024))
 
 
 def build_base(base: str, out_dir: str):
     """({kernel: ctypes function} of the base checkout's kernels, whether its
-    B1 and B8b read the plan's descriptors); the border flood takes (trav,
-    labels, flag, out, h, w, stream) in either form."""
+    B1 and B8b read the plan's descriptors, whether its B8a needs an (H, W)
+    parent array); the border flood takes (trav, labels, flag, out, h, w,
+    stream) in either form."""
     from ecseg_torch import _build
 
     csrc = os.path.join(base, "ecseg_torch", "csrc")
     descriptors = os.path.exists(os.path.join(csrc, "stitch_plan.cuh"))
+    with open(os.path.join(csrc, "cc_label.cuh")) as f:
+        per_pixel_count = "uf_init" in f.read()
     libs = {}
     procs = []
     for src in ("stitch.cu", "cc_label.cu", "cc_flood.cu", "cc_count.cu"):
@@ -113,9 +123,10 @@ def build_base(base: str, out_dir: str):
         "flood_seeds": flood,
         "label_mc": _bind(libs["cc_label.cu"].ecseg_label_mc, _LABEL_MC),
         "flood_mc": _bind(libs["cc_flood.cu"].ecseg_flood_mc, _FLOOD_MC),
+        "count": _bind(libs["cc_count.cu"].ecseg_count, _COUNT),
         "count_patches": _bind(libs["cc_count.cu"].ecseg_count_patches, _COUNT_PATCHES),
         "label_flood": _bind(libs["cc_flood.cu"].ecseg_label_flood, _FLOOD),
-    }, descriptors
+    }, descriptors, per_pixel_count
 
 
 def new_kernels():
@@ -125,7 +136,8 @@ def new_kernels():
         "stitch": K._cfunc("ecseg_stitch"),
         "label": K._cfunc("ecseg_label"), "flood_border": K._cfunc("ecseg_flood_border"),
         "flood_seeds": K._cfunc("ecseg_flood"), "label_mc": K._cfunc("ecseg_label_mc"),
-        "flood_mc": K._cfunc("ecseg_flood_mc"), "count_patches": K._cfunc("ecseg_count_patches"),
+        "flood_mc": K._cfunc("ecseg_flood_mc"), "count": K._cfunc("ecseg_count"),
+        "count_patches": K._cfunc("ecseg_count_patches"),
         "label_flood": K._cfunc("ecseg_label_flood"),
     }
 
@@ -278,6 +290,65 @@ def stitch_count_rows(base_k, descriptors, new_k, stream, args):
     return rows
 
 
+def overlay_masks():
+    """metaseg's stitched ecDNA mask (``raw == 3``, B8a's timing input in
+    chip_smoke.py) and meta_overlay's fish2_nc mask (red above
+    color_sensitivity, off nuclei and chromosomes) of one synthetic FISH
+    image (``chip_smoke.synthetic_overlay_rgb``, seed 0) through the demo
+    weights, on the card."""
+    from chip_smoke import OVERLAY_SENSITIVITY, synthetic_overlay_rgb
+    from ecseg_torch.core import imgio
+    from ecseg_torch.models.demo import demo_metaseg_params
+    from ecseg_torch.ops import tiling
+    from ecseg_torch.ops.meta_post import meta_preprocess
+    from ecseg_torch.ops.meta_post_gpu import meta_inference_gpu
+    from ecseg_torch.pipelines import metaseg
+
+    rgb = synthetic_overlay_rgb(np.random.default_rng(0), 2048, 2048)
+    model = demo_metaseg_params(torch.Generator().manual_seed(0)).cuda().eval()
+    _, patches, pos = tiling.im2patches_overlap(meta_preprocess(rgb)[..., None])
+    raw = metaseg.segment_raw(model, patches, tuple(map(tuple, pos)))
+    labels, _ = meta_inference_gpu(raw.clone())
+    red = torch.from_numpy(imgio.u16_to_u8(rgb)[..., 0] > OVERLAY_SENSITIVITY).cuda()
+    return {"ecDNA mask": raw == 3, "fish2_nc mask": red & (labels != 1) & (labels != 2)}
+
+
+def count_rows(base_k, per_pixel_count, new_k, stream, args):
+    """B8a rows: the base side gets an (H, W) parent array if it unites in
+    device memory, else the border-slot scratch, as the new side."""
+    from chip_smoke import snake, spiral
+    from ecseg_torch.ops import cc_kernels as K
+
+    rng = np.random.default_rng(4)
+    cases = [(k, m, 2) for k, m in overlay_masks().items()]
+    for name, m in (("random", rng.random((2048, 2048)) < 0.5), ("snake", snake(2048, 2048)), ("spiral", spiral(2048, 2048))):
+        mt = torch.from_numpy(m).cuda()
+        cases += [(name, mt, 2)] + ([(name, mt, 1)] if name == "random" else [])
+    rows = []
+    for name, mt, conn in cases:
+        h, w = mt.shape
+        what = f"count {name} {h}x{w} conn {conn}"
+        slots = K._count_scratch(1, h, w, what)
+        parent = [torch.empty(h * w if per_pixel_count else slots, dtype=torch.int32, device="cuda"),
+                  torch.empty(slots, dtype=torch.int32, device="cuda")]
+        out = [torch.empty(2, dtype=torch.int32, device="cuda") for _ in range(2)]
+
+        def side(k, fn):
+            def run():
+                rc = fn(mt.data_ptr(), parent[k].data_ptr(), h, w, conn, out[k].data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: CUDA error {rc}")
+            return run
+
+        base, new = side(0, base_k["count"]), side(1, new_k["count"])
+        row = {"mask": what, "count": time_pair("count", base, new, (out,), what, args), "px": int(mt.sum())}
+        if args.profile:
+            profile_into(row["count"], "count", what, base, new, args)
+        rows.append(row)
+        print(f"{what} ({row['px']} px): count {row['count']['base_ms']:.4f} -> {row['count']['new_ms']:.4f} ms", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", required=True)
@@ -290,11 +361,12 @@ def main() -> int:
         print("ab_cc_tiled: no CUDA device is available", file=sys.stderr)
         return 1
     with tempfile.TemporaryDirectory(prefix="ab_cc_") as tmp:
-        base_k, descriptors = build_base(os.path.abspath(args.base), tmp)
+        base_k, descriptors, per_pixel_count = build_base(os.path.abspath(args.base), tmp)
         new_k = new_kernels()
         stream = torch.cuda.current_stream().cuda_stream
         seed_rng = np.random.default_rng(2)
-        rows = stitch_count_rows(base_k, descriptors, new_k, stream, args)
+        rows = count_rows(base_k, per_pixel_count, new_k, stream, args)
+        rows += stitch_count_rows(base_k, descriptors, new_k, stream, args)
         for what, m, cls in masks():
             h, w = cls.shape
             ct = torch.from_numpy(cls).cuda()

@@ -11,10 +11,13 @@ card keeps up, so the host is the bound).  At 2048^2, on a map shaped like
 the main path's (nucleus discs of class 1, ecDNA dots of class 3, sparse
 class 2), B4 (``flood_from_seeds(raw != 0, raw == 3)``), B5
 (``label_multiclass(raw)``), B6 (``flood_multiclass(raw, raw == 3)``) and
-B9 (``label_and_flood(raw != 0, raw == 1)``), the main path's calls, are
-also timed by CUDA events over 20 calls (what ``chip_smoke.py`` reports)
-and on the host clock over 200.  Prints one JSON object of microseconds
-per call.
+B9 (``label_and_flood(raw != 0, raw == 1)``), the main path's calls, and
+B8a (``count_components(raw == 3)``) are also timed by CUDA events over 20
+calls (what ``chip_smoke.py`` reports) and on the host clock over 200;
+so are the two ways meta_overlay can take a (components, pixels) pair of a
+mask it also labels (``ec``): B8a, or the root sums of the labeling it
+holds (``pair_b8a``, ``pair_roots``; ``pair_roots`` leaves the labeling
+out).  Prints one JSON object of microseconds per call.
 """
 
 import json
@@ -88,6 +91,7 @@ def main() -> int:
         "wrapper_flood_from_border_32sq": host_us(lambda: K.flood_from_border(m)),
         "wrapper_flood_multiclass_32sq": host_us(lambda: K.flood_multiclass(m.to(torch.uint8), s)),
         "wrapper_label_and_flood_32sq": host_us(lambda: K.label_and_flood(m, s, 2)),
+        "wrapper_count_components_32sq": host_us(lambda: K.count_components(m, 2)),
     }
     rng = np.random.default_rng(0)
     img = np.zeros((2048, 2048), np.uint8)
@@ -102,11 +106,18 @@ def main() -> int:
     img[rng.random((2048, 2048)) < 0.01] = 2
     raw = torch.from_numpy(img).to(dev)
     fg, seeds, nuc = raw != 0, raw == 3, raw == 1
+    hw = seeds.numel()
+    lab = K.label(seeds, 2).reshape(-1)
+    flat = torch.where(lab < 0, hw, lab).long()
+    idx = torch.arange(hw, device=dev)
     calls = {
         "B4": lambda: K.flood_from_seeds(fg, seeds, 2),
         "B5": lambda: K.label_multiclass(raw),
         "B6": lambda: K.flood_multiclass(raw, seeds),
         "B9": lambda: K.label_and_flood(fg, nuc, 2),
+        "B8a": lambda: K.count_components(seeds, 2),
+        "pair_b8a": lambda: torch.stack(K.count_components(seeds, 2)),
+        "pair_roots": lambda: torch.stack([(flat == idx).sum().int(), seeds.sum().int()]),
     }
     for k in range(3):
         for b, fn in calls.items():

@@ -4,10 +4,12 @@ against the Pallas entries they stand in for, ``count_cc_pallas`` and
 ``count_cc_from_patches`` (interpret mode on the CPU), on the cases of
 tests/test_cc_pallas.py:22-122; exact equality everywhere.  The CUDA
 kernels are held against these twins on the card (tests/test_torch_cuda.py,
-chip_smoke.py).  A sequential model of the B8b kernel's count (tile-local
-pieces of 32x32 tiles minus the links its edge pass makes, on a forest of
-the tiles' border slots) is held against scipy, the B8a twin and the B8b
-twin on the tile-edge masks of tests/_masks.py."""
+chip_smoke.py).  A sequential model of the B8a and B8b kernels' count
+(tile-local pieces of 32x32 tiles minus the links their edge pass makes,
+on a forest of the tiles' border slots; B8a reads the mask itself, B8b the
+stitched class) is held against scipy, the B8a twin and the B8b twin on
+the tile-edge masks of tests/_masks.py, B8a's also at the ragged sizes of
+chip_smoke.py's tile phase."""
 
 import numpy as np
 import pytest
@@ -277,3 +279,18 @@ def test_piece_link_model_matches_the_b8b_twin_on_stitched_tile_masks(h, w):
             for conn in (1, 2):
                 want = _pair(K.count_from_patches(patches, pos, cls, conn))
                 assert _pieces_minus_links(stitched, conn, 1) == want, (name, cls, conn)
+
+
+@pytest.mark.parametrize("conn", [1, 2])
+@pytest.mark.parametrize("h,w", [(33, 4097), (1, 2048), (2048, 1)])
+def test_piece_link_model_of_b8a_at_the_card_sizes(h, w, conn):
+    """B8a's count on its plain mask source, as the model gives it (unions
+    in two shuffled orders), equals scipy's and the B8a twin's on every
+    ``tile_masks`` family at the ragged sizes chip_smoke.py holds the
+    kernel at (a partial tile row, a single row, a single column)."""
+    struct = ndi.generate_binary_structure(2, conn)
+    for name, m in tile_masks(h, w).items():
+        want = (ndi.label(m, struct)[1], int(m.sum()))
+        for seed in range(2):
+            assert _pieces_minus_links(m, conn, seed) == want, (name, seed)
+        assert _pair(K.count_components(torch.from_numpy(m), conn)) == want, name

@@ -142,3 +142,41 @@ def test_load_config_errors(tmp_path):
     with pytest.raises(ConfigError, match="missing required key 'inpath'"):
         load_config(str(nokey)).metaseg
     assert Config(raw={"metaseg": {"inpath": "x"}}).metaseg.inpath == "x"
+
+
+def test_task_sections_equal_the_jax_package_on_config_yaml():
+    """The meta_overlay and fish_distance_calculation sections of the
+    repository's config.yaml, read by the port, equal the JAX package's
+    (PyYAML) reading, with the colour -> channel index map."""
+    from ecseg_tpu.core import config as jax_config
+
+    ours, theirs = load_config(str(REPO / "config.yaml")), jax_config.load_config(str(REPO / "config.yaml"))
+    assert ours.meta_overlay.__dict__ == theirs.meta_overlay.__dict__
+    ours_fd, theirs_fd = ours.fish_distance_calculation, theirs.fish_distance_calculation
+    for key in ("inpath", "centromere_probe_color", "fish_probe_color", "max_centromeric_spots",
+                "centromere_probe_index", "fish_probe_index"):
+        assert getattr(ours_fd, key) == getattr(theirs_fd, key), key
+    assert (ours_fd.centromere_probe_index, ours_fd.fish_probe_index) == (1, 0)  # green, red
+
+
+@pytest.mark.parametrize("sensitivity", [-1, 0, 255, 256, 300])
+def test_color_sensitivity_range_as_the_jax_package(sensitivity):
+    from ecseg_tpu.core import config as jax_config
+
+    raw = {"meta_overlay": {"inpath": ".", "color_sensitivity": sensitivity}}
+    if 0 <= sensitivity <= 255:
+        assert Config(raw=raw).meta_overlay.color_sensitivity == jax_config.Config(raw=raw).meta_overlay.color_sensitivity
+    else:
+        with pytest.raises(ConfigError, match="between 0 and 255"):
+            Config(raw=raw).meta_overlay
+        with pytest.raises(jax_config.ConfigError, match="between 0 and 255"):
+            jax_config.Config(raw=raw).meta_overlay
+
+
+def test_missing_task_sections_and_keys_raise():
+    with pytest.raises(ConfigError, match="no 'meta_overlay' section"):
+        Config(raw={"metaseg": {"inpath": "."}}).meta_overlay
+    with pytest.raises(ConfigError, match="missing required key 'max_centromeric_spots'"):
+        Config(raw={"fish_distance_calculation": {
+            "inpath": ".", "centromere_probe_color": "green", "fish_probe_color": "red",
+        }}).fish_distance_calculation

@@ -12,7 +12,9 @@ tests/test_torch_cc_multiclass.py,
 tests/test_torch_cc_count.py, tests/test_torch_fused_tail.py,
 tests/test_torch_convt.py and tests/test_torch_tiling.py.  The kernels'
 equality at 2048^2 and 2048x3072, and at the tile-count path's shapes, is
-checked by chip_smoke.py.
+checked by chip_smoke.py.  meta_overlay's statistics (B2 and B8a) are held
+against their own CPU run (the twins), which tests/test_torch_overlay.py
+holds against the JAX package.
 """
 
 import numpy as np
@@ -228,6 +230,28 @@ def test_count_kernel_matches_twin(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_MASKS))
+def test_count_kernel_on_tile_masks(cuda, name):
+    """B8a, which counts 32x32 tiles' pieces minus the links across their
+    edges, bit-equal to its twin on each tile-edge mask at 70x101 and
+    100x70 (ragged tiles), and on the family at 33x4097, 1x2048 and 2048x1
+    (the single row and column, and the map with no rows, as they are);
+    each mask also from a view at an odd address, whose rows the kernel
+    reads with two aligned loads and a shift; both connectivities."""
+    cases = [TILE_MASKS[name]]
+    if name in tile_masks(1, 1):
+        cases += [tile_masks(100, 70, seed=1)[name]] + [tile_masks(h, w)[name] for h, w in ((33, 4097), (1, 2048), (2048, 1))]
+    for m in cases:
+        t = torch.from_numpy(m).to(cuda)
+        odd = torch.zeros(m.size + 3, dtype=torch.bool, device=cuda)[3:].view(m.shape)
+        odd.copy_(t)
+        for conn in (1, 2):
+            want = [int(v) for v in K.count_components_plain(t, conn)]
+            assert [int(v) for v in K.count_components(t, conn)] == want, (m.shape, conn)
+            assert [int(v) for v in K.count_components(odd, conn)] == want, (m.shape, conn, "odd address")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,w", [(1024, 1024), (700, 900), (256, 256), (512, 310)])
 def test_count_patches_kernel_matches_twin(cuda, h, w):
     """Two tiles in one launch, uint8 and int32 labels, every class (class
@@ -395,3 +419,45 @@ def test_new_wrappers_check_inputs_and_count_launches(cuda):
     fused_dec1_head(x, w1, b, w2, b, wh, bh)
     conv2d_transpose_packed(xt, torch.zeros((3, 3, 8, 8), device=cuda))
     assert {k: v for k, v in K.LAUNCHES.items() if v} == {"count_patches": 1, "fused_tail": 1, "convt": 1}
+
+
+def _overlay_masks(rng, shape):
+    """Five (H, W) bool masks as tests/test_overlay_tpu.py draws them: red,
+    green, and nuclei, chromosomes and ecDNA of a label map with blobs."""
+    red = rng.random(shape) < 0.15
+    green = rng.random(shape) < 0.15
+    seg = (rng.random(shape) * 4).astype(int)
+    for lab in (1, 2, 3):
+        for _ in range(12):
+            y, x = rng.integers(0, shape[0] - 8), rng.integers(0, shape[1] - 8)
+            r = int(rng.integers(2, 30))
+            seg[y : y + r, x : x + r] = lab
+    return red, green, seg == 1, seg == 2, seg == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["seed0", "seed1", "seed2", "empty", "full", "nuclei_only_fish"])
+def test_overlay_stats_on_the_card_match_the_plain_version(cuda, monkeypatch, case):
+    """``overlay_stats`` on the card (B2 and B8a, no twin called) equals its
+    CPU run (the twins) on seeded masks at 200x300, on empty and
+    all-foreground masks and with FISH only on nuclei; five B2 and three
+    B8a launches an image."""
+    from ecseg_torch.ops.overlay_gpu import overlay_stats
+
+    shape = (200, 300)
+    if case.startswith("seed"):
+        masks = _overlay_masks(np.random.default_rng(int(case[-1])), shape)
+    else:
+        z, o = np.zeros(shape, bool), np.ones(shape, bool)
+        masks = {"empty": (z, z, z, z, z), "full": (o, o, z, o, o),
+                 "nuclei_only_fish": (o, o, o, z, np.eye(*shape, dtype=bool))}[case]
+    want = overlay_stats(*masks, device="cpu")
+
+    def forbidden(*a, **k):
+        raise AssertionError("the card's overlay_stats called a plain twin")
+
+    for name in ("label_plain", "count_components_plain"):
+        monkeypatch.setattr(K, name, forbidden)
+    K.reset_launches()
+    assert overlay_stats(*masks, device=cuda) == want
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"label": 5, "count": 3}

@@ -23,7 +23,7 @@ import torch
 
 from ecseg_torch.core import imgio
 from ecseg_torch.ops import cc_kernels as K
-from ecseg_torch.ops import convt, fused_tail
+from ecseg_torch.ops import convt, fused_tail, overlay_gpu
 from ecseg_torch.ops.meta_post import meta_preprocess, otsu_threshold_u8
 
 from _torchutil import single_torch_thread  # noqa: F401 (autouse fixture)
@@ -96,10 +96,11 @@ def _meta(shape, dtype=torch.bool):
             _meta((4,), torch.float32),
         ),
         lambda: convt.conv2d_transpose_packed(_meta((1, 8, 8, 4), torch.bfloat16), _meta((3, 3, 4, 64), torch.bfloat16)),
+        lambda: overlay_gpu.overlay_stats(*[np.zeros((8, 8), bool)] * 5, device="meta"),
     ],
     ids=[
         "stitch", "label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood",
-        "count", "count_patches", "fused_tail", "convt",
+        "count", "count_patches", "fused_tail", "convt", "overlay",
     ],
 )
 def test_wrappers_raise_off_cpu_and_never_call_twins(monkeypatch, call):
@@ -167,14 +168,40 @@ def test_label_png_decodes_to_the_palette(tmp_path, rng):
 
 
 def test_csv_bytes_match_pandas(tmp_path):
+    """str and int cells (metaseg), the (count, px) tuple cells with an int
+    or the float 0.0 (meta_overlay) and float64 cells with inf
+    (fish_distance), as pandas writes them."""
     from ecseg_torch.pipelines.metaseg import write_csv
 
     header = ["image name", "# of ec"]
-    for rows in ([], [("a.tif", 3), ("b,c.tif", 0), ('q"uote.tif', 12), ("sp ace.tif", 7)]):
+    tables = (
+        [],
+        [("a.tif", 3), ("b,c.tif", 0), ('q"uote.tif', 12), ("sp ace.tif", 7)],
+        [("a.tif", (1, 100)), ("b.tif", (0, 0.0)), ("c.tif", (12, 4096))],
+        [(np.float64(0.125),), (np.float64(1) / 3,), (np.float64(np.inf),), (np.float64(2.0),), (np.float64(1e-7),)],
+    )
+    for rows in tables:
+        cols = header[: len(rows[0])] if rows else header
         ours, theirs = tmp_path / "ours.csv", tmp_path / "theirs.csv"
-        write_csv(str(ours), header, rows)
-        pd.DataFrame(rows, columns=header).to_csv(theirs, index=False)
+        write_csv(str(ours), cols, rows)
+        pd.DataFrame(rows, columns=cols).to_csv(theirs, index=False)
         assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_gray_png_decodes_as_cv2_writes_it(tmp_path, rng):
+    """``save_gray_inverted`` to a ``.png`` path (meta_overlay's red/ and
+    green/ images): an 8-bit grayscale PNG that cv2 decodes to 255 - the
+    image, as the JAX package's cv2 PNG decodes."""
+    img = (rng.random((37, 53)) * 256).astype(np.uint8)
+    ours, theirs = str(tmp_path / "sub" / "ours.png"), str(tmp_path / "theirs.png")
+    imgio.save_gray_inverted(ours, img)
+    cv2.imwrite(theirs, 255 - img)
+    got = cv2.imread(ours, cv2.IMREAD_UNCHANGED)
+    assert got.dtype == np.uint8 and got.shape == img.shape
+    np.testing.assert_array_equal(got, 255 - img)
+    np.testing.assert_array_equal(got, cv2.imread(theirs, cv2.IMREAD_UNCHANGED))
+    with pytest.raises(IOError):
+        imgio.save_gray_inverted(str(tmp_path / "x.jpg"), img)
 
 
 def _otsu_cases(rng):
