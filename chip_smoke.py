@@ -75,7 +75,20 @@ Phases (any failure raises; exit code 0 only when all pass):
    host oracle with seeded chromosome blobs; the stage times per image.
    Then ``python3 -m ecseg_torch.pipelines.fish_distance`` (host only) on
    a synthetic stat_fish output folder, its CSV byte-equal to an
-   in-process host computation;
+   in-process host computation.  Then ``make stat_fish`` as a user runs
+   it (``phase_stat_fish``): ``python3 -m ecseg_torch.pipelines.stat_fish``
+   and ``stat_fish.main`` in-process (launch counters set to 0 just before,
+   read just after: four B2 an image and one B3 a watershed with markers)
+   on three 2048^2 RGB uint16 LZW TIFFs with the demo NuSeT at its
+   published widths (RPN scores raised so that markers are placed).
+   Checks: CSV and ``.npy`` bytes and TIFF pixels equal across the two
+   runs; on image 0 and a 900x700 crop of it the device watershed (where
+   its certificate is clean), cleanup and matched filter equal the host
+   chains on the same NuSeT outputs, and B2 and B3 equal their twins on
+   those masks (608^2, 256x208, 2027^2); the certified watershed with
+   hand-placed proposals equals the host flood when clean.  Times: the
+   stage table, images/s, the XLA-side ops, one profiler pass (device busy
+   share), B2 and B3 at stat_fish's geometries;
 4. time each kernel at the main path's shapes beside its plain twin and its
    memory bound: the CUDA-event mean over back-to-back calls (``ms``) and
    the device-only time from one ``torch.profiler`` pass (``device_ms``);
@@ -99,7 +112,8 @@ Phases (any failure raises; exit code 0 only when all pass):
    the CUDA-event mean by more than 25 % is repeated; B8a, B8b and B10
    bit-equal to their twins on the timed inputs, B10 on the whole level-1
    concat of both widths' paths (800 and 200 patches);
-6. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+6. print ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
+   launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -232,6 +246,12 @@ STITCH_PLANS = ((2048, 2048), (2048, 3072), (1024, 1024), (462, 874), (306, 306)
 COUNT_PLANS = ((1024, 1024, 1), (1024, 1024, 2), (1024, 1024, 32), (2048, 2048, 1))  # B8b's (h, w, tiles)
 FORWARD_TOL = 2e-3  # bf16 card vs float32 CPU probabilities, tile-count weights (the CPU test's PROB_ATOL)
 TAIL_AGREEMENT = 0.9999  # B10 vs its twin on random bf16: labels that must agree
+STAT_FISH_IMAGES = 3  # 2048^2 RGB uint16 LZW TIFFs
+STAT_FISH_T = 5000  # nuclei_size_T of the repository's config.yaml
+STAT_FISH_LABELS_PER_IMAGE = 4  # B2: clean_image's three labelings and remove_small_objects' one
+STAT_FISH_SMALL = (900, 700)  # an input whose NuSeT width (208) is not a multiple of 32
+STAT_FISH_STAGES = ("nuclei_segment", "watershed", "cleanup", "min_cut", "matched_filter", "region_stats",
+                    "tail_visuals", "tail_writes", "decode_wait", "tail_wait")
 
 
 def tile_path_launches(fused_tail: bool):
@@ -1151,6 +1171,315 @@ def phase_fish_distance(rng, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def synthetic_interphase_rgb(rng, h, w):
+    """uint16 RGB input of stat_fish: blue nuclei (discs of radius 40-60 px
+    on noise, every third with a touching twin whose centre lies 2.1 radii
+    away, which NuSeT's mask joins and the min-cut splits), red and green
+    foci of 3-5 px inside the nuclei and a few outside, on noise."""
+    red, green, blue = ((rng.random((h, w)) * level).astype(np.uint16) for level in (4000, 4000, 6000))
+    yy, xx = np.ogrid[:h, :w]
+    nuclei = []
+    for k in range(h * w // 90000):
+        r = int(rng.integers(40, 60))
+        cy, cx = int(rng.integers(r + 30, h - r - 30)), int(rng.integers(r + 30, w - 3 * r - 30))
+        for x in (cx, cx + int(2.1 * r)) if k % 3 == 0 else (cx,):
+            blue[(yy - cy) ** 2 + (xx - x) ** 2 <= r * r] = 40000 + int(rng.integers(0, 8000))
+            nuclei.append((cy, x, r))
+    for ch in (red, green):
+        for cy, cx, r in nuclei:
+            for _ in range(int(rng.integers(1, 4))):
+                y, x, s = cy + int(rng.integers(-r // 2, r // 2)), cx + int(rng.integers(-r // 2, r // 2)), int(rng.integers(3, 6))
+                ch[y : y + s, x : x + s] = 50000 + int(rng.integers(0, 15000))
+        for y, x in zip(rng.integers(0, h - 5, 20), rng.integers(0, w - 5, 20)):
+            ch[y : y + 4, x : x + 4] = 52000
+    return np.stack([red, green, blue], axis=-1)
+
+
+def confident_nuset_tree(seed):
+    """The demo NuSeT tree (``models/demo.py``) with a class-1 bias of 6 on
+    every anchor of its RPN's score head: every proposal scores about
+    0.9975, above min_score 0.95, so the watershed runs with markers (the
+    seeded RPN alone scores about 0.5 and places none)."""
+    from ecseg_torch.models.demo import demo_nuset_tree
+
+    tree = demo_nuset_tree(torch.Generator().manual_seed(seed))
+    tree["fg"]["rpn"]["rpn_cls_score"]["bias"][1::2] = 6.0
+    return tree
+
+
+def touching_nuclei_case(rng, h, w, n):
+    """A NuSeT-geometry mask of n discs, many touching, and one proposal
+    (x1, y1, x2, y2) around each, scored 0.97: the watershed with
+    hand-placed markers."""
+    yy, xx = np.ogrid[:h, :w]
+    mask = np.zeros((h, w), bool)
+    props = []
+    for _ in range(n):
+        r = int(rng.integers(8, 18))
+        cy, cx = int(rng.integers(30, h - 30)), int(rng.integers(30, w - 30))
+        mask |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        props.append([cx - r, cy - r, cx + r, cy + r])
+    return mask.astype(np.float32), np.full(n, 0.97, np.float32), np.array(props, np.float32)
+
+
+def phase_stat_fish(args, rng, dev, errors, results):
+    """``make stat_fish`` as a user runs it, then its stages against the
+    port's host chains.  In a directory with a ``config.yaml`` (stat_fish:
+    scale 1, use_min_cut True, nuclei_size_T 5000) and ``models/nuset.npz``
+    (``confident_nuset_tree``), on a folder of three 2048^2 RGB uint16 LZW
+    TIFFs (``synthetic_interphase_rgb``): ``python3 -m
+    ecseg_torch.pipelines.stat_fish`` (``ECSEG_TRACE=1``), then
+    ``stat_fish.main`` in-process on a copy of the inputs with every launch
+    counter set to 0 just before and read just after.  Checks: exit code 0;
+    the CSV and every ``.npy`` byte-equal across the two runs and the TIFFs
+    pixel-equal; per image four B2 launches and at most one B3 (one per
+    watershed with markers), at least one B3 in all, nothing else; then on
+    image 0 and on a 900x700 crop of it (NuSeT width 208, not a multiple of
+    32), stage by stage on the same NuSeT outputs: the device watershed
+    equal to the host priority flood where its certificate is clean, the
+    device cleanup equal to the host chain, the device matched filter equal
+    to the host one; B2 (connectivity 1 and 2) and B3 equal to their twins
+    on the masks of those stages; and the certified watershed with
+    hand-placed proposals on a 608^2 touching-nuclei mask (with its
+    certificate counts).  Times: the stage table of both runs, images/s,
+    the XLA-side ops' CUDA-event or wall times on image 0, one
+    ``torch.profiler`` pass over image 0's segmentation (the device's busy
+    share), and B2's and B3's times at stat_fish's geometries."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config, load_stat_fish_params
+    from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.models.weights import load_nuset_model, save_npz
+    from ecseg_torch.ops import boxes
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import matched_filter as mf
+    from ecseg_torch.ops.edt_gpu import edt_sq
+    from ecseg_torch.ops.morphology_gpu import binary_fill_holes, clean_image
+    from ecseg_torch.ops.normalization import foreground_norm
+    from ecseg_torch.ops.resize import resize_linear_matmul
+    from ecseg_torch.ops.watershed import nuset_marker_watershed, nuset_place_markers
+    from ecseg_torch.ops.watershed_gpu import lex_flood, nuset_fast_pass, nuset_marker_watershed_auto
+    from ecseg_torch.pipelines import stat_fish
+    from ecseg_torch.runtime import fallbacks, trace
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="ecseg_stat_fish_")
+    phase_t0 = time.perf_counter()
+    marks = {}  # seconds into the phase at the end of each part
+    try:
+        save_npz(os.path.join(work, "models", "nuset.npz"), confident_nuset_tree(args.seed))
+        imgs, inproc = os.path.join(work, "imgs"), os.path.join(work, "inproc")
+        os.makedirs(imgs)
+        names = [f"cells{k}.tif" for k in range(STAT_FISH_IMAGES)]
+        rgbs = [synthetic_interphase_rgb(rng, SIZE, SIZE) for _ in names]
+        t0 = time.perf_counter()
+        write_lzw_tiffs([(os.path.join(imgs, n), img) for n, img in zip(names, rgbs)])
+        encode_s = time.perf_counter() - t0
+        shutil.copytree(imgs, inproc)
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            f.write(f"stat_fish:\n  inpath: ./imgs\n  scale: 1\n  use_min_cut: True\n  nuclei_size_T: {STAT_FISH_T}\n")
+        env = dict(os.environ, ECSEG_TRACE="1", PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ecseg_torch.pipelines.stat_fish"], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m ecseg_torch.pipelines.stat_fish exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        check(proc.stdout.count("Processing image:") == len(names), "the stat_fish command line did not process every image")
+        print("stat_fish command line's stage table:\n" + proc.stdout[proc.stdout.find("[ecseg] fallbacks"):].strip(), flush=True)
+        marks["inputs and command line"] = time.perf_counter() - phase_t0
+
+        # in-process, from the same working directory (models/nuset.npz)
+        cwd = os.getcwd()
+        os.chdir(work)
+        tracer = trace.tracer()
+        tracer.enabled = True
+        tracer.reset()
+        fallbacks.reset()
+        K.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": inproc, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}))
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launches = dict(K.LAUNCHES)
+        stages = tracer.times()
+        tracer.enabled = False
+        falls = fallbacks.counts()
+        check(rc == 0, f"in-process stat_fish.main returned {rc}")
+        check(launches["label"] == STAT_FISH_LABELS_PER_IMAGE * len(names), f"stat_fish: B2 launched {launches['label']} times, expected {STAT_FISH_LABELS_PER_IMAGE * len(names)}")
+        check(1 <= launches["flood_border"] <= len(names), f"stat_fish: B3 launched {launches['flood_border']} times (one per watershed with markers)")
+        check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border")), f"stat_fish launched other kernels: {launches}")
+
+        ann = {d: os.path.join(d, "annotated") for d in (imgs, inproc)}
+        csv = {d: read_bytes(os.path.join(a, "stat_fish_lsq.csv")) for d, a in ann.items()}
+        check(csv[imgs] == csv[inproc], "stat_fish command line: CSV bytes != the in-process run's")
+        rows = csv[imgs].decode().splitlines()
+        check(rows[0].split(",") == stat_fish.csv_header(2) and len(rows) - 1 > len(names) * (SIZE * SIZE // 90000) // 2, f"stat_fish CSV: {len(rows) - 1} rows")
+        n_files = 0
+        for name in names:
+            stem = name[:-4]
+            for d, a in ann.items():
+                check(len(os.listdir(os.path.join(a, stem))) == 6, f"{d}: annotated/{stem} holds {sorted(os.listdir(os.path.join(a, stem)))}")
+            for fname in sorted(os.listdir(os.path.join(ann[imgs], stem))):
+                a_, b_ = (os.path.join(ann[d], stem, fname) for d in (imgs, inproc))
+                if fname.endswith(".npy"):
+                    check(read_bytes(a_) == read_bytes(b_), f"stat_fish: {fname} bytes differ between the command line and in-process")
+                    seg = np.load(a_)
+                    side = int(round(SIZE * 0.3)) // 16 * 16  # NuSeT's side at scale_ratio 0.3
+                    check(seg.shape == ni.output_shape((side, side), 0.3) and seg.max() > SIZE * SIZE // 180000,
+                          f"{fname}: shape {seg.shape}, {seg.max()} nuclei")
+                else:
+                    check(np.array_equal(imgio.imread_rgb(a_), imgio.imread_rgb(b_)), f"stat_fish: {fname} pixels differ between the command line and in-process")
+                n_files += 1
+
+        marks["in-process run and output checks"] = time.perf_counter() - phase_t0
+
+        # stage by stage on image 0 and a 900x700 crop of it
+        params = load_stat_fish_params()
+        model = load_nuset_model(os.path.join(work, "models"), dev, bbox_min_score=params.min_score,
+                                 nms_threshold=params.nms_threshold, resize_scale=params.scale_ratio)
+        I0 = imgio.u16_to_u8(imgio.imread_bgr8(os.path.join(inproc, names[0])))
+        stage_checks, kernel_inputs, geoms = {}, {}, {}
+        full = f"{SIZE}x{SIZE}"
+        for tag, I in ((full, I0), ("900x700", np.ascontiguousarray(I0[: STAT_FISH_SMALL[0], : STAT_FISH_SMALL[1]]))):
+            pre = ni.nuclei_segment_prepare(I[:, :, 0], params.scale_ratio)
+            masks1 = ni.nuset_forward(model, pre[1], pass_two=False)
+            mask, props, scores = ni.mask_and_proposals(model, foreground_norm(pre[0], masks1))
+            geoms[tag] = mask.shape
+            dev_ws, n_unc = nuset_marker_watershed_auto(scores, props, mask, params.min_score, dev)
+            host_ws = nuset_marker_watershed(scores, props, mask, params.min_score)
+            if dev_ws is not None:
+                check(np.array_equal(dev_ws, host_ws), f"{tag}: the certified watershed != the host priority flood")
+            ws = host_ws.astype(np.float32)
+            out_hw = ni.output_shape(ws.shape, params.scale_ratio)
+            seg = ni.cleanup_pass(ws, out_hw, STAT_FISH_T, dev)
+            check(np.array_equal(seg, ni.cleanup_host(ws, params.scale_ratio, STAT_FISH_T)), f"{tag}: the device cleanup != the host chain")
+            h, w = seg.shape
+            Ic = I[:h, :w]
+            mf_args = (Ic, seg, params.gaussian_sigma, params.normal_threshold, list(params.color_sensitivity), list(params.kernel_size))
+            thr = mf.get_thresholded_device(*mf_args, dev)
+            check(np.array_equal(thr, mf.get_thresholded(*mf_args)), f"{tag}: the device matched filter != the host one")
+            markers = nuset_place_markers(scores, props, mask, params.min_score)
+            stage_checks[tag] = {"nuset_hw": list(mask.shape), "proposals": int(len(props)), "markers": int(markers.max()) if markers is not None else 0,
+                                 "certificate": int(n_unc), "device_watershed_used": dev_ws is not None, "nuclei_px": int((seg > 0).sum()),
+                                 "fish_px": int((thr > 0).sum())}
+            m = torch.from_numpy(mask != 0).to(dev)
+            kept = clean_image(torch.from_numpy(ws != 0).to(dev))
+            supp = torch.from_numpy(seg > 0).to(dev)
+            for what, t, conns in ((f"NuSeT mask {tag}", m, (1, 2)), (f"cleaned complement {tag}", ~kept, (2,)), (f"binarized support {h}x{w}", supp, (1,))):
+                for conn in conns:
+                    errors.compare("label", K.label(t, conn), K.label_plain(t, conn), what + f" conn {conn}")
+            errors.compare("flood_border", K.flood_from_border(~m), K.flood_from_border_plain(~m), f"NuSeT background {tag}")
+            kernel_inputs[tag] = (m, supp)
+        print(f"stat_fish stages against the host chains: {stage_checks}", flush=True)
+
+        marks["stages against the host chains"] = time.perf_counter() - phase_t0
+
+        # the certified watershed with hand-placed proposals
+        gh, gw = geoms[full]
+        cert = []
+        for n in (12, 12, 40, 40):
+            pred, sc, pr = touching_nuclei_case(rng, gh, gw, n)
+            out, n_unc = nuset_marker_watershed_auto(sc, pr, pred, 0.95, dev)
+            host = nuset_marker_watershed(sc, pr, pred, 0.95)
+            if out is not None:
+                check(np.array_equal(out, host), "hand-placed proposals: the certified watershed != the host priority flood")
+            cert.append({"nuclei": n, "certificate": int(n_unc), "clean": out is not None, "split_px": int((pred > 0).sum() - (host > 0).sum())})
+        check(any(c["clean"] for c in cert), f"the certificate was never clean on the hand-placed cases: {cert}")
+        print(f"certified watershed, hand-placed proposals on {gh}x{gw}: {cert}", flush=True)
+
+        # times of the stages the JAX package left to XLA, on image 0
+        pre = ni.nuclei_segment_prepare(I0[:, :, 0], params.scale_ratio)
+        masks1 = ni.nuset_forward(model, pre[1], pass_two=False)
+        fgn = foreground_norm(pre[0], masks1)
+        x = torch.from_numpy(fgn.astype(np.float32)).to(dev)[None, None]
+        mask, props, scores = ni.mask_and_proposals(model, fgn)
+        with torch.no_grad():
+            _, feat = model.unet_fg(x)
+        m = torch.from_numpy(mask != 0).to(dev)
+        markers = nuset_place_markers(scores, props, mask, params.min_score)
+        mk = torch.from_numpy((markers if markers is not None else np.zeros_like(mask)).astype(np.int32)).to(dev)
+        img = -edt_sq(binary_fill_holes(m))
+        n_boxes = min(boxes.PRE_NMS_TOP_N, feat.shape[2] * feat.shape[3] * 21)
+        tb = torch.rand((n_boxes, 4), generator=torch.Generator(device=dev).manual_seed(3), device=dev).cumsum(1) * 100
+
+        def wall_ms(fn, reps=3):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / reps
+
+        with torch.no_grad():
+            xla_side = {
+                "unet_fg_forward (cuda events)": cuda_ms(lambda: model.unet_fg(x), 3),
+                "unet_whole_forward (cuda events)": cuda_ms(lambda: model.unet_whole(x), 3),
+                "proposal_pass with NMS (wall)": wall_ms(lambda: ni.proposal_pass(model, feat, 20.0, mask.shape)),
+                f"nms suppression matrix {n_boxes} boxes (cuda events)": cuda_ms(lambda: boxes.suppression_matrix(tb, 0.01), 5),
+                "edt_sq (wall)": wall_ms(lambda: edt_sq(m)),
+                "lex_flood (wall)": wall_ms(lambda: lex_flood(img, torch.where(m, mk, 0), m)),
+                "fast pass incl. B3 (wall)": wall_ms(lambda: nuset_fast_pass(m, mk)),
+                f"resize matmul {tuple(mask.shape)} -> {SIZE}^2 (cuda events)": cuda_ms(lambda: resize_linear_matmul(m.float(), (SIZE, SIZE)), 10),
+                "cleanup_pass incl. B2 (wall)": wall_ms(lambda: ni.cleanup_pass(mask, (SIZE, SIZE), STAT_FISH_T, dev)),
+                "matched filter incl. transfers (wall)": wall_ms(lambda: mf.get_thresholded_device(I0, np.full((SIZE, SIZE), 255, np.uint8), 3.0, 15, [70, 70], [7, 7], dev)),
+            }
+        print(f"stat_fish XLA-side ops on image 0: {xla_side}", flush=True)
+
+        marks["hand-placed watershed and XLA-side times"] = time.perf_counter() - phase_t0
+
+        # the device's busy share over one image's segmentation
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ni.nuclei_segment(I0[:, :, 0], model, STAT_FISH_T, pre=pre)
+            torch.cuda.synchronize()
+            seg_wall = time.perf_counter() - t0
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name) / 1e6
+        profile_pass = {"wall_s": seg_wall, "device_busy_s": busy, "busy_share": busy / seg_wall}
+        print(f"stat_fish nuclei_segment on image 0 under torch.profiler: {profile_pass}", flush=True)
+
+        # B2 and B3 at stat_fish's geometries
+        m608, supp = kernel_inputs[full]
+        m_small, _ = kernel_inputs["900x700"]
+        at = {
+            "label": {f"NuSeT mask {tuple(m608.shape)} conn 1": cuda_ms(lambda: K.label(m608, 1), 20),
+                      f"NuSeT mask {tuple(m608.shape)} conn 2": cuda_ms(lambda: K.label(m608, 2), 20),
+                      f"NuSeT mask {tuple(m_small.shape)} conn 1": cuda_ms(lambda: K.label(m_small, 1), 20),
+                      f"binarized support {tuple(supp.shape)} conn 1": cuda_ms(lambda: K.label(supp, 1), 20)},
+            "flood_border": {f"NuSeT background {tuple(m608.shape)}": cuda_ms(lambda: K.flood_from_border(~m608), 20),
+                             f"NuSeT background {tuple(m_small.shape)}": cuda_ms(lambda: K.flood_from_border(~m_small), 20)},
+        }
+        marks["profiler pass and B2/B3 times"] = time.perf_counter() - phase_t0
+        results["stat_fish_kernels"] = {
+            key: {"launches": launches[key], "images": len(names), "launches_per_image": launches[key] / len(names), "ms_at": at[key]}
+            for key in ("label", "flood_border")
+        }
+        results["stat_fish"] = {
+            "images": len(names), "wall_s": wall, "images_per_s": len(names) / wall, "cli_s": cli_s,
+            "cli_images_per_s": len(names) / cli_s, "encode_s": encode_s, "launches": {k: v for k, v in launches.items() if v},
+            "fallbacks": falls, "stages_s": {k: v for k, v in stages.items() if k.startswith("stat_fish.")},
+            "csv_rows": len(rows) - 1, "files_compared": n_files, "stage_checks": stage_checks, "hand_placed_watershed": cert,
+            "xla_side_ms": xla_side, "profile": profile_pass, "phase_marks_s": marks,
+        }
+        print(
+            f"stat_fish: command line {cli_s:.2f} s for {len(names)} images ({len(names) / cli_s:.3f} images/s, process start included); "
+            f"in-process main {wall:.3f} s ({len(names) / wall:.3f} images/s); launches {results['stat_fish']['launches']}; "
+            f"fallbacks {falls}; CSV ({len(rows) - 1} rows), .npy and TIFFs equal across the two runs; phase marks {marks}", flush=True,
+        )
+        for name in STAT_FISH_STAGES:
+            ts = stages.get(f"stat_fish.{name}", [])
+            print(f"  stage stat_fish.{name:16s} n={len(ts)} total {sum(ts):.4f} s; ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_timings(K, dev, errors, results):
     lp, pos, raw = results.pop("inputs")
     results["ec_mask"] = raw == 3  # B8a's timing input (tile phase)
@@ -1576,7 +1905,12 @@ def main() -> int:
     phase_command_line(args, np.random.default_rng(args.seed + 4), dev, results)
     phase_meta_overlay(args, np.random.default_rng(args.seed + 5), dev, errors, results)
     phase_fish_distance(np.random.default_rng(args.seed + 6), results)
+    phase_stat_fish(args, np.random.default_rng(args.seed + 7), dev, errors, results)
     rows = phase_timings(K, dev, errors, results)
+    for row in rows:  # stat_fish's launches and times beside B2's and B3's metaseg rows
+        key = {"label": "label", "flood_from_border": "flood_border"}.get(row["name"])
+        if key:
+            row["stat_fish"] = results["stat_fish_kernels"][key]
     xl_ms = phase_xl_forward(rng, dev)
     per_tile = phase_tile_count(K, dev, results)
     rows += tile_rows(K, dev, errors, results)
@@ -1584,6 +1918,7 @@ def main() -> int:
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
     print(json.dumps({"command_line": results["command_line"], "card": smi}))
     print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
+    print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -7,7 +7,8 @@ and keeps the same task interface, folder layout and output bytes.  Rules:
   even that package's JAX-free host modules, since importing any of them runs
   ``ecseg_tpu/ops/__init__.py`` and so JAX.  The host code it needs is kept
   here as its own copy (``core/``, ``ops/cc.py``, ``ops/morphology.py``,
-  ``ops/meta_post.py``, ``runtime/``);
+  ``ops/meta_post.py``, ``ops/region_stats.py``, ``ops/conv_host.py``,
+  ``csrc/cc_maxflow.cpp``, ``runtime/``);
 - entry points take an explicit ``device``; ``None`` means ``"cuda"`` and
   raises when no CUDA device is present (see :mod:`ecseg_torch.device`).
   There is no silent CPU path: tests pass ``device="cpu"``;
@@ -20,6 +21,8 @@ Ported so far: the metaseg task (``pipelines/metaseg.py``), with its
 post-processing in each form the JAX package's ``ECSEG_MC_LABEL`` and
 ``ECSEG_MC_MERGE`` select (the multiclass form by default); meta_overlay
 (``pipelines/meta_overlay.py``) and fish_distance_calculation
-(``pipelines/fish_distance.py``, host only); bench.py's per-tile count
+(``pipelines/fish_distance.py``, host only); stat_fish
+(``pipelines/stat_fish.py``: NuSeT, the certified watershed on B3, the
+cleanup on B2, min-cut and the matched filter); bench.py's per-tile count
 (``pipelines/tile_count.py``).
 """

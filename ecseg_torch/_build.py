@@ -1,13 +1,14 @@
 """Build the port's native code at first use: the CUDA kernels
-(``csrc/*.cu``) with ``nvcc``, the host TIFF LZW decoder
-(``csrc/tiff_lzw.cpp``) with the system C++ compiler.
+(``csrc/*.cu``) with ``nvcc``, the host libraries (the TIFF LZW decoder
+``csrc/tiff_lzw.cpp``; stat_fish's min-cut and priority-flood watershed
+``csrc/cc_maxflow.cpp``) with the system C++ compiler.
 
 Each source becomes its own shared library with a plain C interface, loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  All CUDA
 sources are compiled at once, one ``nvcc`` process each, into a directory
 named by a hash of the sources and flags under ``build/kernels/`` beside
 the package (listed in ``.gitignore``), so a rebuilt checkout never loads a
-stale library; the host library likewise under ``build/host/``.  A failed
+stale library; the host libraries likewise under ``build/host/``.  A failed
 build raises with the compiler's output.  No source is compiled with
 ``--use_fast_math``: B10 (``fused_tail.cu``) needs IEEE ``expf`` and
 division.
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
-HOST_SOURCES = ("tiff_lzw.cpp",)
+HOST_SOURCES = ("tiff_lzw.cpp", "cc_maxflow.cpp")
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
@@ -108,7 +109,7 @@ def _cxx() -> str:
         path = shutil.which(name)
         if path:
             return path
-    raise RuntimeError("no C++ compiler (c++, g++ or clang++) found: it is needed to build the TIFF LZW decoder")
+    raise RuntimeError("no C++ compiler (c++, g++ or clang++) found: it is needed to build the host libraries (csrc/*.cpp)")
 
 
 def host_library(source: str) -> ctypes.CDLL:

@@ -1,7 +1,9 @@
-"""Typed configuration (the metaseg, meta_overlay and
+"""Typed configuration (the stat_fish, metaseg, meta_overlay and
 fish_distance_calculation sections of the reference's ``config.yaml``,
-reference config.yaml:10-19).  Same schema and errors as
-``ecseg_tpu/core/config.py``.
+reference config.yaml:5-19) and the stat_fish expert knobs
+(``stat_fish_params.yaml``).  Same schema and errors as
+``ecseg_tpu/core/config.py``; the port's default knobs are its own copy of
+that package's ``stat_fish_params.yaml`` (``ecseg_torch/stat_fish_params.yaml``).
 
 The files are read by :func:`parse_yaml_subset`, not PyYAML, so the port
 needs no YAML package: the subset of YAML that ``config.yaml`` and
@@ -48,6 +50,16 @@ class MetaOverlayConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class StatFishConfig:
+    """reference config.yaml:5-9."""
+
+    inpath: str
+    scale: Any  # a number or the string 'auto' (reference stat_fish.py:228)
+    use_min_cut: bool
+    nuclei_size_T: int
+
+
+@dataclasses.dataclass(frozen=True)
 class FishDistanceConfig:
     """reference config.yaml:16-19."""
 
@@ -91,6 +103,16 @@ class Config:
         )
 
     @property
+    def stat_fish(self) -> StatFishConfig:
+        s = self._section("stat_fish")
+        return StatFishConfig(
+            inpath=_require(s, "inpath", "stat_fish"),
+            scale=_require(s, "scale", "stat_fish"),
+            use_min_cut=_require(s, "use_min_cut", "stat_fish"),
+            nuclei_size_T=_require(s, "nuclei_size_T", "stat_fish"),
+        )
+
+    @property
     def fish_distance_calculation(self) -> FishDistanceConfig:
         task = "fish_distance_calculation"
         s = self._section(task)
@@ -110,6 +132,52 @@ def load_config(path: str = "config.yaml") -> Config:
     if not isinstance(raw, Mapping):
         raise ConfigError(f"config file {path} did not parse to a mapping")
     return Config(raw=raw, path=os.path.abspath(path))
+
+
+@dataclasses.dataclass(frozen=True)
+class StatFishParams:
+    """Expert knobs (reference src/stat_fish_params.yaml:1-21); the defaults
+    are the reference's shipped values."""
+
+    normal_threshold: float = 15
+    color_sensitivity: tuple = (70, 70)
+    cell_size_threshold_coeff: float = 1.25
+    flow_limit: int = 60
+    line_thickness: int = 2
+    min_score: float = 0.95
+    nms_threshold: float = 0.01
+    scale_ratio: float = 0.3
+    min_cc_size: int = 7
+    gaussian_sigma: float = 3
+    kernel_size: tuple = (7, 7)
+    target_median_nuclei_size: float = 2500
+    # the file these knobs were read from (None: the defaults); stat_fish
+    # copies it into its output, so the copy holds the values used
+    path: Optional[str] = None
+
+    @classmethod
+    def from_mapping(cls, m: Mapping[str, Any]) -> "StatFishParams":
+        kwargs = {}
+        for field in dataclasses.fields(cls):
+            if field.name in m:
+                v = m[field.name]
+                kwargs[field.name] = tuple(v) if isinstance(v, list) else v
+        return cls(**kwargs)
+
+
+def default_params_path() -> str:
+    """The port's copy of the shipped ``stat_fish_params.yaml``."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "stat_fish_params.yaml")
+
+
+def load_stat_fish_params(path: Optional[str] = None) -> StatFishParams:
+    if path is None:
+        path = default_params_path()
+    if not os.path.exists(path):
+        return StatFishParams()
+    with open(path) as f:
+        raw = parse_yaml_subset(f.read(), path) or {}
+    return dataclasses.replace(StatFishParams.from_mapping(raw), path=os.path.abspath(path))
 
 
 # --------------------------------------------------------------------------

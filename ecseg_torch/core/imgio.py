@@ -182,6 +182,37 @@ def imread_rgb(path: str) -> np.ndarray:
     return img
 
 
+def imread_bgr8(path: str) -> np.ndarray:
+    """What ``cv2.imread(path)`` (IMREAD_COLOR) gives stat_fish (reference
+    src/stat_fish.py:207): 8-bit, three channels, BGR.  Gray becomes three
+    equal channels and alpha is dropped.  16-bit samples become 8-bit as
+    OpenCV's TIFF reader makes them, which differs by layout: a gray
+    sample's high byte (``x >> 8``), a colour sample rounded to nearest
+    (``rint(x / 257)``); both pinned against cv2 in
+    tests/test_torch_stat_fish.py.  A ``.npy`` input is returned as
+    stored, as the JAX package loads it."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    img = imread_rgb(path)
+    if img.dtype == np.uint16:
+        if img.ndim == 2:
+            img = (img >> 8).astype(np.uint8)
+        else:
+            img = np.rint(img / 257.0).astype(np.uint8)
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    return np.ascontiguousarray(img[..., 2::-1])
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """``cv2.imwrite`` of an (H, W) or BGR (H, W, 3) uint8/uint16 array to an
+    uncompressed TIFF (the JAX package's ``imgio.imwrite`` default, whose
+    contract is the decoded pixels): the file holds RGB, as OpenCV writes
+    it.  A failed write raises."""
+    img = np.asarray(img)
+    write_tiff(path, img[..., ::-1] if img.ndim == 3 else img)
+
+
 def write_tiff(path: str, img: np.ndarray) -> None:
     """Baseline little-endian uncompressed TIFF, one strip: uint8/uint16,
     gray (H, W) or RGB (H, W, 3)."""

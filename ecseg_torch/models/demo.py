@@ -1,17 +1,20 @@
-"""Deterministic demo weights for the metaseg U-Net (twin of
-``ecseg_tpu/models/demo.py:35-51``): the level-1 encoder/decoder convs pass
-input brightness ``b`` to the head, whose argmax maps brightness bands to
-classes -- background < ~0.3 < nuclei < ~0.7 < ecDNA (chromosomes unused).
-All other layers keep their seeded random init and run at full cost.  Not a
-trained model."""
+"""Deterministic demo weights (twin of ``ecseg_tpu/models/demo.py``).  The
+metaseg U-Net's level-1 encoder/decoder convs pass input brightness ``b`` to
+the head, whose argmax maps brightness bands to classes -- background < ~0.3
+< nuclei < ~0.7 < ecDNA (chromosomes unused); the NuSeT U-Nets pass it to
+their class-1 logit.  All other layers keep their seeded random init and run
+at full cost.  Not trained models."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .metaseg_unet import BOTTLENECK, ENC_WIDTHS, MetasegUNet
+from .nuset import NUM_REF_ANCHORS, NuSeTRPN, NuSeTUNet
+from .weights import tree_from_modules
 
 
 def demo_metaseg_params(
@@ -35,3 +38,44 @@ def demo_metaseg_params(
         head.weight.copy_(k)
         head.bias.copy_(torch.tensor([6.0, 0.0, -1e3, -14.0]))
     return model
+
+
+
+def _pass_k(shape, src: int, dst: int, gain: float = 1.0) -> np.ndarray:
+    """An HWIO kernel whose centre tap copies channel ``src`` to ``dst``."""
+    k = np.zeros(shape, np.float32)
+    k[shape[0] // 2, shape[1] // 2, src, dst] = gain
+    return k
+
+
+def demo_nuset_unet_tree(generator: Optional[torch.Generator], thresh: float) -> Dict:
+    """A NuSeT U-Net tree whose class-1 logit is 5 * relu(brightness -
+    thresh) through the level-1 skip (twin of
+    ``ecseg_tpu/models/demo.py:54-75``); the deep layers keep their
+    ``generator``-seeded init and run at full cost."""
+    tree = tree_from_modules(NuSeTUNet(generator))
+    bias1 = np.zeros(64, np.float32)
+    bias1[0] = -thresh
+    tree["conv1-1"] = {"kernel": _pass_k((3, 3, 1, 64), 0, 0), "bias": bias1}
+    for name, cin in (("conv1-2", 64), ("conv1-3", 128), ("conv1-4", 64)):
+        tree[name] = {"kernel": _pass_k((3, 3, cin, 64), 0, 0), "bias": np.zeros(64, np.float32)}
+    fk = np.zeros((3, 3, 64, 2), np.float32)
+    fk[1, 1, 0, 1] = 5.0
+    tree["final"] = {"kernel": fk}
+    return tree
+
+
+def demo_nuset_tree(generator: Optional[torch.Generator] = None) -> Dict:
+    """The ``{"whole", "fg": {"unet", "rpn"}}`` tree that ``models/nuset.npz``
+    stores (twin of ``ecseg_tpu/models/demo.py:78-94``): the whole-image
+    pass thresholds the normalized brightness at 0.5, the foreground pass at
+    -5; the RPN keeps its seeded init.  Not a trained model."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return {
+        "whole": demo_nuset_unet_tree(generator, thresh=0.5),
+        "fg": {
+            "unet": demo_nuset_unet_tree(generator, thresh=-5.0),
+            "rpn": tree_from_modules(NuSeTRPN(NUM_REF_ANCHORS, generator)),
+        },
+    }

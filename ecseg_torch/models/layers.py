@@ -62,6 +62,13 @@ class TFConvTranspose2d(nn.ConvTranspose2d):
         return add_bias(self._truncate(x, y), self.bias)
 
 
+def parity_flags():
+    """cuDNN settings under which the float32 convs keep their parity with
+    the JAX package's ``Precision.HIGHEST``: no TF32, deterministic
+    algorithms, no autotuning."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+
+
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
 

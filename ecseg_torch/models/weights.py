@@ -1,5 +1,6 @@
-"""The weight bridge: the JAX parameter pytree (as numpy arrays) to and from
-:class:`~ecseg_torch.models.metaseg_unet.MetasegUNet`.
+"""The weight bridge: the JAX parameter pytrees (as numpy arrays) to and from
+:class:`~ecseg_torch.models.metaseg_unet.MetasegUNet` and the NuSeT modules
+(:mod:`~ecseg_torch.models.nuset`).
 
 The tree is what ``ecseg_tpu.models.metaseg_unet.init_params`` builds and
 ``keras_import.save_npz_pytree`` flattens to ``"enc1_1/kernel"`` keys
@@ -68,6 +69,51 @@ def params_to_numpy(model: MetasegUNet) -> Dict:
     return tree
 
 
+def modules_from_tree(module: nn.Module, tree: Dict, what: str) -> None:
+    """Copy ``tree``'s kernels and biases into ``module.layers``."""
+    if set(tree) != set(module.layers):
+        raise ValueError(f"{what}: parameter tree layers {sorted(tree)} do not match {sorted(module.layers)}")
+    with torch.no_grad():
+        for name, layer in module.layers.items():
+            w = _layer_from_kernel(layer, tree[name]["kernel"])
+            if w.shape != layer.weight.shape:
+                raise ValueError(f"{what} {name}: kernel {tuple(w.shape)} != {tuple(layer.weight.shape)}")
+            layer.weight.copy_(w)
+            if layer.bias is not None:
+                layer.bias.copy_(_as_f32(tree[name]["bias"]))
+
+
+def tree_from_modules(module: nn.Module) -> Dict:
+    tree = {}
+    for name, layer in module.layers.items():
+        w = layer.weight.detach().cpu()
+        k = w.permute(2, 3, 0, 1) if isinstance(layer, nn.ConvTranspose2d) else w.permute(2, 3, 1, 0)
+        tree[name] = {"kernel": k.numpy().copy()}
+        if layer.bias is not None:
+            tree[name]["bias"] = layer.bias.detach().cpu().numpy().copy()
+    return tree
+
+
+def nuset_from_numpy(tree: Dict):
+    """(whole-image U-Net, foreground U-Net, RPN) on the CPU, float32, from
+    the ``{"whole": unet, "fg": {"unet": unet, "rpn": rpn}}`` tree that
+    ``models/nuset.npz`` stores (``ecseg_tpu/pipelines/stat_fish.py:38-53``);
+    the RPN's anchor count is read off its score head."""
+    from .nuset import NuSeTRPN, NuSeTUNet
+
+    whole, fg = NuSeTUNet(), NuSeTUNet()
+    rpn = NuSeTRPN(int(tree["fg"]["rpn"]["rpn_cls_score"]["kernel"].shape[3]) // 2)
+    modules_from_tree(whole, tree["whole"], "whole")
+    modules_from_tree(fg, tree["fg"]["unet"], "fg unet")
+    modules_from_tree(rpn, tree["fg"]["rpn"], "fg rpn")
+    return whole, fg, rpn
+
+
+def nuset_to_numpy(whole: nn.Module, fg: nn.Module, rpn: nn.Module) -> Dict:
+    """Inverse of :func:`nuset_from_numpy`."""
+    return {"whole": tree_from_modules(whole), "fg": {"unet": tree_from_modules(fg), "rpn": tree_from_modules(rpn)}}
+
+
 def load_npz(path: str) -> Dict:
     """The nested numpy tree of a ``save_npz_pytree`` file."""
     out: Dict = {}
@@ -97,3 +143,19 @@ def save_npz(path: str, tree: Dict) -> None:
     if d:
         os.makedirs(d, exist_ok=True)
     np.savez(path, **flat)
+
+
+def load_nuset_model(model_dir: str = "models", device=None, **knobs):
+    """The NuSeT model of ``<model_dir>/nuset.npz`` (the JAX package's
+    tree, read through the bridge) or, with no such file, the crafted demo
+    tree (``models/demo.py``) on seed 0, on ``device`` (None: the card).
+    ``knobs``: ``nms_threshold``, ``bbox_min_score``, ``resize_scale``."""
+    from ..device import resolve_device
+    from .demo import demo_nuset_tree
+    from .nuset_infer import NuSeTModel
+
+    dev = resolve_device(device)
+    path = os.path.join(model_dir, "nuset.npz")
+    tree = load_npz(path) if os.path.exists(path) else demo_nuset_tree()
+    whole, fg, rpn = (m.to(dev).eval() for m in nuset_from_numpy(tree))
+    return NuSeTModel(unet_whole=whole, unet_fg=fg, rpn_fg=rpn, **knobs)

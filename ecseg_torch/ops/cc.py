@@ -1,6 +1,6 @@
 """Connected-component labeling and region properties of binary masks (host
 side; twin of ``ecseg_tpu/ops/cc.py``, the subset the metaseg host oracle
-uses).
+and stat_fish use).
 
 skimage's ``label`` default connectivity for 2-D images is full (8-connected);
 ``connectivity=1`` is 4-connected.  Both map onto ``scipy.ndimage.label``,
@@ -28,10 +28,19 @@ def label(mask: np.ndarray, connectivity: Optional[int] = None, return_num: bool
     return labels
 
 
+def scipy_label(image: np.ndarray, connectivity: int = 1):
+    """``scipy.ndimage.label`` (4-connected by default), as the reference's
+    blob count calls it (reference src/stat_fish.py:135)."""
+    return ndi.label(image, structure=ndi.generate_binary_structure(2, connectivity))
+
+
 @dataclasses.dataclass
 class Region:
-    """The part of skimage.measure.regionprops the metaseg chain reads:
-    area, centroid and an in-place write."""
+    """The part of skimage.measure.regionprops the metaseg chain and
+    stat_fish read: area, bbox, centroid, an in-place write, and the
+    dict-style ``"BoundingBox"`` / ``"Area"`` of the reference's NuSeT code
+    (reference src/model_layers/anchor_size.py:25,
+    marker_watershed.py:70-73)."""
 
     label: int
     slice: Tuple[slice, slice]
@@ -41,6 +50,18 @@ class Region:
     @property
     def _mask(self) -> np.ndarray:
         return self._labels[self.slice] == self.label
+
+    @property
+    def bbox(self) -> Tuple[int, int, int, int]:
+        sy, sx = self.slice
+        return (sy.start, sx.start, sy.stop, sx.stop)
+
+    def __getitem__(self, key: str):
+        if key == "BoundingBox":
+            return self.bbox
+        if key == "Area":
+            return self.area
+        raise KeyError(key)
 
     @property
     def centroid(self) -> Tuple[np.float64, np.float64]:

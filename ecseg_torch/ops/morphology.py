@@ -1,6 +1,6 @@
 """Binary/grey morphology with skimage-compatible semantics on scipy (host
-side; twin of ``ecseg_tpu/ops/morphology.py``, the subset the metaseg and
-meta_overlay host oracles use)."""
+side; twin of ``ecseg_tpu/ops/morphology.py``, the subset the metaseg,
+meta_overlay and stat_fish host chains use)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,19 @@ def diamond(radius: int) -> np.ndarray:
     L = np.arange(0, radius * 2 + 1)
     i, j = np.meshgrid(L, L, indexing="ij")
     return (np.abs(i - radius) + np.abs(j - radius) <= radius).astype(np.uint8)
+
+
+def disk(radius: int) -> np.ndarray:
+    """L2 ball footprint (skimage.morphology.disk)."""
+    L = np.arange(-radius, radius + 1)
+    i, j = np.meshgrid(L, L, indexing="ij")
+    return ((i**2 + j**2) <= radius**2).astype(np.uint8)
+
+
+def dilation(image: np.ndarray, footprint: np.ndarray) -> np.ndarray:
+    """Grey dilation (skimage.morphology.dilation); the NuSeT watershed's
+    marker dilation (reference src/model_layers/marker_watershed.py:82)."""
+    return ndi.grey_dilation(image, footprint=footprint)
 
 
 def binary_dilation(image: np.ndarray, footprint: np.ndarray) -> np.ndarray:
@@ -51,3 +64,12 @@ def remove_small_objects(mask: np.ndarray, min_size: float, connectivity: int = 
     keep = sizes >= min_size
     keep[0] = False
     return keep[labels]
+
+
+def remove_small_holes(mask: np.ndarray, area_threshold: float, connectivity: int = 2) -> np.ndarray:
+    """Fill holes of at most ``area_threshold`` pixels (skimage semantics:
+    complement, remove objects smaller than ``area_threshold + 1``,
+    complement back; background touching the border counts as a hole
+    too)."""
+    mask = np.asarray(mask, bool)
+    return ~remove_small_objects(~mask, area_threshold + 1, connectivity)

@@ -1,8 +1,9 @@
 """Device -> host fallback counters (twin of ``ecseg_tpu/runtime/fallbacks.py``).
 
-A device meta_inference whose ``ok`` is False is redone on the host oracle;
-the bytes are identical either way, but a run where every image quietly
-falls back is a performance regression.  Each such event is counted here
+A device meta_inference whose ``ok`` is False is redone on the host oracle,
+and a NuSeT watershed whose certificate is not clean is recomputed by the
+host priority flood; the bytes are identical either way, but a run where
+every image quietly falls back is a performance regression.  Each such event is counted here
 and the pipeline prints one summary line at the end (``fallbacks: none`` is
 the healthy signal).  Process-global and thread-safe.
 """
@@ -17,6 +18,8 @@ _lock = threading.Lock()
 _counts: Counter = Counter()
 
 META_POST_OK = "meta_post_ok_false"  # device meta_inference said redo-on-host
+WATERSHED_UNCERTAIN_PX = "fast_watershed_uncertain_px"  # the uncertain pixels of such watersheds
+WATERSHED_HOST_RECOMPUTE = "fast_watershed_host_recompute"  # watersheds recomputed on the host
 
 
 def record(kind: str, n: int = 1) -> None:

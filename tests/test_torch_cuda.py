@@ -14,7 +14,10 @@ tests/test_torch_convt.py and tests/test_torch_tiling.py.  The kernels'
 equality at 2048^2 and 2048x3072, and at the tile-count path's shapes, is
 checked by chip_smoke.py.  meta_overlay's statistics (B2 and B8a) are held
 against their own CPU run (the twins), which tests/test_torch_overlay.py
-holds against the JAX package.
+holds against the JAX package; so are stat_fish's device stages (the EDT,
+the certified watershed on B3, NMS, the cleanup on B2, the matched filter)
+and its whole segmentation, which tests/test_torch_watershed.py and
+tests/test_torch_nuset_infer.py hold against the JAX package.
 """
 
 import numpy as np
@@ -461,3 +464,75 @@ def test_overlay_stats_on_the_card_match_the_plain_version(cuda, monkeypatch, ca
     K.reset_launches()
     assert overlay_stats(*masks, device=cuda) == want
     assert {k: v for k, v in K.LAUNCHES.items() if v} == {"label": 5, "count": 3}
+
+
+def _touching_nuclei(seed, h, w, n):
+    """A mask of n discs, many touching, and one proposal around each."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.ogrid[:h, :w]
+    mask = np.zeros((h, w), bool)
+    props = []
+    for _ in range(n):
+        r = int(rng.integers(6, 14))
+        cy, cx = int(rng.integers(24, h - 24)), int(rng.integers(24, w - 24))
+        mask |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        props.append([cx - r, cy - r, cx + r, cy + r])
+    return mask.astype(np.float32), np.full(n, 0.97, np.float32), np.array(props, np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,h,w,n", [(0, 160, 144, 8), (1, 208, 256, 30), (2, 97, 131, 12)])
+def test_stat_fish_device_stages_on_the_card_match_the_cpu(cuda, seed, h, w, n):
+    """stat_fish's device stages (B2, B3 and plain torch ops) on the card
+    equal their CPU runs, which tests/test_torch_watershed.py and
+    test_torch_nuset_infer.py hold against the JAX package: the EDT, the
+    certified watershed (contour and certificate), NMS, the cleanup and the
+    matched filter."""
+    from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.ops import boxes
+    from ecseg_torch.ops import matched_filter as mf
+    from ecseg_torch.ops.edt_gpu import edt_sq
+    from ecseg_torch.ops.watershed import nuset_place_markers
+    from ecseg_torch.ops.watershed_gpu import nuset_fast_pass
+
+    pred, scores, props = _touching_nuclei(seed, h, w, n)
+    m = torch.from_numpy(pred != 0)
+    assert torch.equal(edt_sq(m.to(cuda)).cpu(), edt_sq(m))
+    markers = torch.from_numpy(nuset_place_markers(scores, props, pred, 0.95).astype(np.int32))
+    got, got_unc = nuset_fast_pass(m.to(cuda), markers.to(cuda))
+    want, want_unc = nuset_fast_pass(m, markers)
+    assert torch.equal(got.cpu(), want) and got_unc == want_unc
+    tf = boxes.change_order(torch.from_numpy(props))
+    valid = torch.ones(len(tf), dtype=torch.bool)
+    assert np.array_equal(boxes.nms_sorted(tf.to(cuda), valid.to(cuda), 800, 0.01), boxes.nms_sorted(tf, valid, 800, 0.01))
+    for scale in (0.3, 1):
+        out_hw = ni.output_shape(pred.shape, scale)
+        assert np.array_equal(ni.cleanup_pass(pred, out_hw, 60, cuda), ni.cleanup_pass(pred, out_hw, 60, "cpu"))
+    rng = np.random.default_rng(seed)
+    I = (rng.random((h, w, 3)) * 120).astype(np.uint8)
+    I[..., 1][rng.random((h, w)) < 0.01] = 250
+    cells = (pred > 0).astype(np.uint8) * 255
+    args = (I, cells, 3.0, 15, [70, 70], [7, 7])
+    assert np.array_equal(mf.get_thresholded_device(*args, cuda), mf.get_thresholded(*args))
+
+
+@pytest.mark.cuda
+def test_nuclei_segment_on_the_card_matches_the_cpu(cuda):
+    """The whole segmentation of a 200x180 image at resize_scale 1 with the
+    demo NuSeT (its RPN scores raised so markers are placed) on the card
+    and on the CPU."""
+    from ecseg_torch.models.demo import demo_nuset_tree
+    from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.models.weights import nuset_from_numpy
+
+    tree = demo_nuset_tree()
+    tree["fg"]["rpn"]["rpn_cls_score"]["bias"][1::2] = 6.0
+    models = {}
+    for dev in ("cpu", cuda):
+        whole, fg, rpn = (x.to(dev).eval() for x in nuset_from_numpy(tree))
+        models[str(dev)] = ni.NuSeTModel(whole, fg, rpn, resize_scale=1)
+    pred, _, _ = _touching_nuclei(3, 200, 180, 10)
+    image = (pred * 200 + np.random.default_rng(3).random(pred.shape) * 30).astype(np.uint8)
+    got = ni.nuclei_segment(image, models[str(cuda)], 60)
+    want = ni.nuclei_segment(image, models["cpu"], 60)
+    assert got.any() and np.array_equal(got, want)

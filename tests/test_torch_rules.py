@@ -1,7 +1,8 @@
 """Rules of the port (ecseg_torch) and its host I/O helpers:
 
 - no module of the package, nor chip_smoke.py, imports jax or ecseg_tpu,
-  and the metaseg path imports no cv2, pandas or yaml when it loads;
+  and no module imports cv2, pandas or yaml when it loads; stat_fish runs
+  from its config.yaml with all five unimportable;
 - an entry point given no device raises when there is no CUDA device;
 - a kernel wrapper given a tensor that is neither on the CPU nor on a CUDA
   device raises, and never falls back to its plain twin;
@@ -233,3 +234,43 @@ def test_u16_to_u8_matches_cv2(rng):
     np.testing.assert_array_equal(
         imgio.u16_to_u8(img), cv2.convertScaleAbs(img, alpha=255.0 / 65535.0)
     )
+
+
+def test_stat_fish_main_without_device_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.pipelines import stat_fish
+
+    cfg = Config(raw={"stat_fish": {"inpath": str(tmp_path), "scale": 1, "use_min_cut": True, "nuclei_size_T": 50}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stat_fish.main(config=cfg)
+
+
+def test_stat_fish_runs_without_cv2_pandas_yaml_or_jax(tmp_path):
+    """stat_fish as the card's machine runs it: from a ``config.yaml``, in a
+    process where cv2, pandas, yaml, jax and ecseg_tpu cannot be imported,
+    on a 64x64 folder (a uint16 RGB TIFF, the crafted demo weights)."""
+    img = np.zeros((64, 64, 3), np.uint16)
+    yy, xx = np.ogrid[:64, :64]
+    img[..., 2][(yy - 30) ** 2 + (xx - 34) ** 2 <= 15**2] = 56000  # blue nucleus (RGB order on disk)
+    img[28:31, 30:33, 1] = 50000
+    (tmp_path / "in").mkdir()
+    imgio.write_tiff(str(tmp_path / "in" / "cells.tif"), img)
+    (tmp_path / "config.yaml").write_text("stat_fish:\n  inpath: ./in\n  scale: 1\n  use_min_cut: True\n  nuclei_size_T: 20\n")
+    code = f"""
+import sys
+for name in ("cv2", "pandas", "yaml", "jax", "jaxlib", "ecseg_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+from ecseg_torch.pipelines import stat_fish
+sys.exit(stat_fish.main(device="cpu"))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ann = tmp_path / "in" / "annotated"
+    rows = (ann / "stat_fish_lsq.csv").read_text().splitlines()
+    assert rows[0].startswith("image_name,nucleus_center,") and len(rows) == 2
+    assert (ann / "cells" / "cells__segmentation_min_cut.npy").exists()
+    assert len(list((ann / "cells").glob("*.tif"))) == 5
