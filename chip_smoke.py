@@ -75,20 +75,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    host oracle with seeded chromosome blobs; the stage times per image.
    Then ``python3 -m ecseg_torch.pipelines.fish_distance`` (host only) on
    a synthetic stat_fish output folder, its CSV byte-equal to an
-   in-process host computation.  Then ``make stat_fish`` as a user runs
-   it (``phase_stat_fish``): ``python3 -m ecseg_torch.pipelines.stat_fish``
-   and ``stat_fish.main`` in-process (launch counters set to 0 just before,
-   read just after: four B2 an image and one B3 a watershed with markers)
-   on three 2048^2 RGB uint16 LZW TIFFs with the demo NuSeT at its
-   published widths (RPN scores raised so that markers are placed).
-   Checks: CSV and ``.npy`` bytes and TIFF pixels equal across the two
-   runs; on image 0 and a 900x700 crop of it the device watershed (where
-   its certificate is clean), cleanup and matched filter equal the host
-   chains on the same NuSeT outputs, and B2 and B3 equal their twins on
-   those masks (608^2, 256x208, 2027^2); the certified watershed with
-   hand-placed proposals equals the host flood when clean.  Times: the
-   stage table, images/s, the XLA-side ops, one profiler pass (device busy
-   share), B2 and B3 at stat_fish's geometries;
+   in-process host computation;
 4. time each kernel at the main path's shapes beside its plain twin and its
    memory bound: the CUDA-event mean over back-to-back calls (``ms``) and
    the device-only time from one ``torch.profiler`` pass (``device_ms``);
@@ -112,7 +99,35 @@ Phases (any failure raises; exit code 0 only when all pass):
    the CUDA-event mean by more than 25 % is repeated; B8a, B8b and B10
    bit-equal to their twins on the timed inputs, B10 on the whole level-1
    concat of both widths' paths (800 and 200 patches);
-6. print ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
+6. after every profiler timing (once stat_fish has run, ``torch.profiler``
+   drops device records of short windows on the card): ``make stat_fish`` as a user runs
+   it (``phase_stat_fish``): ``python3 -m ecseg_torch.pipelines.stat_fish``
+   and ``stat_fish.main`` in-process (launch counters set to 0 just before,
+   read just after: four B2 an image and one B3 a watershed with markers)
+   on three 2048^2 RGB uint16 LZW TIFFs (half the nuclei with an
+   amplified red probe, drawn from seed + 8, for interseg) with the demo
+   NuSeT at its published widths (RPN scores raised so that markers are
+   placed).
+   Checks: CSV and ``.npy`` bytes and TIFF pixels equal across the two
+   runs; on image 0 and a 900x700 crop of it the device watershed (where
+   its certificate is clean), cleanup and matched filter equal the host
+   chains on the same NuSeT outputs, and B2 and B3 equal their twins on
+   those masks (608^2, 256x208, 2027^2); the certified watershed with
+   hand-placed proposals equals the host flood when clean.  Times: the
+   stage table, images/s, the XLA-side ops, one profiler pass (device busy
+   share), B2 and B3 at stat_fish's geometries.  Then ``make interseg``
+   (``phase_interseg``): ``python3 -m ecseg_torch.pipelines.interseg`` and
+   ``interseg.main`` in-process on the stat_fish command line's folder
+   (``FISH_color: red``, a centromeric probe, the demo ecSeg-i/ecSeg-c
+   trees in ``interseg_models/*.npz``).  Checks: the two CSVs byte-equal;
+   per image, the batched card labels equal per-row card labels
+   (probabilities within 1e-5) and the CPU's on the same crops; the
+   classifiers on the card, ecSeg-c run; per-image stage times.  Then the
+   imported-Keras executor (``phase_keras_import``) from in-memory configs
+   and weights: the metaseg U-Net as a Keras Functional graph, its
+   stitched labels over image 0's patches byte-equal to ``MetasegUNet``'s,
+   and ecSeg-i as a Keras Sequential against ``EcsegI``;
+7. print ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
 
@@ -785,6 +800,7 @@ def phase_main_path(args, rng, dev, errors, results):
         with torch.no_grad():
             lp = tiling.patch_labels(model(torch.from_numpy(patches).to(dev)))
         results["inputs"] = (lp, pos, K.stitch_labels(lp, pos))
+        results["metaseg_patches"] = (patches, pos)  # image 0's, for phase_keras_import
     finally:
         tracer.enabled = False
         os.chdir(cwd)
@@ -1171,11 +1187,16 @@ def phase_fish_distance(rng, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def synthetic_interphase_rgb(rng, h, w):
+def synthetic_interphase_rgb(rng, h, w, amp_rng=None):
     """uint16 RGB input of stat_fish: blue nuclei (discs of radius 40-60 px
     on noise, every third with a touching twin whose centre lies 2.1 radii
     away, which NuSeT's mask joins and the min-cut splits), red and green
-    foci of 3-5 px inside the nuclei and a few outside, on noise."""
+    foci of 3-5 px inside the nuclei and a few outside, on noise.  With
+    ``amp_rng`` (its own generator, so ``rng``'s draws stay as they were)
+    the red probe is amplified as interseg's classes look: every second
+    nucleus gets 15-40 more red foci (ecDNA-like) and every sixth a bright
+    red blob of half its radius (HSR-like); the others stay below
+    interseg's target-brightness gate."""
     red, green, blue = ((rng.random((h, w)) * level).astype(np.uint16) for level in (4000, 4000, 6000))
     yy, xx = np.ogrid[:h, :w]
     nuclei = []
@@ -1192,6 +1213,14 @@ def synthetic_interphase_rgb(rng, h, w):
                 ch[y : y + s, x : x + s] = 50000 + int(rng.integers(0, 15000))
         for y, x in zip(rng.integers(0, h - 5, 20), rng.integers(0, w - 5, 20)):
             ch[y : y + 4, x : x + 4] = 52000
+    if amp_rng is not None:
+        for k, (cy, cx, r) in enumerate(nuclei):
+            if k % 6 == 5:
+                red[(yy - cy) ** 2 + (xx - cx) ** 2 <= (r // 2) ** 2] = 50000 + int(amp_rng.integers(0, 10000))
+            elif k % 2 == 1:
+                for _ in range(int(amp_rng.integers(15, 41))):
+                    y, x, s = cy + int(amp_rng.integers(-r // 2, r // 2)), cx + int(amp_rng.integers(-r // 2, r // 2)), int(amp_rng.integers(3, 6))
+                    red[y : y + s, x : x + s] = 45000 + int(amp_rng.integers(0, 20000))
     return np.stack([red, green, blue], axis=-1)
 
 
@@ -1270,7 +1299,8 @@ def phase_stat_fish(args, rng, dev, errors, results):
         imgs, inproc = os.path.join(work, "imgs"), os.path.join(work, "inproc")
         os.makedirs(imgs)
         names = [f"cells{k}.tif" for k in range(STAT_FISH_IMAGES)]
-        rgbs = [synthetic_interphase_rgb(rng, SIZE, SIZE) for _ in names]
+        amp_rng = np.random.default_rng(args.seed + 8)  # the red amplification interseg classifies
+        rgbs = [synthetic_interphase_rgb(rng, SIZE, SIZE, amp_rng) for _ in names]
         t0 = time.perf_counter()
         write_lzw_tiffs([(os.path.join(imgs, n), img) for n, img in zip(names, rgbs)])
         encode_s = time.perf_counter() - t0
@@ -1476,8 +1506,279 @@ def phase_stat_fish(args, rng, dev, errors, results):
         for name in STAT_FISH_STAGES:
             ts = stages.get(f"stat_fish.{name}", [])
             print(f"  stage stat_fish.{name:16s} n={len(ts)} total {sum(ts):.4f} s; ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts), flush=True)
+        # the command line's folder (images and annotated/) is interseg's input
+        keep = tempfile.mkdtemp(prefix="ecseg_stat_fish_out_")
+        results["stat_fish_folder"] = shutil.move(imgs, os.path.join(keep, "imgs"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+class DictFetcher:
+    """The imported-Keras graph constructor's fetcher over in-memory weights:
+    ``{layer: [arrays in Keras's order]}``, a nested model's weights under
+    its name as another such dict (the card's machine has no h5py, so the
+    constructor is driven from a config and arrays, not from a file)."""
+
+    def __init__(self, weights):
+        self.weights = weights
+
+    def fetch(self, name):
+        w = self.weights.get(name, [])
+        return list(w) if isinstance(w, list) else []
+
+    def child(self, name, layers_cfg):
+        return DictFetcher(self.weights.get(name, {}))
+
+
+def _keras_layer(cls, name, inbound=None, **cfg):
+    entry = {"class_name": cls, "config": {"name": name, **cfg}}
+    if inbound is not None:
+        entry["inbound_nodes"] = [[[n, 0, 0, {}] for n in inbound]]
+    return entry
+
+
+def _keras_conv(name, filters, k, inbound=None, activation="relu", cls="Conv2D", stride=1):
+    return _keras_layer(cls, name, inbound, filters=filters, kernel_size=[k, k], strides=[stride, stride],
+                        padding="same", activation=activation, use_bias=True)
+
+
+def unet_keras_config(widths, bottleneck, num_classes):
+    """The metaseg U-Net (``models/metaseg_unet.py``) as a legacy-format
+    Keras Functional config: Rescaling(1/255), per level two 3x3 convs +
+    ReLU and a 2x2 'same' max pool, the bottleneck, per level a 3x3 stride-2
+    transpose conv + ReLU, the skip concat (skip first) and two convs, a
+    1x1 softmax head."""
+    layers = [_keras_layer("InputLayer", "inp", []), _keras_layer("Rescaling", "scale", ["inp"], scale=1 / 255.0, offset=0.0)]
+    x = "scale"
+    for i, w in enumerate(widths, start=1):
+        layers += [_keras_conv(f"enc{i}_1", w, 3, [x]), _keras_conv(f"enc{i}_2", w, 3, [f"enc{i}_1"]),
+                   _keras_layer("MaxPooling2D", f"pool{i}", [f"enc{i}_2"], pool_size=[2, 2], strides=[2, 2], padding="same")]
+        x = f"pool{i}"
+    layers += [_keras_conv("bott_1", bottleneck, 3, [x]), _keras_conv("bott_2", bottleneck, 3, ["bott_1"])]
+    x = "bott_2"
+    for i in range(len(widths), 0, -1):
+        w = widths[i - 1]
+        layers += [_keras_conv(f"up{i}", w, 3, [x], cls="Conv2DTranspose", stride=2),
+                   _keras_layer("Concatenate", f"cat{i}", [f"enc{i}_2", f"up{i}"], axis=-1),
+                   _keras_conv(f"dec{i}_1", w, 3, [f"cat{i}"]), _keras_conv(f"dec{i}_2", w, 3, [f"dec{i}_1"])]
+        x = f"dec{i}_2"
+    layers.append(_keras_conv("head", num_classes, 1, [x], activation="softmax"))
+    return {"class_name": "Functional", "config": {"name": "metaseg", "layers": layers, "input_layers": [["inp", 0, 0]],
+                                                  "output_layers": [["head", 0, 0]]}}
+
+
+def unet_keras_weights(tree):
+    """A metaseg parameter tree (``weights.params_to_numpy``) as Keras holds
+    it: HWIO conv kernels, (H, W, out, in) transpose-conv kernels."""
+    return {name: [np.transpose(p["kernel"], (0, 1, 3, 2)) if name.startswith("up") else p["kernel"], p["bias"]]
+            for name, p in tree.items()}
+
+
+def ecseg_i_keras_config():
+    """ecSeg-i (``models/classifiers.EcsegI``) as a Keras Sequential: the
+    bare (N, 256, 256) target channel reshaped to one channel,
+    Rescaling(1/255), four blocks of 3x3 conv + ReLU and 2x2 max pool,
+    the global mean, a softmax dense head."""
+    from ecseg_torch.models.classifiers import WIDTHS
+
+    layers = [_keras_layer("InputLayer", "in0"), _keras_layer("Reshape", "chan", target_shape=[256, 256, 1]),
+              _keras_layer("Rescaling", "scale", scale=1 / 255.0, offset=0.0)]
+    for i, w in enumerate(WIDTHS, start=1):
+        layers += [_keras_conv(f"conv{i}", w, 3), _keras_layer("MaxPooling2D", f"pool{i}", pool_size=[2, 2], strides=[2, 2], padding="same")]
+    layers += [_keras_layer("GlobalAveragePooling2D", "gap"), _keras_layer("Dense", "head", units=3, activation="softmax", use_bias=True)]
+    return {"class_name": "Sequential", "config": {"name": "ecseg_i", "layers": layers}}
+
+
+def classifier_keras_weights(tree):
+    """A classifier tree (``models/demo.py``) as Keras holds it (the same
+    HWIO and (in, out) arrays)."""
+    return {name: [p["kernel"], p["bias"]] for name, p in tree.items()}
+
+
+INTERSEG_PROB_ATOL = 1e-5  # tests/test_torch_classifiers.py's PROB_ATOL
+INTERSEG_STAGES = ("decode_wait", "crops", "predict_i", "predict_c", "write")
+
+
+def phase_interseg(dev, results):
+    """``make interseg`` as a user runs it, on the folder that the stat_fish
+    phase's command line wrote (three 2048^2 RGB images, their
+    ``annotated/stat_fish_lsq.csv`` and ``*_segmentation.tif``), with the
+    crafted demo ecSeg-i/ecSeg-c trees in ``interseg_models/*.npz``,
+    ``FISH_color: red`` and ``has_centromeric_probe: True``:
+    ``python3 -m ecseg_torch.pipelines.interseg`` (``ECSEG_TRACE=1``), then
+    ``interseg.main`` in-process on the same folder (launch counters set to
+    0 just before, read just after: interseg runs no hand kernel).  Checks:
+    exit code 0 and the two CSVs byte-equal; per image, the labels of the
+    batched card run equal the labels of per-row (batch-of-1) card
+    predictions, with probabilities within ``INTERSEG_PROB_ATOL``, and
+    equal those of the same crops through the port on the CPU; both
+    classifiers ran on the card (their parameters on ``cuda``, ecSeg-c on at
+    least one image).  Prints each image's stage times (decode wait, crop
+    gather, predict_i, predict_c) and the CSV write beside the card."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.core.csvio import read_csv
+    from ecseg_torch.models.classifiers import flops_per_patch
+    from ecseg_torch.models.demo import demo_ecseg_c_tree, demo_ecseg_i_tree
+    from ecseg_torch.models.weights import save_npz
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.pipelines import interseg
+    from ecseg_torch.runtime import trace
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    folder = results.pop("stat_fish_folder")
+    work = tempfile.mkdtemp(prefix="ecseg_interseg_")
+    try:
+        models = os.path.join(work, "interseg_models")
+        save_npz(os.path.join(models, "interseg.npz"), demo_ecseg_i_tree())
+        save_npz(os.path.join(models, "ecseg_c.npz"), demo_ecseg_c_tree())
+        raw = {"interseg": {"inpath": folder, "FISH_color": "red", "has_centromeric_probe": True}}
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            f.write(f"interseg:\n  inpath: {folder}\n  FISH_color: red\n  has_centromeric_probe: True\n")
+        out_csv = os.path.join(folder, "interphase_prediction_red.csv")
+        env = dict(os.environ, ECSEG_TRACE="1", PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ecseg_torch.pipelines.interseg"], cwd=work, env=env, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m ecseg_torch.pipelines.interseg exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        names = [os.path.basename(p) for p in imgio.get_imgs(folder)]  # main's order, the CSV's
+        check(proc.stdout.count("Processing image:") == len(names), "the interseg command line did not process every image")
+        cli_csv = read_bytes(out_csv)
+
+        cwd = os.getcwd()
+        os.chdir(work)
+        tracer = trace.tracer()
+        tracer.enabled = True
+        tracer.reset()
+        K.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            rc = interseg.main(config=Config(raw=raw))
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launches = dict(K.LAUNCHES)
+        stages = tracer.times()
+        tracer.enabled = False
+        check(rc == 0, f"in-process interseg.main returned {rc}")
+        check(read_bytes(out_csv) == cli_csv, "interseg: the command line's CSV bytes != the in-process run's")
+        check(not any(launches.values()), f"interseg launched hand kernels: {launches}")
+        rows = cli_csv.decode().splitlines()
+        check(rows[0] == "image_name,nucleus_center,interSeg_label,ecSeg-c_label,ecSeg-i_label", f"interseg CSV header {rows[0]}")
+
+        # per image: batched card labels == per-row card labels == CPU labels
+        i_model, c_model = interseg.load_classifier_models(True, model_dir=models, device=dev)
+        check(all(p.is_cuda for m in (i_model, c_model) for p in m.parameters()), "the classifiers are not on the card")
+        cpu_models = [copy.deepcopy(m).cpu() for m in (i_model, c_model)]
+        stat = read_csv(os.path.join(folder, "annotated", "stat_fish_lsq.csv"))
+        per_image, csv_rows, max_err, c_images, last = {}, [], {"i": 0.0, "c": 0.0}, 0, None
+        for name in names:
+            stem = name[:-4]
+            I = imgio.u16_to_u8(imgio.imread_rgb(os.path.join(folder, name)))
+            seg = imgio.imread_rgb(os.path.join(folder, "annotated", stem, f"{stem}_segmentation.tif"))
+            crops = interseg.collect_crops(stem, I, seg, 0)
+            passed = interseg.quality_passes(stat, stem, "green")
+            labels = interseg.classify(crops, i_model, c_model, passed)
+            check(labels == interseg.classify(crops, *cpu_models, passed), f"{stem}: the card's labels != the CPU's on the same crops")
+            batch = np.stack(crops.patches) if crops.patches else None
+            c_rows = np.nonzero((batch[..., 1].max(axis=(1, 2)) > 10) & passed)[0] if batch is not None else []
+            pre = np.stack([interseg.preprocess_ecseg_c(batch[k]) for k in c_rows]) if len(c_rows) else None
+            for key, model, x in (("i", i_model, None if batch is None else batch[..., 0]), ("c", c_model, pre)):
+                if x is None:
+                    continue
+                full = interseg.predict(model, x)
+                rows1 = np.concatenate([interseg.predict(model, x[k : k + 1]) for k in range(len(x))])
+                finite = np.isfinite(full) & np.isfinite(rows1)
+                check(np.array_equal(np.isfinite(full), np.isfinite(rows1)), f"{stem} ecSeg-{key}: NaN rows differ between batch and per-row")
+                err = float(np.abs(full - rows1)[finite].max()) if finite.any() else 0.0
+                max_err[key] = max(max_err[key], err)
+                check(err <= INTERSEG_PROB_ATOL, f"{stem} ecSeg-{key}: batched vs per-row max |diff| {err}")
+                same = np.array_equal(full.argmax(-1), rows1.argmax(-1)) if key == "i" else np.array_equal(full > 0.5, rows1 > 0.5)
+                check(same, f"{stem} ecSeg-{key}: batched labels != per-row labels")
+            c_images += pre is not None
+            last = batch if batch is not None else last
+            csv_rows += [",".join(r) for r in zip(crops.names, crops.centroids, labels[0], labels[1], labels[2])]
+            per_image[stem] = {"rows": len(crops.entries), "patches": len(crops.patches), "ecseg_c_rows": int(len(c_rows)), "quality_pass": passed}
+        check(csv_rows == rows[1:], "interseg: the CSV rows != the labels of the crops classified here")
+        check(last is not None and c_images > 0, f"ecSeg-i or ecSeg-c ran on no image (gates): {per_image}")
+
+        card = results["card"]
+        n_i = sum(v["patches"] for v in per_image.values())
+        n_c = sum(v["ecseg_c_rows"] for v in per_image.values())
+        tflops = {key: n * flops_per_patch(ch) / sum(stages.get(f"interseg.{key}", [])) / 1e12 if n else None
+                  for key, n, ch in (("predict_i", n_i, 1), ("predict_c", n_c, 3))}
+        print(f"interseg classifiers incl. copies: ecSeg-i {n_i} patches at {tflops['predict_i']} TFLOP/s, "
+              f"ecSeg-c {n_c} at {tflops['predict_c']} TFLOP/s (float32, TF32 off) [{card}]", flush=True)
+        print(f"interseg: command line {cli_s:.2f} s for {len(names)} images (process start included), in-process main {wall:.3f} s; "
+              f"{len(rows) - 1} CSV rows byte-equal across the two runs; batched = per-row = CPU labels on every image; "
+              f"max |batched - per-row| ecSeg-i {max_err['i']:.3g}, ecSeg-c {max_err['c']:.3g}; {per_image} [{card}]", flush=True)
+        for k, name in enumerate(INTERSEG_STAGES):
+            ts = stages.get(f"interseg.{name}", [])
+            print(f"  stage interseg.{name:12s} n={len(ts)} ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts) + f" [{card}]", flush=True)
+        results["interseg_batch"] = last  # the last image's crops with a patch, for phase_keras_import
+        results["interseg"] = {
+            "images": len(names), "csv_rows": len(rows) - 1, "cli_s": cli_s, "wall_s": wall, "per_image": per_image,
+            "max_abs_batched_vs_rows": max_err, "stages_s": {k: v for k, v in stages.items() if k.startswith("interseg.")},
+            "predict_tflops": tflops,
+        }
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(folder), ignore_errors=True)
+
+
+def phase_keras_import(args, dev, results):
+    """The imported-Keras executor on the card, from an in-memory config and
+    weights (``DictFetcher``; the card's machine has no h5py): the metaseg
+    U-Net at its default widths as a Keras Functional graph
+    (``unet_keras_config``), holding the crafted demo metaseg weights of the
+    main path, over image 0's 2048^2 patch stack, its stitched labels
+    (``metaseg.segment_raw``: forward, u8 quantize + argmax, B1) byte-equal
+    to ``MetasegUNet``'s with the same weights; ecSeg-i as a Keras
+    Sequential (``ecseg_i_keras_config``) with the demo tree against
+    ``EcsegI`` on the interseg phase's last crops: argmax equal,
+    probabilities within ``INTERSEG_PROB_ATOL``.  Times both forwards
+    beside their modules'."""
+    from ecseg_torch.models.classifiers import EcsegI
+    from ecseg_torch.models.demo import demo_ecseg_i_tree, demo_metaseg_params
+    from ecseg_torch.models.keras_import import KerasModel, import_from_config
+    from ecseg_torch.models.metaseg_unet import BOTTLENECK, ENC_WIDTHS, NUM_CLASSES
+    from ecseg_torch.models.weights import classifier_from_numpy, params_to_numpy
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.pipelines import metaseg
+
+    patches, pos = results.pop("metaseg_patches")
+    unet = demo_metaseg_params(torch.Generator().manual_seed(args.seed)).to(dev).eval()
+    tree = params_to_numpy(unet)
+    keras = import_from_config(unet_keras_config(ENC_WIDTHS, BOTTLENECK, NUM_CLASSES), DictFetcher(unet_keras_weights(tree)), dev)
+    check(isinstance(keras, KerasModel) and all(b.is_cuda for b in keras.buffers()), "the executor's weights are not on the card")
+    K.reset_launches()
+    raw_keras = metaseg.segment_raw(keras, patches, pos)
+    check(K.LAUNCHES["stitch"] == 1, f"the executor's segment_raw launched {dict(K.LAUNCHES)}")
+    raw_unet = metaseg.segment_raw(unet, patches, pos)
+    check(raw_keras.shape == (SIZE, SIZE) and torch.equal(raw_keras, raw_unet), "the executor's stitched metaseg labels != MetasegUNet's")
+    x = torch.from_numpy(patches).to(dev)
+    with torch.no_grad():
+        unet_err = float((keras(x[:8]) - unet(x[:8])).abs().max())
+        keras_ms, unet_ms = cuda_ms(lambda: keras(x), 2), cuda_ms(lambda: unet(x), 2)
+
+    itree = demo_ecseg_i_tree()
+    ecseg_i = classifier_from_numpy(itree).to(dev).eval()
+    check(isinstance(ecseg_i, EcsegI), "the demo ecSeg-i tree did not build EcsegI")
+    seq = import_from_config(ecseg_i_keras_config(), DictFetcher(classifier_keras_weights(itree)), dev)
+    xi = torch.from_numpy(results.pop("interseg_batch")[..., 0]).to(dev)
+    with torch.no_grad():
+        pk, pm = seq(xi), ecseg_i(xi)
+        i_err = float((pk - pm).abs().max())
+        seq_ms, mod_ms = cuda_ms(lambda: seq(xi), 3), cuda_ms(lambda: ecseg_i(xi), 3)
+    check(torch.equal(pk.argmax(-1), pm.argmax(-1)) and i_err <= INTERSEG_PROB_ATOL, f"the executor's ecSeg-i != EcsegI (max |diff| {i_err})")
+    card = results["card"]
+    print(f"keras executor: metaseg U-Net ({len(patches)} patches of image 0) stitched labels byte-equal to MetasegUNet's, "
+          f"probabilities max |diff| {unet_err:.3g} on 8 patches; forward {keras_ms:.2f} ms vs MetasegUNet {unet_ms:.2f} ms; "
+          f"ecSeg-i Sequential on {len(xi)} crops max |diff| {i_err:.3g}, argmax equal; {seq_ms:.2f} ms vs EcsegI {mod_ms:.2f} ms [{card}]", flush=True)
+    results["keras_import"] = {
+        "unet_patches": len(patches), "unet_labels_equal": True, "unet_max_abs": unet_err, "unet_ms": {"executor": keras_ms, "module": unet_ms},
+        "ecseg_i_crops": len(xi), "ecseg_i_max_abs": i_err, "ecseg_i_ms": {"executor": seq_ms, "module": mod_ms},
+    }
 
 
 def phase_timings(K, dev, errors, results):
@@ -1893,7 +2194,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     errors = Errors()
-    results = {}
+    results = {"card": smi}
     phase_kernels(K, tiling, rng, dev, errors)
     phase_tile_masks(K, dev, errors)  # draws no numbers from rng
     # its own generator, so the main path's images do not depend on it
@@ -1905,20 +2206,26 @@ def main() -> int:
     phase_command_line(args, np.random.default_rng(args.seed + 4), dev, results)
     phase_meta_overlay(args, np.random.default_rng(args.seed + 5), dev, errors, results)
     phase_fish_distance(np.random.default_rng(args.seed + 6), results)
-    phase_stat_fish(args, np.random.default_rng(args.seed + 7), dev, errors, results)
     rows = phase_timings(K, dev, errors, results)
+    xl_ms = phase_xl_forward(rng, dev)
+    per_tile = phase_tile_count(K, dev, results)
+    rows += tile_rows(K, dev, errors, results)
+    # after every profiler timing: once stat_fish has run, torch.profiler on
+    # the card drops device records of short windows (observed on an H100
+    # with torch 2.11), and device_ms then fails
+    phase_stat_fish(args, np.random.default_rng(args.seed + 7), dev, errors, results)
+    phase_interseg(dev, results)  # draws no numbers: stat_fish's outputs and the demo trees
+    phase_keras_import(args, dev, results)
     for row in rows:  # stat_fish's launches and times beside B2's and B3's metaseg rows
         key = {"label": "label", "flood_from_border": "flood_border"}.get(row["name"])
         if key:
             row["stat_fish"] = results["stat_fish_kernels"][key]
-    xl_ms = phase_xl_forward(rng, dev)
-    per_tile = phase_tile_count(K, dev, results)
-    rows += tile_rows(K, dev, errors, results)
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
     print(json.dumps({"command_line": results["command_line"], "card": smi}))
     print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
     print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))
+    print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

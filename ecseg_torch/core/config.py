@@ -1,6 +1,6 @@
-"""Typed configuration (the stat_fish, metaseg, meta_overlay and
+"""Typed configuration (the interseg, stat_fish, metaseg, meta_overlay and
 fish_distance_calculation sections of the reference's ``config.yaml``,
-reference config.yaml:5-19) and the stat_fish expert knobs
+reference config.yaml:1-19) and the stat_fish expert knobs
 (``stat_fish_params.yaml``).  Same schema and errors as
 ``ecseg_tpu/core/config.py``; the port's default knobs are its own copy of
 that package's ``stat_fish_params.yaml`` (``ecseg_torch/stat_fish_params.yaml``).
@@ -60,6 +60,29 @@ class StatFishConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class IntersegConfig:
+    """reference config.yaml:1-4; FISH_color validated at interseg.py:59-61."""
+
+    inpath: str
+    FISH_color: str
+    has_centromeric_probe: bool
+
+    def __post_init__(self):
+        if self.FISH_color.lower() not in ("green", "red"):
+            # the reference's full wording (interseg.py:60): interseg prints
+            # this message when it exits, so it carries the guidance
+            raise ConfigError(
+                'FISH_color can only be "green" or "red". '
+                "Please update the config.yaml file accordingly."
+            )
+
+    @property
+    def fish_index(self) -> int:
+        """Channel index of the target FISH probe (reference interseg.py:63-67)."""
+        return 1 if self.FISH_color.lower() == "green" else 0
+
+
+@dataclasses.dataclass(frozen=True)
 class FishDistanceConfig:
     """reference config.yaml:16-19."""
 
@@ -110,6 +133,15 @@ class Config:
             scale=_require(s, "scale", "stat_fish"),
             use_min_cut=_require(s, "use_min_cut", "stat_fish"),
             nuclei_size_T=_require(s, "nuclei_size_T", "stat_fish"),
+        )
+
+    @property
+    def interseg(self) -> IntersegConfig:
+        s = self._section("interseg")
+        return IntersegConfig(
+            inpath=_require(s, "inpath", "interseg"),
+            FISH_color=_require(s, "FISH_color", "interseg"),
+            has_centromeric_probe=_require(s, "has_centromeric_probe", "interseg"),
         )
 
     @property

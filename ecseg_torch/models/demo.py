@@ -3,7 +3,9 @@ metaseg U-Net's level-1 encoder/decoder convs pass input brightness ``b`` to
 the head, whose argmax maps brightness bands to classes -- background < ~0.3
 < nuclei < ~0.7 < ecDNA (chromosomes unused); the NuSeT U-Nets pass it to
 their class-1 logit.  All other layers keep their seeded random init and run
-at full cost.  Not trained models."""
+at full cost.  The interseg classifiers carry brightness through every conv
+block to a hand-set head, so no random draw survives in them.  Not trained
+models."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .classifiers import WIDTHS as CLASSIFIER_WIDTHS
 from .metaseg_unet import BOTTLENECK, ENC_WIDTHS, MetasegUNet
 from .nuset import NUM_REF_ANCHORS, NuSeTRPN, NuSeTUNet
 from .weights import tree_from_modules
@@ -38,7 +41,6 @@ def demo_metaseg_params(
         head.weight.copy_(k)
         head.bias.copy_(torch.tensor([6.0, 0.0, -1e3, -14.0]))
     return model
-
 
 
 def _pass_k(shape, src: int, dst: int, gain: float = 1.0) -> np.ndarray:
@@ -79,3 +81,33 @@ def demo_nuset_tree(generator: Optional[torch.Generator] = None) -> Dict:
             "rpn": tree_from_modules(NuSeTRPN(NUM_REF_ANCHORS, generator)),
         },
     }
+
+
+def _demo_classifier_tree(in_ch: int, head: np.ndarray, bias) -> Dict:
+    """Channel 0 of every conv block passes the input's channel 0 through
+    (ReLU and max pool keep it), so the global mean's feature 0 is the
+    patch's pooled brightness; every other feature is 0."""
+    tree, c = {}, in_ch
+    for i, w in enumerate(CLASSIFIER_WIDTHS, start=1):
+        tree[f"conv{i}"] = {"kernel": _pass_k((3, 3, c, w), 0, 0), "bias": np.zeros(w, np.float32)}
+        c = w
+    tree["head"] = {"kernel": head, "bias": np.array(bias, np.float32)}
+    return tree
+
+
+def demo_ecseg_i_tree() -> Dict:
+    """ecSeg-i whose prediction is brightness-banded (twin of
+    ``ecseg_tpu/models/demo.py:106-120``): dim -> No-amp, medium -> EC-amp,
+    bright -> HSR-amp."""
+    head = np.zeros((CLASSIFIER_WIDTHS[-1], 3), np.float32)
+    head[0, 1] = 30.0  # EC-amp logit = 30 b (beats No-amp's 3 for b > 0.1)
+    head[0, 2] = 60.0  # HSR-amp logit = 60 b - 21 (beats EC-amp for b > 0.7)
+    return _demo_classifier_tree(1, head, [3.0, 0.0, -21.0])
+
+
+def demo_ecseg_c_tree() -> Dict:
+    """ecSeg-c whose P(Focal-amp) is sigmoid(20 b - 5) of the pooled
+    brightness b (twin of ``ecseg_tpu/models/demo.py:123-135``)."""
+    head = np.zeros((CLASSIFIER_WIDTHS[-1], 1), np.float32)
+    head[0, 0] = 20.0
+    return _demo_classifier_tree(3, head, [-5.0])

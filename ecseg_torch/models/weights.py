@@ -1,13 +1,15 @@
 """The weight bridge: the JAX parameter pytrees (as numpy arrays) to and from
-:class:`~ecseg_torch.models.metaseg_unet.MetasegUNet` and the NuSeT modules
-(:mod:`~ecseg_torch.models.nuset`).
+:class:`~ecseg_torch.models.metaseg_unet.MetasegUNet`, the NuSeT modules
+(:mod:`~ecseg_torch.models.nuset`) and the interseg classifiers
+(:mod:`~ecseg_torch.models.classifiers`).
 
 The tree is what ``ecseg_tpu.models.metaseg_unet.init_params`` builds and
 ``keras_import.save_npz_pytree`` flattens to ``"enc1_1/kernel"`` keys
 (``keras_import.py:47-69``): ``{"enc1_1": {"kernel": HWIO, "bias": (O,)},
 ...}``.  Conv kernels go HWIO -> OIHW; transpose-conv kernels go HWIO ->
 (in, out, kh, kw) by ``permute(2, 3, 0, 1)`` with no flip, because JAX flips
-inside its conv2d_transpose (tests/test_layers.py pins the equivalence).
+inside its conv2d_transpose (tests/test_layers.py pins the equivalence);
+dense kernels go (in, out) -> ``Linear``'s (out, in).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ def _as_f32(a) -> torch.Tensor:
 
 def _layer_from_kernel(layer: nn.Module, kernel: np.ndarray) -> torch.Tensor:
     k = _as_f32(kernel)
+    if isinstance(layer, nn.Linear):
+        return k.t()
     if isinstance(layer, nn.ConvTranspose2d):
         return k.permute(2, 3, 0, 1)
     return k.permute(3, 2, 0, 1)
@@ -87,7 +91,12 @@ def tree_from_modules(module: nn.Module) -> Dict:
     tree = {}
     for name, layer in module.layers.items():
         w = layer.weight.detach().cpu()
-        k = w.permute(2, 3, 0, 1) if isinstance(layer, nn.ConvTranspose2d) else w.permute(2, 3, 1, 0)
+        if isinstance(layer, nn.Linear):
+            k = w.t()
+        elif isinstance(layer, nn.ConvTranspose2d):
+            k = w.permute(2, 3, 0, 1)
+        else:
+            k = w.permute(2, 3, 1, 0)
         tree[name] = {"kernel": k.numpy().copy()}
         if layer.bias is not None:
             tree[name]["bias"] = layer.bias.detach().cpu().numpy().copy()
@@ -112,6 +121,21 @@ def nuset_from_numpy(tree: Dict):
 def nuset_to_numpy(whole: nn.Module, fg: nn.Module, rpn: nn.Module) -> Dict:
     """Inverse of :func:`nuset_from_numpy`."""
     return {"whole": tree_from_modules(whole), "fg": {"unet": tree_from_modules(fg), "rpn": tree_from_modules(rpn)}}
+
+
+def classifier_from_numpy(tree: Dict) -> nn.Module:
+    """An :class:`~ecseg_torch.models.classifiers.EcsegI` (one input
+    channel) or :class:`~ecseg_torch.models.classifiers.EcsegC` (three) on
+    the CPU, float32, holding the ``init_ecseg_{i,c}_params`` tree's
+    weights."""
+    from .classifiers import EcsegC, EcsegI
+
+    in_ch = int(tree["conv1"]["kernel"].shape[2])
+    if in_ch not in (1, 3):
+        raise ValueError(f"classifier tree with {in_ch} input channels: ecSeg-i takes 1, ecSeg-c 3")
+    model = EcsegI() if in_ch == 1 else EcsegC()
+    modules_from_tree(model, tree, "ecSeg-i" if in_ch == 1 else "ecSeg-c")
+    return model
 
 
 def load_npz(path: str) -> Dict:

@@ -14,8 +14,8 @@ False (a component budget overflowed) the image is redone on the host
 oracle and counted in ``runtime/fallbacks``.
 
 Not ported yet (ROADMAP): the grouped multi-image dispatch, fast start and
-the program cache, the 2-bit result packing, the sharded multi-chip paths
-and the Keras-H5 executor.
+the program cache, the 2-bit result packing and the sharded multi-chip
+paths.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from ..core import imgio
 from ..core.config import Config, load_config
 from ..core.csvio import write_csv
 from ..device import DeviceLike, resolve_device
+from ..models.keras_import import model_device
 from ..models.metaseg_unet import MetasegUNet
 from ..models.weights import load_npz, params_from_numpy
 from ..ops import tiling
@@ -43,25 +44,28 @@ from ..runtime.batching import prefetch_map
 from ..runtime.trace import stage
 
 
-def load_model(model_dir: str = "models", device: DeviceLike = None) -> MetasegUNet:
-    """``<model_dir>/metaseg.npz`` (the JAX parameter tree, through the
-    weight bridge) or, with no model file at all, the default architecture
-    on seeded random weights (development; these differ from the JAX
-    package's seeded weights).  A Keras ``metaseg.h5`` alone raises: the port
-    cannot execute it yet and never substitutes random weights for it."""
-    npz_path = os.path.join(model_dir, "metaseg.npz")
+def load_model(model_dir: str = "models", device: DeviceLike = None) -> torch.nn.Module:
+    """The metaseg model, in the JAX package's order
+    (``ecseg_tpu/pipelines/metaseg.py:478-513``): ``<model_dir>/metaseg.h5``
+    (the reference's Keras model, through the imported-Keras executor, fed
+    the patches as float32; reading it needs ``h5py``), else
+    ``<model_dir>/metaseg.npz`` (the JAX parameter tree, through the weight
+    bridge), else the default architecture on seeded random weights
+    (development; these differ from the JAX package's seeded weights).
+    Either module takes (N, 256, 256, 1) uint8 patches and returns
+    (N, 256, 256, C) float32 probabilities."""
+    dev = resolve_device(device)
     h5_path = os.path.join(model_dir, "metaseg.h5")
+    if os.path.exists(h5_path):
+        from ..models.keras_import import import_keras_h5
+
+        return import_keras_h5(h5_path, device=dev).eval()
+    npz_path = os.path.join(model_dir, "metaseg.npz")
     if os.path.exists(npz_path):
         model = params_from_numpy(load_npz(npz_path))
-    elif os.path.exists(h5_path):
-        raise RuntimeError(
-            f"{h5_path} is a Keras model, which the PyTorch port cannot run yet "
-            "(ROADMAP A7, the imported-Keras executor); convert it to "
-            f"{npz_path} or run the JAX package"
-        )
     else:
         model = MetasegUNet(generator=torch.Generator().manual_seed(0))
-    return model.to(resolve_device(device)).eval()
+    return model.to(dev).eval()
 
 
 def _prepare_image(image_path: str, save_dapi: bool = True):
@@ -76,12 +80,12 @@ def _prepare_image(image_path: str, save_dapi: bool = True):
 
 
 def segment_raw(
-    model: MetasegUNet, patches: np.ndarray, positions: Sequence[Tuple[int, int]]
+    model: torch.nn.Module, patches: np.ndarray, positions: Sequence[Tuple[int, int]]
 ) -> torch.Tensor:
     """(N, 256, 256, 1) uint8 patches -> the stitched (H, W) int32 label map
     (forward, exact uint8 quantize + argmax per patch, B1 stitch), on the
     model's device."""
-    device = next(model.parameters()).device
+    device = model_device(model)
     with stage("metaseg.forward"), torch.no_grad():
         probs = model(torch.from_numpy(patches).to(device))
         label_patches = tiling.patch_labels(probs)

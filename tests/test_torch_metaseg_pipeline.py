@@ -194,6 +194,9 @@ def test_empty_folder_writes_header_only_csv(workdir, monkeypatch):
 
 
 def test_load_model_refuses_h5_alone(tmp_path):
+    """A ``metaseg.h5`` is the model to run (the imported-Keras executor,
+    tests/test_torch_keras_import.py): one that cannot be read raises, and
+    is never replaced by seeded weights."""
     (tmp_path / "metaseg.h5").write_bytes(b"")
-    with pytest.raises(RuntimeError, match="ROADMAP A7"):
+    with pytest.raises(OSError):
         port_metaseg.load_model(str(tmp_path), device="cpu")

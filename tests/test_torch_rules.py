@@ -1,8 +1,9 @@
 """Rules of the port (ecseg_torch) and its host I/O helpers:
 
 - no module of the package, nor chip_smoke.py, imports jax or ecseg_tpu,
-  and no module imports cv2, pandas or yaml when it loads; stat_fish runs
-  from its config.yaml with all five unimportable;
+  and no module imports cv2, pandas, yaml or h5py when it loads (h5py only
+  inside the Keras readers); stat_fish and interseg run from their
+  config.yaml with the first five unimportable;
 - an entry point given no device raises when there is no CUDA device;
 - a kernel wrapper given a tensor that is neither on the CPU nor on a CUDA
   device raises, and never falls back to its plain twin;
@@ -40,7 +41,7 @@ import ecseg_torch
 for m in pkgutil.walk_packages(ecseg_torch.__path__, "ecseg_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ecseg_tpu", "cv2", "pandas", "yaml"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ecseg_tpu", "cv2", "pandas", "yaml", "h5py"))
 print(bad)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -274,3 +275,50 @@ sys.exit(stat_fish.main(device="cpu"))
     assert rows[0].startswith("image_name,nucleus_center,") and len(rows) == 2
     assert (ann / "cells" / "cells__segmentation_min_cut.npy").exists()
     assert len(list((ann / "cells").glob("*.tif"))) == 5
+
+
+def test_interseg_main_without_device_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.pipelines import interseg
+
+    cfg = Config(raw={"interseg": {"inpath": str(tmp_path), "FISH_color": "red", "has_centromeric_probe": True}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interseg.main(config=cfg)
+
+
+def test_interseg_runs_without_cv2_pandas_yaml_or_jax(tmp_path):
+    """interseg as the card's machine runs it: ``python -m
+    ecseg_torch.pipelines.interseg`` from a ``config.yaml`` (whose
+    ``has_centromeric_probe: False`` must reach it as a bool), in a process
+    where cv2, pandas, yaml, jax and ecseg_tpu cannot be imported, on a
+    64x64 stat_fish output (a uint8 RGB TIFF, its segmentation TIFF, the
+    CSV); with no model file, the seeded default classifiers."""
+    img = np.zeros((64, 64, 3), np.uint8)
+    yy, xx = np.ogrid[:64, :64]
+    disk = (yy - 30) ** 2 + (xx - 34) ** 2 <= 15**2
+    img[..., 0][disk] = 180  # red target (RGB on disk)
+    img[..., 2][disk] = 200
+    ann = tmp_path / "in" / "annotated"
+    (ann / "cells").mkdir(parents=True)
+    imgio.write_tiff(str(tmp_path / "in" / "cells.tif"), img)
+    imgio.write_tiff(str(ann / "cells" / "cells_segmentation.tif"), disk.astype(np.uint8) * 255)
+    (ann / "stat_fish_lsq.csv").write_text("image_name,Avg fish intensity (green)\ncells,1.5\n")
+    (tmp_path / "config.yaml").write_text("interseg:\n  inpath: ./in\n  FISH_color: red\n  has_centromeric_probe: False\n")
+    code = f"""
+import sys
+for name in ("cv2", "pandas", "yaml", "jax", "jaxlib", "ecseg_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+from ecseg_torch.core.config import load_config
+assert load_config().interseg.has_centromeric_probe is False
+from ecseg_torch.pipelines import interseg
+sys.exit(interseg.main(device="cpu"))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rows = (tmp_path / "in" / "interphase_prediction_red.csv").read_text().splitlines()
+    assert rows[0] == "image_name,nucleus_center,interSeg_label,ecSeg-i_label" and len(rows) == 2
+    assert rows[1].startswith("cells,30_34,")
