@@ -126,8 +126,17 @@ Phases (any failure raises; exit code 0 only when all pass):
    imported-Keras executor (``phase_keras_import``) from in-memory configs
    and weights: the metaseg U-Net as a Keras Functional graph, its
    stitched labels over image 0's patches byte-equal to ``MetasegUNet``'s,
-   and ecSeg-i as a Keras Sequential against ``EcsegI``;
-7. print ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
+   and ecSeg-i as a Keras Sequential against ``EcsegI``.  Then the
+   metaseg trainer (``phase_train``) at the default widths on 256^2 crops
+   of the main path's images and labels: card against CPU (each gradient
+   tensor held to the CPU's float64 gradient; a TF32 backward outside the
+   bound), determinism, remat, resume through a checkpoint, no hand kernel
+   launched, ``python3 -m ecseg_torch.pipelines.train_metaseg`` in float32
+   and with ``--bf16 --remat``, the float32 export served back through
+   ``python3 -m ecseg_torch.pipelines.metaseg`` (B1-B6 launches, labels
+   equal to the host oracle); ms a step, TFLOP/s and peak memory in
+   float32, bf16 and both with remat, and the host's crop and copy time;
+7. print ``{"train": ...}``, ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
 
@@ -749,6 +758,13 @@ def phase_main_path(args, rng, dev, errors, results):
                 check(np.array_equal(out, want), f"{name}: labels != host oracle on the raw canvas")
                 check(counts[name] == count_cc(want == 3)[0], f"{name}: ec count")
         check(oks == {n: n != "img2.tif" for n in names}, f"device ok flags {oks}")
+        # the images and the labels metaseg wrote for them: phase_train's data
+        keep = tempfile.mkdtemp(prefix="ecseg_train_data_")
+        os.makedirs(os.path.join(keep, "labels"))
+        for name in names:
+            shutil.copy(os.path.join(folder, name), keep)
+            shutil.copy(os.path.join(folder, "labels", name[:-4] + ".npy"), os.path.join(keep, "labels"))
+        results["train_folder"] = keep
         print(f"main path outputs equal the host oracle; ok flags {oks}; ec counts {counts}", flush=True)
 
         # byte-identical rerun of one image
@@ -1781,6 +1797,315 @@ def phase_keras_import(args, dev, results):
     }
 
 
+TRAIN_BATCH = 16  # scripts/train_metaseg.py's default
+TRAIN_LR = 1e-4  # the script's default
+# card float32 gradients, per tensor: the 90th percentile of |g - g64| / max |g64| (g64: the CPU's
+# float64 gradient) <= TRAIN_GRAD_FACTOR x (the CPU float32 gradient's own + TRAIN_GRAD_TOL);
+# a TF32 backward exceeds it
+TRAIN_GRAD_FACTOR = 4.0
+TRAIN_GRAD_TOL = 1e-5
+TRAIN_LOSS_RTOL = 1e-5  # card vs CPU float32 loss
+TRAIN_TIMED_STEPS = 10  # after 3 warm-up steps
+TRAIN_MODES = {  # name -> (compute dtype, remat)
+    "float32": (torch.float32, False), "bf16": (torch.bfloat16, False),
+    "float32_remat": (torch.float32, True), "bf16_remat": (torch.bfloat16, True),
+}
+TRAIN_CLI_STEPS = 20
+TRAIN_SERVE_SIZE = 512  # side of the crops the float32 export segments
+
+
+def _loss_and_grads(model, x, y, dtype, dev, flags):
+    """The loss (float) and the gradients (float64 on the CPU, by parameter
+    name) of one forward and backward of a copy of ``model`` on ``dev``
+    computing in ``dtype``, forward and backward under ``flags``."""
+    from ecseg_torch.runtime import train as tt
+
+    m = copy.deepcopy(model).to(dev)
+    with flags:
+        loss = tt.softmax_xent_loss(m, x.to(dev), y.to(dev), dtype=dtype)
+        loss.backward()
+    return float(loss.detach()), {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+
+
+def _rel_max_errors(grads, ref):
+    """Per parameter: max |grad - ref| / max |ref|."""
+    return {n: float((g - ref[n]).abs().max() / ref[n].abs().max()) for n, g in grads.items()}
+
+
+def _rel_p90_errors(grads, ref):
+    """Per parameter: the 90th percentile of |grad - ref| over its
+    elements, / max |ref|.  A ReLU or max-pool decision that flips at
+    float32's rounding moves the slice of a weight gradient behind it by
+    far more than rounding does (on the deep layers, up to ~5e-3 of max |g|
+    from float64 on the CPU and on the card alike); the percentile skips
+    those slices and keeps the dense error, where TF32's 10-bit products
+    show on every element."""
+    return {n: float(torch.quantile((g - ref[n]).abs().flatten(), 0.9) / ref[n].abs().max()) for n, g in grads.items()}
+
+
+def phase_train(args, dev, results):
+    """Training of the metaseg U-Net (``runtime/train.py``) at the default
+    widths on 256^2 crops of the main path's four 2048^2 images and the
+    ``labels/*.npy`` metaseg wrote for them.  Checks: a float32 loss and
+    its gradients on 2 crops from the same weights, the card's loss within
+    ``TRAIN_LOSS_RTOL`` of the CPU's, and each of its gradient tensors held
+    to the CPU's float64 gradient: the 90th percentile of the element
+    errors relative to max |g| (``_rel_p90_errors``) within
+    ``TRAIN_GRAD_FACTOR`` times the CPU float32 gradient's, plus
+    ``TRAIN_GRAD_TOL`` (at random weights a deep layer's gradient is a
+    small remainder of large terms: float32 lands ~1e-4 from float64 there
+    on any device, ~1e-8 at the head, so the bound follows each tensor's
+    conditioning), and the same step with its backward under PyTorch's
+    default flags (TF32 on) outside that bound;
+    two float32 steps from one state bit-equal; remat equal to plain; four
+    uninterrupted steps bit-equal to two, ``save_checkpoint`` /
+    ``restore_checkpoint`` into fresh objects, two more; no hand kernel
+    launched while training.  Then ``python3 -m
+    ecseg_torch.pipelines.train_metaseg`` as a user runs it, in float32 and
+    with ``--bf16 --remat``, both at once (exit code 0, two checkpoints, finite losses,
+    ``models/metaseg.npz`` exported), and the float32 export served back on
+    ``TRAIN_SERVE_SIZE``^2 crops of two of the images by
+    ``python3 -m ecseg_torch.pipelines.metaseg`` (one CSV row an image) and
+    by ``metaseg.main`` in-process on a copy (launch counters set to 0 just
+    before, read just after: ``PER_IMAGE_LAUNCHES["default"]`` an image;
+    labels equal to the host oracle on the raw canvas and byte-equal to the
+    command line's).  Times (CUDA events over ``TRAIN_TIMED_STEPS`` steps
+    after 3 warm-up steps, the batch on the card): ms a step, TFLOP/s from
+    3 (4 with remat) forward FLOPs a patch, peak memory, for each of
+    ``TRAIN_MODES``; the host's ``crop_batches`` and H2D copy a step."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.metaseg_unet import MetasegUNet, flops_per_patch
+    from ecseg_torch.models.layers import parity_flags
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops.meta_post import meta_inference
+    from ecseg_torch.pipelines import metaseg
+    from ecseg_torch.runtime import checkpoint as ckpt
+    from ecseg_torch.runtime import train as tt
+    from ecseg_torch.runtime.data import crop_batches, load_training_pairs
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = results["card"]
+    folder = results.pop("train_folder")
+    work = tempfile.mkdtemp(prefix="ecseg_train_")
+    phase_t0 = time.perf_counter()
+    cwd = os.getcwd()
+    cudnn_flags = {k: getattr(torch.backends.cudnn, k) for k in ("allow_tf32", "deterministic", "benchmark")}
+    print(f"train: cuDNN's process-wide flags at the phase's start {cudnn_flags} [{card}]", flush=True)
+
+    def pytorch_defaults():
+        """PyTorch's default cuDNN flags, set explicitly: the process-wide
+        flags need not hold them here (threads that enter and leave
+        ``parity_flags`` at once, as stat_fish's do, can leave them set).
+        The TF32 contrast and the timed steps run under them (float32
+        steps enter the parity flags inside ``train_step``)."""
+        return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=True)
+
+    try:
+        pairs = load_training_pairs(folder)
+        check(len(pairs) == 4 and all(img.shape == (SIZE, SIZE) for img, _ in pairs), "training pairs of the main path's folder")
+        batches = list(crop_batches(pairs, TRAIN_BATCH, 4, seed=args.seed))
+
+        def fresh(seed=args.seed):
+            model = MetasegUNet(generator=torch.Generator().manual_seed(seed)).to(dev)
+            return model, tt.make_optimizer(model, TRAIN_LR)
+
+        def steps(model, opt, bs, dtype=torch.float32, remat=False):
+            for x, y in bs:
+                loss = tt.train_step(model, opt, x, y, dtype=dtype, remat=remat)
+            return loss
+
+        def params_equal(a, b):
+            return all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+
+        # card against CPU, float32, 2 crops, each held to the float64 gradient;
+        # then the backward at PyTorch's defaults (TF32 on)
+        x2, y2 = (torch.from_numpy(a[:2]) for a in batches[0])
+        ref = MetasegUNet(generator=torch.Generator().manual_seed(args.seed))
+        t0 = time.perf_counter()
+        loss64, g64 = _loss_and_grads(ref, x2, y2, torch.float64, "cpu", contextlib.nullcontext())
+        loss_cpu, g_cpu = _loss_and_grads(ref, x2, y2, torch.float32, "cpu", contextlib.nullcontext())
+        cpu_s = time.perf_counter() - t0
+        loss_card, g_card = _loss_and_grads(ref, x2, y2, torch.float32, dev, parity_flags())
+        _, g_tf32 = _loss_and_grads(ref, x2, y2, torch.float32, dev, pytorch_defaults())
+        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        err_cpu, err_card, err_tf32 = (_rel_p90_errors(g, g64) for g in (g_cpu, g_card, g_tf32))
+        max_cpu, max_card, max_tf32 = (max(_rel_max_errors(g, g64).values()) for g in (g_cpu, g_card, g_tf32))
+        bound = {n: TRAIN_GRAD_FACTOR * (e + TRAIN_GRAD_TOL) for n, e in err_cpu.items()}
+        over = {n: err_card[n] / bound[n] for n in bound}
+        over_tf32 = {n: err_tf32[n] / bound[n] for n in bound}
+        card_vs_cpu = max(_rel_max_errors(g_card, g_cpu).values())
+        print(f"train: card vs CPU float32 on 2 crops: loss {loss_card:.7f} vs {loss_cpu:.7f} (rel {loss_err:.3g}, float64 {loss64:.7f}); "
+              f"gradients from float64, 90th percentile of |diff| / max |g|: CPU float32 up to {max(err_cpu.values()):.3g}, the card "
+              f"{max(err_card.values()):.3g} (worst share of its bound {max(over.values()):.3f}), with a TF32 backward "
+              f"{max(err_tf32.values()):.3g} (worst share {max(over_tf32.values()):.1f}, at {max(over_tf32, key=over_tf32.get)}; "
+              f"{sum(v > 1 for v in over_tf32.values())} of {len(over_tf32)} tensors over); max |diff| / max |g|: CPU {max_cpu:.3g}, "
+              f"card {max_card:.3g}, TF32 {max_tf32:.3g}, card vs CPU {card_vs_cpu:.3g}; CPU forward+backward (float64 and float32) "
+              f"{cpu_s:.2f} s [{card}]", flush=True)
+        check(loss_err <= TRAIN_LOSS_RTOL, f"card vs CPU loss rel {loss_err}")
+        check(max(over.values()) <= 1.0, f"card float32 gradients outside their bound: {over}")
+        check(max(over_tf32.values()) > 1.0, f"a TF32 backward stays within the bound: {over_tf32}")
+
+        # determinism, remat, resume; no hand kernel launched
+        K.reset_launches()
+        a, oa = fresh()
+        b, ob = fresh()
+        steps(a, oa, batches[:1])
+        steps(b, ob, batches[:1])
+        check(params_equal(a, b), "two float32 steps from one state differ")
+        r, orr = fresh()
+        steps(r, orr, batches[:1], remat=True)
+        remat_bit_equal = params_equal(a, r)
+        remat_err = max(float((p - q).detach().abs().max()) for p, q in zip(r.parameters(), a.parameters()))
+        check(all(torch.allclose(p, q, rtol=1e-6, atol=1e-7) for p, q in zip(r.parameters(), a.parameters())), "remat step != plain step")
+        u, ou = fresh()
+        steps(u, ou, batches)
+        h, oh = fresh()
+        steps(h, oh, batches[:2])
+        path = ckpt.save_checkpoint(os.path.join(work, "ckpt"), 2, h, oh)
+        check(ckpt.latest_checkpoint(os.path.join(work, "ckpt")) == path, "latest_checkpoint")
+        g, og = fresh(args.seed + 1)
+        check(ckpt.restore_checkpoint(path, g, og) == 2, "restored step")
+        steps(g, og, batches[2:])
+        check(params_equal(u, g), "four steps != two, save, restore into fresh objects, two more")
+        train_launches = dict(K.LAUNCHES)
+        check(not any(train_launches.values()), f"training launched hand kernels: {train_launches}")
+        del a, oa, b, ob, r, orr, u, ou, h, oh, g, og
+        print(f"train: two float32 steps bit-equal; remat {'bit-equal' if remat_bit_equal else 'within rtol 1e-6'} to plain; "
+              f"resume through a checkpoint bit-equal to 4 uninterrupted steps; no hand kernel launched [{card}]", flush=True)
+
+        # times a step, TFLOP/s, peak memory, per mode; the host's share
+        x_dev, y_dev = (torch.from_numpy(t).to(dev) for t in batches[0])
+        timing = {}
+        for mode, (dtype, remat) in TRAIN_MODES.items():
+            model, opt = fresh()
+            with pytorch_defaults():
+                for _ in range(3):
+                    steps(model, opt, [(x_dev, y_dev)], dtype, remat)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                for _ in range(TRAIN_TIMED_STEPS):
+                    loss = tt.train_step(model, opt, x_dev, y_dev, dtype=dtype, remat=remat)
+                ev1.record()
+                torch.cuda.synchronize()
+            ms = ev0.elapsed_time(ev1) / TRAIN_TIMED_STEPS
+            flops = (4 if remat else 3) * flops_per_patch() * TRAIN_BATCH
+            timing[mode] = {"ms_per_step": ms, "tflops": flops / ms / 1e9, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                            "loss": float(loss)}
+            check(np.isfinite(float(loss)), f"{mode}: loss {float(loss)}")
+            del model, opt
+        # the same steps with the input strided NCHW: the (N, 256, 256, 1) crops'
+        # permuted view reads as channels-last, and cuDNN follows its first conv
+        x_nchw = x_dev.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format).permute(0, 2, 3, 1)
+        nchw_ms = {}
+        for mode in ("float32", "bf16"):
+            model, opt = fresh()
+            dtype = TRAIN_MODES[mode][0]
+            with pytorch_defaults():
+                nchw_ms[mode] = cuda_ms(lambda: tt.train_step(model, opt, x_nchw, y_dev, dtype=dtype), TRAIN_TIMED_STEPS)
+            del model, opt
+        print(f"train with an NCHW-strided input: float32 {nchw_ms['float32']:.3f} ms, bf16 {nchw_ms['bf16']:.3f} ms a step "
+              f"(channels-last view: {timing['float32']['ms_per_step']:.3f}, {timing['bf16']['ms_per_step']:.3f}) [{card}]", flush=True)
+        t0 = time.perf_counter()
+        host_batches = list(crop_batches(pairs, TRAIN_BATCH, TRAIN_TIMED_STEPS, seed=args.seed + 1))
+        crop_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, y in host_batches:
+            torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev)
+        torch.cuda.synchronize()
+        h2d_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+        for mode, row in timing.items():
+            row["host_share"] = (crop_ms + h2d_ms) / (crop_ms + h2d_ms + row["ms_per_step"])
+            print(f"train {mode:13s}: {row['ms_per_step']:.3f} ms a step of {TRAIN_BATCH} crops, {row['tflops']:.2f} TFLOP/s, "
+                  f"peak {row['peak_mem_bytes'] / 2**30:.3f} GiB, host share {row['host_share']:.3f} [{card}]", flush=True)
+        print(f"train host: crop_batches {crop_ms:.3f} ms a batch of {TRAIN_BATCH}, H2D copy {h2d_ms:.3f} ms a step [{card}]", flush=True)
+
+        # the command lines as a user runs them, then the float32 export served back
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        # the two runs at once, as two users would share the card
+        runs = {}
+        try:
+            t0 = time.perf_counter()
+            for mode, extra in (("float32", []), ("bf16_remat", ["--bf16", "--remat"])):
+                d = os.path.join(work, mode)
+                os.makedirs(d)
+                cmd = [sys.executable, "-m", "ecseg_torch.pipelines.train_metaseg", "--inpath", folder, "--steps", str(TRAIN_CLI_STEPS),
+                       "--batch", str(TRAIN_BATCH), "--ckpt-every", "10"] + extra
+                runs[mode] = (d, extra, subprocess.Popen(cmd, cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            outputs = {mode: proc.communicate(timeout=300) + (proc.returncode,) for mode, (_, _, proc) in runs.items()}
+            cli_s = time.perf_counter() - t0
+        finally:
+            for _, _, proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cli = {"wall_s_both": cli_s}
+        for mode, (d, extra, _) in runs.items():
+            stdout, stderr, rc = outputs[mode]
+            check(rc == 0, f"train_metaseg {extra} exited {rc}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+            out = stdout.splitlines()
+            losses = [float(ln.split()[-1]) for ln in out if ln.startswith("step ")]
+            ckpts = sorted(os.listdir(os.path.join(d, "checkpoints", "metaseg")))
+            check(out[0] == "4 training images" and len(losses) == 3 and all(np.isfinite(losses)), f"train_metaseg {extra} output: {out}")
+            check(ckpts == ["step_00000010.pt", "step_00000020.pt"], f"train_metaseg {extra} checkpoints {ckpts}")
+            check(out[-1] == "exported weights: models/metaseg.npz" and os.path.exists(os.path.join(d, "models", "metaseg.npz")), f"train_metaseg {extra}: no export")
+            cli[mode] = {"losses": losses}
+            print(f"train command line {mode}: {TRAIN_CLI_STEPS} steps, rc 0, losses {losses}, checkpoints {ckpts} [{card}]", flush=True)
+        print(f"train command lines: both ran at once in {cli_s:.2f} s (process start included) [{card}]", flush=True)
+
+        # served back on 512^2 crops of two training images: a 20-step model's
+        # labels are noisy, and the host redo of a noisy 2048^2 map takes ~25 s
+        serve = os.path.join(work, "float32")
+        names = ["img0.tif", "img1.tif"]
+        for sub in ("imgs", "inproc"):
+            os.makedirs(os.path.join(serve, sub))
+            for name in names:
+                imgio.write_tiff(os.path.join(serve, sub, name), imgio.imread_rgb(os.path.join(folder, name))[:TRAIN_SERVE_SIZE, :TRAIN_SERVE_SIZE])
+        with open(os.path.join(serve, "config.yaml"), "w") as f:
+            f.write("metaseg:\n  inpath: ./imgs\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ecseg_torch.pipelines.metaseg"], cwd=serve, env=env, capture_output=True, text=True, timeout=600)
+        serve_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"served back: metaseg exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(os.path.join(serve, "imgs", "ec_quantification.csv")) as f:
+            rows = f.read().splitlines()
+        check(rows[0] == "image name,# of ec" and sorted(r.rsplit(",", 1)[0] for r in rows[1:]) == names, f"served back: CSV rows {rows}")
+        os.chdir(serve)
+        model = metaseg.load_model(device=dev)
+        with post_form("default"):
+            K.reset_launches()
+            check(metaseg.main(config=Config(raw={"metaseg": {"inpath": os.path.join(serve, "inproc")}})) == 0, "served back: in-process main")
+            served_launches = dict(K.LAUNCHES)
+            for key, n in PER_IMAGE_LAUNCHES["default"].items():
+                check(served_launches[key] == n * len(names), f"served back: {key} launched {served_launches[key]} times, expected {n * len(names)}")
+            for name in names:
+                npy = os.path.join("labels", name[:-4] + ".npy")
+                out = np.load(os.path.join(serve, "imgs", npy))
+                patches, pos = metaseg._prepare_image(os.path.join(serve, "imgs", name), save_dapi=False)
+                raw = metaseg.segment_raw(model, patches, pos)
+                check(np.array_equal(out, meta_inference(raw.cpu().numpy().astype(np.int64))), f"served back: {name} labels != host oracle")
+                check(read_bytes(os.path.join(serve, "imgs", npy)) == read_bytes(os.path.join(serve, "inproc", npy)), f"served back: {npy} != in-process")
+        print(f"train served back: python -m ecseg_torch.pipelines.metaseg on the float32 export, {len(names)} images in {serve_s:.2f} s, "
+              f"rc 0; labels equal the host oracle and the in-process run's bytes; launches {served_launches} [{card}]", flush=True)
+        results["train"] = {
+            "batch": TRAIN_BATCH, "cudnn_flags_at_start": cudnn_flags, "modes": timing, "nchw_input_ms": nchw_ms, "crop_batches_ms": crop_ms, "h2d_ms": h2d_ms,
+            "card_vs_cpu": {"loss_rel": loss_err, "grad_max_rel": card_vs_cpu,
+                            "grad_p90_rel_vs_float64": {"cpu": max(err_cpu.values()), "card": max(err_card.values()), "card_tf32_backward": max(err_tf32.values())},
+                            "grad_max_rel_vs_float64": {"cpu": max_cpu, "card": max_card, "card_tf32_backward": max_tf32},
+                            "tf32_tensors_over_bound": sum(v > 1 for v in over_tf32.values()),
+                            "worst_share_of_bound": {"card": max(over.values()), "card_tf32_backward": max(over_tf32.values())}},
+            "remat_bit_equal": remat_bit_equal, "remat_max_abs": remat_err, "command_line": cli, "served_back_s": serve_s,
+            "phase_s": time.perf_counter() - phase_t0,
+        }
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def phase_timings(K, dev, errors, results):
     lp, pos, raw = results.pop("inputs")
     results["ec_mask"] = raw == 3  # B8a's timing input (tile phase)
@@ -2065,7 +2390,7 @@ def _timed_row(key, kern, plain, nbytes, flops, peak, launches, reps, errors, ex
 
 def tile_rows(K, dev, errors, results):
     """Timing rows of B8a, B8b, B10, B11 beside their twins and bounds."""
-    from ecseg_torch.models.layers import TFConvTranspose2d
+    from ecseg_torch.models.layers import TFConvTranspose2d, parity_flags
     from ecseg_torch.ops import tiling
     from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
     from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
@@ -2105,7 +2430,7 @@ def tile_rows(K, dev, errors, results):
 
     def chain(model, x):  # the unfused cuDNN chain B10 replaces, in bf16
         L = model.layers
-        with model._flags():
+        with parity_flags():
             y = torch.relu(L["dec1_1"].forward_bias_after(x.permute(0, 3, 1, 2)))
             y = torch.relu(L["dec1_2"].forward_bias_after(y))
             return tiling.patch_labels(torch.softmax(L["head"].forward_bias_after(y).float(), 1).permute(0, 2, 3, 1))
@@ -2216,6 +2541,7 @@ def main() -> int:
     phase_stat_fish(args, np.random.default_rng(args.seed + 7), dev, errors, results)
     phase_interseg(dev, results)  # draws no numbers: stat_fish's outputs and the demo trees
     phase_keras_import(args, dev, results)
+    phase_train(args, dev, results)
     for row in rows:  # stat_fish's launches and times beside B2's and B3's metaseg rows
         key = {"label": "label", "flood_from_border": "flood_border"}.get(row["name"])
         if key:
@@ -2226,6 +2552,7 @@ def main() -> int:
     print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
     print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))
     print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "card": smi}))
+    print(json.dumps({"train": results["train"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -3,8 +3,8 @@ in PyTorch's NCHW/OIHW layout.
 
 - ``SameConv2d``: stride-1 'SAME' convolution with an odd kernel (symmetric
   padding k // 2).  ``forward_bias_after`` (both conv layers) is the bf16
-  form: the conv without bias, rounded, then the bias added in the same
-  dtype.
+  form: the kernel cast to the input's dtype, the conv without bias,
+  rounded, then the bias added in the same dtype.
 - ``TFConvTranspose2d``: tf conv2d_transpose(kernel 3, stride 2, 'SAME'),
   whose grad-of-conv padding is (0, 1); that equals the FULL torch
   ``conv_transpose2d`` (padding 0) truncated to stride x input, as pinned in
@@ -43,7 +43,7 @@ class SameConv2d(nn.Conv2d):
         super().__init__(cin, cout, k, padding=k // 2)
 
     def forward_bias_after(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_same(x, self.weight, self.bias)
+        return conv_same(x, self.weight.to(x.dtype), self.bias)
 
 
 class TFConvTranspose2d(nn.ConvTranspose2d):
@@ -58,7 +58,7 @@ class TFConvTranspose2d(nn.ConvTranspose2d):
         return self._truncate(x, super().forward(x))
 
     def forward_bias_after(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x, self.weight, None, self.stride)
+        y = F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride)
         return add_bias(self._truncate(x, y), self.bias)
 
 

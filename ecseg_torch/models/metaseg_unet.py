@@ -4,22 +4,28 @@
 ``BOTTLENECK`` by default or the XL widths, decoder with skip concats, 1x1
 head, softmax in float32.
 
-The forward runs in the dtype of the model's weights.
+The forward computes in ``forward(x, dtype)``'s dtype, by default the
+dtype of the model's weights.
 
 - float32 is the parity path and mirrors the JAX package's
-  ``Precision.HIGHEST``: on the card it runs with TF32 off and cuDNN in
-  deterministic mode, benchmark autotuning off (set around the forward, so
-  the label bytes are stable from run to run).  The U-Net has no matmul;
-  ``torch.backends.cuda.matmul.allow_tf32`` is left at PyTorch's default,
-  False.
-- bf16 (``model.to(torch.bfloat16)``) is the throughput path and rounds
-  where the JAX package's ``forward(..., dtype=jnp.bfloat16)`` rounds
-  (``metaseg_unet.py:130-189``): the input divided by 255 in bf16; each conv
-  in bf16 with its output rounded before the bias is added in bf16
-  (``layers.add_bias``); level 1 always through ``_dec_first`` (two convs
-  over the skip and the upsampled halves, no concat), levels >= 2 through the
-  concat unless ``ECSEG_SPLIT_CONCAT`` is on; the head's logits to float32
-  before the softmax.
+  ``Precision.HIGHEST``: on the card it runs under ``layers.parity_flags``
+  (TF32 off, cuDNN deterministic, benchmark autotuning off; set around the
+  forward, so the label bytes are stable from run to run).  The U-Net has
+  no matmul; ``torch.backends.cuda.matmul.allow_tf32`` is left at
+  PyTorch's default, False.  Autograd runs the backward after the forward
+  has returned, outside these flags: a trainer enters them around the
+  backward itself (``runtime/train.py``).
+- bf16 (``model.to(torch.bfloat16)``, or ``dtype=torch.bfloat16`` on float32
+  weights, as the JAX package trains with float32 parameters) is the
+  throughput path and rounds where the JAX package's ``forward(...,
+  dtype=jnp.bfloat16)`` rounds (``metaseg_unet.py:130-189``): the input
+  divided by 255 in bf16; each kernel cast to bf16 inside its conv (so
+  autograd returns float32 gradients to float32 weights), the conv's output
+  rounded before the bias is added in bf16 (``layers.add_bias``); level 1
+  always through ``_dec_first`` (two convs over the skip and the upsampled
+  halves, no concat), levels >= 2 through the concat unless
+  ``ECSEG_SPLIT_CONCAT`` is on; the head's logits to float32 before the
+  softmax.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import SameConv2d, TFConvTranspose2d, conv_same, glorot_uniform_, max_pool_same
+from .layers import SameConv2d, TFConvTranspose2d, conv_same, glorot_uniform_, max_pool_same, parity_flags
 
 ENC_WIDTHS = (32, 64, 128, 256)
 BOTTLENECK = 512
@@ -113,26 +119,27 @@ class MetasegUNet(nn.Module):
         return self.layers["head"].weight.dtype
 
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """A layer without its ReLU: cuDNN's fused bias in float32, the bias
-        after the rounding otherwise."""
+        """A layer without its ReLU, in ``x``'s dtype: cuDNN's fused bias in
+        float32, the kernel cast to ``x``'s dtype and the bias after the
+        rounding otherwise."""
         layer = self.layers[name]
-        return layer(x) if self.dtype == torch.float32 else layer.forward_bias_after(x)
+        return layer(x) if x.dtype == torch.float32 else layer.forward_bias_after(x)
 
     def _dec_first(self, skip: torch.Tensor, x: torch.Tensor, name: str) -> torch.Tensor:
         """``relu(conv(concat([skip, x]), K))`` as two convs over the halves
         of K's input channels, each rounded (``metaseg_unet.py:113-127``)."""
         layer = self.layers[name]
         cs = skip.shape[1]
-        ya = conv_same(skip, layer.weight[:, :cs])
-        yb = conv_same(x, layer.weight[:, cs:], layer.bias)
+        w = layer.weight.to(x.dtype)
+        ya = conv_same(skip, w[:, :cs])
+        yb = conv_same(x, w[:, cs:], layer.bias)
         return torch.relu(ya + yb)
 
-    def _trunk_to_level1(self, x: torch.Tensor):
+    def _trunk_to_level1(self, x: torch.Tensor, dtype: torch.dtype):
         """Encoder, bottleneck and decoder through ``up1``: (level-1 skip,
-        upsampled level-1 feature), NCHW in the model's dtype."""
-        low = self.dtype != torch.float32
-        split = low and split_concat()
-        x = x.permute(0, 3, 1, 2).to(self.dtype) / 255.0
+        upsampled level-1 feature), NCHW in ``dtype``."""
+        split = dtype != torch.float32 and split_concat()
+        x = x.permute(0, 3, 1, 2).to(dtype) / 255.0
         skips = []
         for i in range(1, len(self.widths) + 1):
             x = torch.relu(self._conv(f"enc{i}_1", x))
@@ -150,17 +157,13 @@ class MetasegUNet(nn.Module):
             x = torch.relu(self._conv(f"dec{i}_2", x))
         return skips[0], torch.relu(self._conv("up1", x))
 
-    def _flags(self):
-        return torch.backends.cudnn.flags(
-            enabled=True, benchmark=False, deterministic=True, allow_tf32=False
-        )
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """(N, H, W, C) patches -> (N, H, W, num_classes) float32
-        probabilities."""
-        with self._flags():
-            s1, xu = self._trunk_to_level1(x)
-            if self.dtype == torch.float32:
+        probabilities, computed in ``dtype`` (None: the weights' dtype)."""
+        dtype = self.dtype if dtype is None else dtype
+        with parity_flags():
+            s1, xu = self._trunk_to_level1(x, dtype)
+            if dtype == torch.float32:
                 x = torch.relu(self._conv("dec1_1", torch.cat([s1, xu], dim=1)))
             else:
                 x = self._dec_first(s1, xu, "dec1_1")
@@ -173,6 +176,6 @@ class MetasegUNet(nn.Module):
         input of ``dec1_1``, NHWC and contiguous, in the model's dtype
         (``metaseg_unet.py:169-175``); the fused tail (kernel B10) takes over
         from there."""
-        with self._flags():
-            s1, xu = self._trunk_to_level1(x)
+        with parity_flags():
+            s1, xu = self._trunk_to_level1(x, self.dtype)
             return torch.cat([s1, xu], dim=1).permute(0, 2, 3, 1).contiguous()

@@ -1,7 +1,8 @@
 """The weight bridge: the JAX parameter pytrees (as numpy arrays) to and from
 :class:`~ecseg_torch.models.metaseg_unet.MetasegUNet`, the NuSeT modules
 (:mod:`~ecseg_torch.models.nuset`) and the interseg classifiers
-(:mod:`~ecseg_torch.models.classifiers`).
+(:mod:`~ecseg_torch.models.classifiers`), and optax's adam state to and
+from ``torch.optim.Adam``'s.
 
 The tree is what ``ecseg_tpu.models.metaseg_unet.init_params`` builds and
 ``keras_import.save_npz_pytree`` flattens to ``"enc1_1/kernel"`` keys
@@ -63,14 +64,61 @@ def params_from_numpy(tree: Dict) -> MetasegUNet:
     return model
 
 
+def _kernel_from_layer(layer: nn.Module, w: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`_layer_from_kernel`: a tensor in ``layer``'s weight
+    layout to the JAX kernel layout, as a numpy copy."""
+    w = w.detach().cpu()
+    if isinstance(layer, nn.Linear):
+        k = w.t()
+    elif isinstance(layer, nn.ConvTranspose2d):
+        k = w.permute(2, 3, 0, 1)
+    else:
+        k = w.permute(2, 3, 1, 0)
+    return k.numpy().copy()
+
+
 def params_to_numpy(model: MetasegUNet) -> Dict:
     """Inverse of :func:`params_from_numpy`."""
-    tree = {}
+    return {
+        name: {"kernel": _kernel_from_layer(layer, layer.weight), "bias": layer.bias.detach().cpu().numpy().copy()}
+        for name, layer in model.layers.items()
+    }
+
+
+def adam_state_from_numpy(model: MetasegUNet, optimizer: torch.optim.Adam, opt_state) -> None:
+    """Set ``optimizer``'s state to optax's adam state: ``opt_state[0]`` is
+    ``ScaleByAdamState(count, mu, nu)`` (any (count, mu, nu) sequence), its
+    moments parameter trees in the JAX layout (numpy), as ``optax.adam``'s
+    ``(ScaleByAdamState, EmptyState())`` gives them.  ``step`` becomes
+    ``count``, ``exp_avg`` ``mu`` and ``exp_avg_sq`` ``nu``, each in its
+    parameter's layout, dtype and device."""
+    count, mu, nu = opt_state[0]
     for name, layer in model.layers.items():
-        w = layer.weight.detach().cpu()
-        k = w.permute(2, 3, 0, 1) if isinstance(layer, nn.ConvTranspose2d) else w.permute(2, 3, 1, 0)
-        tree[name] = {"kernel": k.numpy().copy(), "bias": layer.bias.detach().cpu().numpy().copy()}
-    return tree
+        for attr, key in (("weight", "kernel"), ("bias", "bias")):
+            p = getattr(layer, attr)
+            layout = (lambda a: _layer_from_kernel(layer, a)) if key == "kernel" else _as_f32
+            optimizer.state[p] = {
+                "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+                "exp_avg": torch.empty_like(p).copy_(layout(mu[name][key])),
+                "exp_avg_sq": torch.empty_like(p).copy_(layout(nu[name][key])),
+            }
+
+
+def adam_state_to_numpy(model: MetasegUNet, optimizer: torch.optim.Adam):
+    """Inverse of :func:`adam_state_from_numpy`: ``(count, mu, nu)`` with
+    ``mu`` and ``nu`` parameter trees in the JAX layout (numpy float32)."""
+    mu, nu, counts = {}, {}, set()
+    for name, layer in model.layers.items():
+        mu[name], nu[name] = {}, {}
+        for attr, key in (("weight", "kernel"), ("bias", "bias")):
+            p = getattr(layer, attr)
+            st = optimizer.state[p]
+            counts.add(int(st["step"]))
+            for tree, t in ((mu, st["exp_avg"]), (nu, st["exp_avg_sq"])):
+                tree[name][key] = _kernel_from_layer(layer, t) if key == "kernel" else t.detach().cpu().numpy().copy()
+    if len(counts) != 1:
+        raise ValueError(f"the parameters' Adam steps differ: {sorted(counts)}")
+    return counts.pop(), mu, nu
 
 
 def modules_from_tree(module: nn.Module, tree: Dict, what: str) -> None:
@@ -90,14 +138,7 @@ def modules_from_tree(module: nn.Module, tree: Dict, what: str) -> None:
 def tree_from_modules(module: nn.Module) -> Dict:
     tree = {}
     for name, layer in module.layers.items():
-        w = layer.weight.detach().cpu()
-        if isinstance(layer, nn.Linear):
-            k = w.t()
-        elif isinstance(layer, nn.ConvTranspose2d):
-            k = w.permute(2, 3, 0, 1)
-        else:
-            k = w.permute(2, 3, 1, 0)
-        tree[name] = {"kernel": k.numpy().copy()}
+        tree[name] = {"kernel": _kernel_from_layer(layer, layer.weight)}
         if layer.bias is not None:
             tree[name]["bias"] = layer.bias.detach().cpu().numpy().copy()
     return tree

@@ -17,7 +17,11 @@ against their own CPU run (the twins), which tests/test_torch_overlay.py
 holds against the JAX package; so are stat_fish's device stages (the EDT,
 the certified watershed on B3, NMS, the cleanup on B2, the matched filter)
 and its whole segmentation, which tests/test_torch_watershed.py and
-tests/test_torch_nuset_infer.py hold against the JAX package.
+tests/test_torch_nuset_infer.py hold against the JAX package.  The
+trainer's float32 step runs on the card against the CPU, and resumes from
+a checkpoint bit-equal, as chip_smoke.py's train phase checks at the
+default widths (tests/test_torch_train.py holds the trainer against the
+JAX package).
 """
 
 import numpy as np
@@ -536,3 +540,55 @@ def test_nuclei_segment_on_the_card_matches_the_cpu(cuda):
     got = ni.nuclei_segment(image, models[str(cuda)], 60)
     want = ni.nuclei_segment(image, models["cpu"], 60)
     assert got.any() and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu_and_resumes_bit_equal(cuda, tmp_path):
+    """One float32 forward and backward of the trainer's loss at the
+    default widths on two 256^2 crops of a synthetic DAPI image (labels by
+    brightness), on the card under the parity flags and
+    on the CPU: the loss within 1e-5, each gradient tensor held to the
+    CPU's float64 gradient by chip_smoke's bound (the 90th percentile of
+    its element errors within ``TRAIN_GRAD_FACTOR`` times the CPU float32
+    gradient's, plus ``TRAIN_GRAD_TOL``).
+    Then four Adam steps on the card (widths (8, 16), 64^2 crops) bit-equal
+    to two, a checkpoint restored into fresh objects, and two more."""
+    import contextlib
+
+    import chip_smoke as cs
+    from ecseg_torch.models.layers import parity_flags
+    from ecseg_torch.models.metaseg_unet import MetasegUNet
+    from ecseg_torch.ops.meta_post import meta_preprocess
+    from ecseg_torch.runtime import checkpoint as ckpt
+    from ecseg_torch.runtime import train as tt
+
+    rng = np.random.default_rng(0)
+    img = meta_preprocess(cs.synthetic_dapi(rng, 512, 512, crowded=False))
+    x = torch.from_numpy(np.stack([img[:256, :256], img[256:, 256:]])[..., None].copy())
+    y = (x[..., 0] > 100).int() + 2 * (x[..., 0] > 200).int()  # labels that follow the image, as metaseg's do
+    ref = MetasegUNet(generator=torch.Generator().manual_seed(0))
+    _, g64 = cs._loss_and_grads(ref, x, y, torch.float64, "cpu", contextlib.nullcontext())
+    loss_cpu, g_cpu = cs._loss_and_grads(ref, x, y, torch.float32, "cpu", contextlib.nullcontext())
+    loss_card, g_card = cs._loss_and_grads(ref, x, y, torch.float32, cuda, parity_flags())
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    err_cpu, err_card = cs._rel_p90_errors(g_cpu, g64), cs._rel_p90_errors(g_card, g64)
+    for name, e in err_card.items():
+        assert e <= cs.TRAIN_GRAD_FACTOR * (err_cpu[name] + cs.TRAIN_GRAD_TOL), (name, e, err_cpu[name])
+
+    def fresh(seed=0):
+        model = MetasegUNet((8, 16), 32, generator=torch.Generator().manual_seed(seed)).to(cuda)
+        return model, tt.make_optimizer(model, 1e-3)
+
+    batches = [(x[k : k + 1, :64, :64], y[k : k + 1, :64, :64]) for k in (0, 1, 0, 1)]
+    whole, whole_opt = fresh()
+    for bx, by in batches:
+        tt.train_step(whole, whole_opt, bx, by)
+    half, half_opt = fresh()
+    for bx, by in batches[:2]:
+        tt.train_step(half, half_opt, bx, by)
+    path = ckpt.save_checkpoint(str(tmp_path), 2, half, half_opt)
+    resumed, resumed_opt = fresh(seed=1)
+    assert ckpt.restore_checkpoint(path, resumed, resumed_opt) == 2
+    for bx, by in batches[2:]:
+        tt.train_step(resumed, resumed_opt, bx, by)
+    assert all(torch.equal(p, q) for p, q in zip(whole.parameters(), resumed.parameters()))
