@@ -52,7 +52,17 @@ Phases (any failure raises; exit code 0 only when all pass):
    more than 512 nuclei went through the counted host redo; every image's
    labels equal the host oracle on the same raw canvas; a rerun gives
    byte-identical labels; the card's forward agrees with the CPU forward
-   (TF32 off).  Then ``main`` again under ``ECSEG_MC_LABEL=0`` and under
+   (TF32 off).  ``main`` groups the images of a geometry by default (2 + 2
+   at 2048^2, 100 patches an image, the crowded image in the second group:
+   one forward a group, B1 and the post per canvas); ``main`` again per
+   image (``ECSEG_METASEG_GROUP=1``) and as 3 + 1
+   (``ECSEG_METASEG_GROUP=3 ECSEG_METASEG_PATCH_BUDGET=300``): the same
+   launches and host redo, the forwards per group, labels, PNGs and CSV
+   rows byte-equal to the default run's, ms per image of each.  Then
+   ``main`` under ``ECSEG_DEVICE_PIPELINE=0`` on an ordinary image and the
+   crowded one (forward and B1 on the card, the host oracle after: only B1
+   launched, no redo counted, the same bytes).  Then ``main`` again under
+   ``ECSEG_MC_LABEL=0`` and under
    ``ECSEG_MC_MERGE=1`` on an ordinary image and the crowded one: the same
    launch-count and host-redo checks, and labels and CSV rows byte-equal to
    the default form's.  Then the command line as a user runs it:
@@ -72,7 +82,10 @@ Phases (any failure raises; exit code 0 only when all pass):
    in-process run's and to the host oracle's, the ``red/``/``green/``
    PNGs decode to 255 - the channel, B8a equal to its twin on every
    image's ec, fish_nc and fish2_nc masks, ``overlay_stats`` equal to the
-   host oracle with seeded chromosome blobs; the stage times per image.
+   host oracle with seeded chromosome blobs; ``meta_overlay.main`` under
+   ``ECSEG_DEVICE_PIPELINE=0`` (the host statistics, the oracle's branch):
+   no kernel launched, CSV and PNG bytes equal to the device run's; the
+   stage times per image.
    Then ``python3 -m ecseg_torch.pipelines.fish_distance`` (host only) on
    a synthetic stat_fish output folder, its CSV byte-equal to an
    in-process host computation;
@@ -112,8 +125,15 @@ Phases (any failure raises; exit code 0 only when all pass):
    runs; on image 0 and a 900x700 crop of it the device watershed (where
    its certificate is clean), cleanup and matched filter equal the host
    chains on the same NuSeT outputs, and B2 and B3 equal their twins on
-   those masks (608^2, 256x208, 2027^2); the certified watershed with
-   hand-placed proposals equals the host flood when clean.  Times: the
+   those masks (608^2, 256x208, 2027^2); on both, the ungated watershed
+   modes (``ECSEG_FAST_WATERSHED=on`` and ``check``, at the JAX package's
+   padded geometry) on the card equal the CPU twins' with the same tie
+   count, B3 launched once (``on``) or twice (``check``) a watershed with
+   markers, and each mode's ms; ``stat_fish.main`` in-process under
+   ``ECSEG_FAST_WATERSHED=host`` on a copy of the inputs: CSV and ``.npy``
+   bytes and TIFF pixels equal to the default run's, no B3 launch; the
+   certified watershed with hand-placed proposals equals the host flood
+   when clean.  Times: the
    stage table, images/s, the XLA-side ops, one profiler pass (device busy
    share), B2 and B3 at stat_fish's geometries.  Then ``make interseg``
    (``phase_interseg``): ``python3 -m ecseg_torch.pipelines.interseg`` and
@@ -123,6 +143,12 @@ Phases (any failure raises; exit code 0 only when all pass):
    per image, the batched card labels equal per-row card labels
    (probabilities within 1e-5) and the CPU's on the same crops; the
    classifiers on the card, ecSeg-c run; per-image stage times.  Then the
+   int8 U-Net (``phase_quant``, ``models/quant.py``) at the default widths
+   with the main path's demo weights on image 0's 100 patches: int8
+   kernels, scales and two layers' int32 accumulators equal on the card
+   and the CPU, labels on 2 patches against the CPU's, labels against the
+   float32 forward's (>= 0.95), a 100-patch forward's ms in int8, bf16 and
+   float32, the weights' bytes.  Then the
    imported-Keras executor (``phase_keras_import``) from in-memory configs
    and weights: the metaseg U-Net as a Keras Functional graph, its
    stitched labels over image 0's patches byte-equal to ``MetasegUNet``'s,
@@ -136,7 +162,8 @@ Phases (any failure raises; exit code 0 only when all pass):
    ``python3 -m ecseg_torch.pipelines.metaseg`` (B1-B6 launches, labels
    equal to the host oracle); ms a step, TFLOP/s and peak memory in
    float32, bf16 and both with remat, and the host's crop and copy time;
-7. print ``{"train": ...}``, ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
+7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``,
+   ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
 
@@ -175,6 +202,15 @@ PER_IMAGE_LAUNCHES = {
     "per_class": {"stitch": 1, "label": 8, "flood_border": 2, "flood_seeds": 5, "label_mc": 0, "flood_mc": 0, "label_flood": 0, **_NOT_ON_METASEG},
     "fused_merge": {"stitch": 1, "label": 1, "flood_border": 2, "flood_seeds": 0, "label_mc": 2, "flood_mc": 1, "label_flood": 2, **_NOT_ON_METASEG},
 }
+# ECSEG_DEVICE_PIPELINE=0: the forward and B1 on the card, the host oracle after
+HOST_POST_LAUNCHES = {key: int(key == "stitch") for key in PER_IMAGE_LAUNCHES["default"]}
+# main's grouping runs beside the default (2 + 2 at 2048^2): (name, environment, forwards of 4 images)
+# (the first default run pays cuDNN's set-up, so "2 + 2" times the default again)
+GROUP_RUNS = (
+    ("per image", {"ECSEG_METASEG_GROUP": "1"}, 4),
+    ("2 + 2", {}, 2),
+    ("3 + 1", {"ECSEG_METASEG_GROUP": "3", "ECSEG_METASEG_PATCH_BUDGET": "300"}, 2),
+)
 KERNELS = {  # wrapper key -> (B, name, source, pallas_call site, Pallas function)
     "stitch": ("B1", "stitch_labels", "ecseg_torch/csrc/stitch.cu", "ecseg_tpu/ops/cc_pallas.py:1070", "stitch_labels_pallas"),
     "label": ("B2", "label", "ecseg_torch/csrc/cc_label.cu", "ecseg_tpu/ops/cc_pallas.py:1094", "label_pallas"),
@@ -378,10 +414,14 @@ def device_kernels(fn):
 
 
 @contextlib.contextmanager
-def post_form(form: str):
-    """Set the environment of one post-processing form; restore it after."""
-    saved = {k: os.environ.pop(k, None) for k in FORM_VARS}
-    os.environ.update(FORM_ENV[form])
+def environ(values):
+    """Set the variables of ``values`` (None: unset); restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -390,6 +430,11 @@ def post_form(form: str):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def post_form(form: str):
+    """The environment of one post-processing form, restored after."""
+    return environ({**dict.fromkeys(FORM_VARS), **FORM_ENV[form]})
 
 
 def snake(h, w, pitch=2):
@@ -671,30 +716,35 @@ def lzw_tiff_bytes(img: np.ndarray, byte_order: str = "<", rows_per_strip: int =
     return bytes(blob)
 
 
-def run_main(folder, form, n_images):
-    """``main`` on ``folder`` in one post-processing form, with every launch
-    counter, the fallback counts and the stage tracer set to 0 just before
-    and read just after; checks the launches and the one host redo (each
-    folder holds the crowded image).  Returns (launches, stages, wall s)."""
+def run_main(folder, form, n_images, env=None, per_image=None, redos=1, tag=None):
+    """``main`` on ``folder`` in one post-processing form (and ``env``'s
+    other variables), with every launch counter, the fallback counts and the
+    stage tracer set to 0 just before and read just after; checks the
+    launches (``per_image``, by default the form's ``PER_IMAGE_LAUNCHES``,
+    times ``n_images``) and the host redos (one: each folder holds the
+    crowded image).  Returns (launches, stages, wall s)."""
     from ecseg_torch.core.config import Config
     from ecseg_torch.ops import cc_kernels as K
     from ecseg_torch.pipelines import metaseg
     from ecseg_torch.runtime import fallbacks, trace
 
+    per_image = PER_IMAGE_LAUNCHES[form] if per_image is None else per_image
+    tag = tag or f"{form} form"
     tracer = trace.tracer()
-    with post_form(form):
+    with post_form(form), environ(env or {}):
         fallbacks.reset()
         tracer.reset()
         K.reset_launches()
         t0 = time.perf_counter()
-        check(metaseg.main(config=Config(raw={"metaseg": {"inpath": folder}})) == 0, f"metaseg.main ({form}) did not return 0")
+        check(metaseg.main(config=Config(raw={"metaseg": {"inpath": folder}})) == 0, f"metaseg.main ({tag}) did not return 0")
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         stages = tracer.times()
-    print(f"main path, {form} form: {n_images} images of {SIZE}x{SIZE} in {wall:.3f} s; launches {launches}", flush=True)
-    for key, n in PER_IMAGE_LAUNCHES[form].items():
-        check(launches[key] == n * n_images, f"{form} form: {key} launched {launches[key]} times, expected {n * n_images}")
-    check(fallbacks.counts() == {fallbacks.META_POST_OK: 1}, f"{form} form: fallbacks {fallbacks.counts()} != one host redo")
+    print(f"main path, {tag}: {n_images} images of {SIZE}x{SIZE} in {wall:.3f} s; launches {launches}", flush=True)
+    for key, n in per_image.items():
+        check(launches[key] == n * n_images, f"{tag}: {key} launched {launches[key]} times, expected {n * n_images}")
+    want = {fallbacks.META_POST_OK: redos} if redos else {}
+    check(fallbacks.counts() == want, f"{tag}: fallbacks {fallbacks.counts()} != {want}")
     for name, ts in sorted(stages.items()):
         print(f"  stage {name:22s} n={len(ts)} total {sum(ts):.4f} s; per run ms: " + " ".join(f"{1e3 * t:.2f}" for t in ts), flush=True)
     return launches, stages, wall
@@ -703,6 +753,23 @@ def run_main(folder, form, n_images):
 def read_bytes(path):
     with open(path, "rb") as f:
         return f.read()
+
+
+def check_same_outputs(sub, ref, names, counts, tag):
+    """``labels/*.npy`` and ``labels/*.png`` of ``names`` in ``sub``
+    byte-equal to ``ref``'s, and ``sub``'s CSV rows ``counts``' in ``sub``'s
+    listing order (the input order main keeps)."""
+    from ecseg_torch.core import imgio
+
+    for name in names:
+        for ext in (".npy", ".png"):
+            f = os.path.join("labels", name[:-4] + ext)
+            check(read_bytes(os.path.join(sub, f)) == read_bytes(os.path.join(ref, f)), f"{tag}: {f} bytes != the default run's")
+    order = [os.path.basename(p) for p in imgio.get_imgs(sub)]
+    want = ["image name,# of ec"] + [f"{n},{counts[n]}" for n in order]
+    with open(os.path.join(sub, "ec_quantification.csv")) as f:
+        rows = f.read().splitlines()
+    check(rows == want, f"{tag}: CSV rows {rows} != {want}")
 
 
 def phase_main_path(args, rng, dev, errors, results):
@@ -779,6 +846,40 @@ def phase_main_path(args, rng, dev, errors, results):
         runs.append(read_bytes(os.path.join(folder, "labels", "img0.npy")))
         check(runs[0] == runs[1] == runs[2], "labels/*.npy bytes differ between runs")
 
+        # the dispatch: main groups the images of a geometry (at 2048^2, 100
+        # patches an image, two a forward: 2 + 2, the crowded image in the
+        # second group); per image and 3 + 1 give the same bytes and launches
+        check(len(stages["metaseg.forward"]) == 2, f"default run: {len(stages['metaseg.forward'])} forwards, expected 2 groups")
+        results["grouped"] = {"2 + 2 (first run)": {"wall_s": wall, "ms_per_image": 1e3 * wall / len(names), "forwards": 2}}
+        for k, (run, env, forwards) in enumerate(GROUP_RUNS):
+            sub = os.path.join(work, f"group{k}")
+            os.makedirs(sub)
+            for name in names:
+                shutil.copy(os.path.join(folder, name), sub)
+            torch.cuda.reset_peak_memory_stats()
+            _, stages_g, wall_g = run_main(sub, "default", len(names), env=env, tag=f"grouping {run}")
+            peak, reserved = (f() / 2**30 for f in (torch.cuda.max_memory_allocated, torch.cuda.max_memory_reserved))
+            check(len(stages_g["metaseg.forward"]) == forwards, f"grouping {run}: {len(stages_g['metaseg.forward'])} forwards, expected {forwards}")
+            check_same_outputs(sub, folder, names, counts, f"grouping {run}")
+            results["grouped"][run] = {"wall_s": wall_g, "ms_per_image": 1e3 * wall_g / len(names), "forwards": forwards,
+                                       "forward_ms": [1e3 * t for t in stages_g["metaseg.forward"]], "peak_gib": peak, "reserved_gib": reserved}
+        print(f"grouped dispatch: labels, PNGs and CSV rows byte-equal across {sorted(results['grouped'])}; "
+              + "; ".join(f"{run}: {r['ms_per_image']:.1f} ms an image, peak {r.get('peak_gib', float('nan')):.2f} GiB"
+                          for run, r in results["grouped"].items()), flush=True)
+
+        # ECSEG_DEVICE_PIPELINE=0: the forward and B1 on the card, the host
+        # oracle after them, on an ordinary image and the crowded one
+        pair = ["img0.tif", "img2.tif"]
+        sub = os.path.join(work, "host_post")
+        os.makedirs(sub)
+        for name in pair:
+            shutil.copy(os.path.join(folder, name), sub)
+        _, stages_h, wall_h = run_main(sub, "default", len(pair), env={"ECSEG_DEVICE_PIPELINE": "0"}, per_image=HOST_POST_LAUNCHES,
+                                       redos=0, tag="ECSEG_DEVICE_PIPELINE=0")
+        check_same_outputs(sub, folder, pair, counts, "ECSEG_DEVICE_PIPELINE=0")
+        results["host_post"] = {"images": pair, "wall_s": wall_h, "stages": stages_h}
+        print(f"ECSEG_DEVICE_PIPELINE=0: only B1 launched; labels, PNGs and CSV rows byte-equal to the device run's on {pair}", flush=True)
+
         # the other two forms on an ordinary image and the crowded one: the
         # same labels and CSV rows as the default form, byte for byte
         pair = ["img0.tif", "img2.tif"]
@@ -821,6 +922,10 @@ def phase_main_path(args, rng, dev, errors, results):
         tracer.enabled = False
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
+        # the allocator's cache from the grouped forwards (up to 300 patches)
+        # held most of the card and left the later phases' command lines
+        # out of memory
+        torch.cuda.empty_cache()
 
 
 def phase_command_line(args, rng, dev, results):
@@ -959,25 +1064,11 @@ def write_lzw_tiffs(jobs):
 
 def overlay_host_row(name, red, green, nuclei, chrom, ec):
     """One fish_quantification.csv row from the port's host oracles (the
-    reference's dataflow, meta_overlay.py:68-83, on scipy)."""
-    from ecseg_torch.ops.cc import count_cc
-    from ecseg_torch.ops.meta_post import count_HSR, count_colocalization
-    from ecseg_torch.pipelines.meta_overlay import COLUMNS
+    reference's dataflow, meta_overlay.py:68-83, on scipy): the branch
+    ``meta_overlay.main`` takes under ``ECSEG_DEVICE_PIPELINE=0``."""
+    from ecseg_torch.pipelines.meta_overlay import host_stats, image_row
 
-    fish, fish2 = green & ~nuclei, red & ~nuclei
-    t = 20
-    stats = {
-        "num_ecDNA": count_cc(ec),
-        "num_FISH": count_cc(fish & ~chrom),
-        "num_ecDNA_FISH": count_colocalization(ec, fish),
-        "num_HSR": count_HSR(chrom, fish, t),
-        "num_FISH2": count_cc(fish2 & ~chrom),
-        "num_FISH_FISH2": count_colocalization(fish & ~chrom, fish2 & ~chrom),
-        "num_ecDNA_FISH2": count_colocalization(ec, fish2),
-        "num_ecDNA_FISH_FISH2": count_colocalization(ec, fish2 & fish),
-        "num_HSR2": count_HSR(chrom, fish2, t),
-    }
-    return [name] + [stats[key] for _, key in COLUMNS[1:]]
+    return image_row(name, host_stats(red, green, nuclei, chrom, ec), nuclei.size)
 
 
 def read_png_gray(path):
@@ -1061,8 +1152,9 @@ def phase_meta_overlay(args, rng, dev, errors, results):
             if task == "metaseg":
                 with open(os.path.join(imgs, "ec_quantification.csv")) as f:
                     check(len(f.read().splitlines()) == 5, "metaseg's CSV does not hold four rows")
-                inproc = os.path.join(work, "inproc")
+                inproc, host_dir = os.path.join(work, "inproc"), os.path.join(work, "host_stats")
                 shutil.copytree(imgs, inproc)  # metaseg's outputs, before meta_overlay's
+                shutil.copytree(imgs, host_dir)
         out = procs["meta_overlay"].stdout
         check("isn't an RGB image" in out, "meta_overlay did not skip the grayscale image")
         print("meta_overlay command line's stage table:\n" + out[out.find("[ecseg trace]"):].strip(), flush=True)
@@ -1084,6 +1176,19 @@ def phase_meta_overlay(args, rng, dev, errors, results):
         lines = read_bytes(csv_path(imgs)).decode().splitlines()
         check(len(lines) == 4, f"fish_quantification.csv rows: {lines}")
         check(read_bytes(csv_path(imgs)) == read_bytes(csv_path(inproc)), "meta_overlay command line: CSV bytes != in-process run's")
+
+        # ECSEG_DEVICE_PIPELINE=0: the host statistics, no kernel
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with environ({"ECSEG_DEVICE_PIPELINE": "0"}):
+            rc = meta_overlay.main(config=Config(raw={"meta_overlay": {"inpath": host_dir, "color_sensitivity": OVERLAY_SENSITIVITY}}))
+        host_wall = time.perf_counter() - t0
+        check(rc == 0 and not any(K.LAUNCHES.values()), f"meta_overlay under ECSEG_DEVICE_PIPELINE=0: rc {rc}, launches {dict(K.LAUNCHES)}")
+        check(read_bytes(csv_path(host_dir)) == read_bytes(csv_path(inproc)), "meta_overlay under ECSEG_DEVICE_PIPELINE=0: CSV bytes != the device run's")
+        for sub in ("red", "green"):
+            for f in sorted(os.listdir(os.path.join(inproc, sub))):
+                check(read_bytes(os.path.join(host_dir, sub, f)) == read_bytes(os.path.join(inproc, sub, f)), f"meta_overlay under ECSEG_DEVICE_PIPELINE=0: {sub}/{f} bytes differ")
+        print(f"meta_overlay under ECSEG_DEVICE_PIPELINE=0: no kernel launched, CSV and PNG bytes equal the device run's, {host_wall:.3f} s", flush=True)
 
         # the host oracle on the same label maps and thresholded channels
         rows, fish2_nc = [], None
@@ -1125,6 +1230,7 @@ def phase_meta_overlay(args, rng, dev, errors, results):
         results["overlay"] = {
             "images": len(names), "wall_s": wall, "stages_s": stages, "cli_s": cli_s, "encode_s": encode_s,
             "decode_s": decode_s, "launches": {k: v for k, v in launches.items() if v}, "csv_rows": lines[1:],
+            "host_stats_wall_s": host_wall,
         }
         print(
             f"meta_overlay: command lines metaseg {cli_s['metaseg']:.2f} s, meta_overlay {cli_s['meta_overlay']:.2f} s (process start "
@@ -1302,7 +1408,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
     from ecseg_torch.ops.normalization import foreground_norm
     from ecseg_torch.ops.resize import resize_linear_matmul
     from ecseg_torch.ops.watershed import nuset_marker_watershed, nuset_place_markers
-    from ecseg_torch.ops.watershed_gpu import lex_flood, nuset_fast_pass, nuset_marker_watershed_auto
+    from ecseg_torch.ops.watershed_gpu import lex_flood, nuset_fast_pass, nuset_marker_watershed_auto, nuset_marker_watershed_fast
     from ecseg_torch.pipelines import stat_fish
     from ecseg_torch.runtime import fallbacks, trace
 
@@ -1380,6 +1486,43 @@ def phase_stat_fish(args, rng, dev, errors, results):
 
         marks["in-process run and output checks"] = time.perf_counter() - phase_t0
 
+        # ECSEG_FAST_WATERSHED=host on a copy of the inputs: the default run's
+        # bytes, no B3 launch (only the watershed launches B3 in stat_fish)
+        host_ws = os.path.join(work, "host_ws")
+        os.makedirs(host_ws)
+        for name in names:
+            shutil.copy(os.path.join(inproc, name), host_ws)
+        os.chdir(work)
+        tracer.enabled = True
+        tracer.reset()
+        fallbacks.reset()
+        K.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            with environ({"ECSEG_FAST_WATERSHED": "host"}):
+                rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": host_ws, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}))
+            host_wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            tracer.enabled = False
+        host_launches = dict(K.LAUNCHES)
+        host_stages = tracer.times()
+        check(rc == 0 and fallbacks.counts() == {}, f"stat_fish under ECSEG_FAST_WATERSHED=host: rc {rc}, fallbacks {fallbacks.counts()}")
+        check(host_launches["flood_border"] == 0 and host_launches["label"] == launches["label"],
+              f"stat_fish under ECSEG_FAST_WATERSHED=host launched {host_launches}")
+        host_ann = os.path.join(host_ws, "annotated")
+        check(read_bytes(os.path.join(host_ann, "stat_fish_lsq.csv")) == csv[inproc], "ECSEG_FAST_WATERSHED=host: CSV bytes != the default run's")
+        for name in names:
+            stem = name[:-4]
+            for fname in sorted(os.listdir(os.path.join(ann[inproc], stem))):
+                a_, b_ = os.path.join(ann[inproc], stem, fname), os.path.join(host_ann, stem, fname)
+                if fname.endswith(".npy"):
+                    check(read_bytes(a_) == read_bytes(b_), f"ECSEG_FAST_WATERSHED=host: {fname} bytes != the default run's")
+                else:
+                    check(np.array_equal(imgio.imread_rgb(a_), imgio.imread_rgb(b_)), f"ECSEG_FAST_WATERSHED=host: {fname} pixels != the default run's")
+        print(f"stat_fish under ECSEG_FAST_WATERSHED=host: {host_wall:.3f} s, no B3 launch, CSV, .npy and TIFFs equal the default run's", flush=True)
+        marks["host watershed run"] = time.perf_counter() - phase_t0
+
         # stage by stage on image 0 and a 900x700 crop of it
         params = load_stat_fish_params()
         model = load_nuset_model(os.path.join(work, "models"), dev, bbox_min_score=params.min_score,
@@ -1409,6 +1552,29 @@ def phase_stat_fish(args, rng, dev, errors, results):
             stage_checks[tag] = {"nuset_hw": list(mask.shape), "proposals": int(len(props)), "markers": int(markers.max()) if markers is not None else 0,
                                  "certificate": int(n_unc), "device_watershed_used": dev_ws is not None, "nuclei_px": int((seg > 0).sum()),
                                  "fish_px": int((thr > 0).sum())}
+            # the ungated modes on the card against the CPU twins' padded pass,
+            # B3 launches (one a pass), tie counts, and each mode's ms
+            K.reset_launches()
+            t0 = time.perf_counter()
+            on_ws = nuset_marker_watershed_fast(scores, props, mask, params.min_score, dev)
+            on_ms, b3_on = 1e3 * (time.perf_counter() - t0), K.LAUNCHES["flood_border"]
+            K.reset_launches()
+            t0 = time.perf_counter()
+            check_ws, ties = nuset_marker_watershed_fast(scores, props, mask, params.min_score, dev, count_ties=True)
+            check_ms, b3_check = 1e3 * (time.perf_counter() - t0), K.LAUNCHES["flood_border"]
+            cpu_ws, cpu_ties = nuset_marker_watershed_fast(scores, props, mask, params.min_score, "cpu", count_ties=True)
+            check(np.array_equal(on_ws, cpu_ws) and np.array_equal(check_ws, cpu_ws) and ties == cpu_ties,
+                  f"{tag}: the fast watershed on the card != the CPU twins' (ties {ties} vs {cpu_ties})")
+            want_b3 = (1, 2) if markers is not None else (0, 0)
+            check((b3_on, b3_check) == want_b3, f"{tag}: B3 launched {(b3_on, b3_check)} times in on/check, expected {want_b3}")
+            t0 = time.perf_counter()
+            nuset_marker_watershed(scores, props, mask, params.min_score)
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            nuset_marker_watershed_auto(scores, props, mask, params.min_score, dev)
+            auto_ms = 1e3 * (time.perf_counter() - t0) + (host_ms if dev_ws is None else 0.0)
+            stage_checks[tag].update({"fast_ties_px": ties, "fast_vs_host_px": int((on_ws != host_ws).sum()),
+                                      "watershed_ms": {"host": host_ms, "auto": auto_ms, "on": on_ms, "check": check_ms}})
             m = torch.from_numpy(mask != 0).to(dev)
             kept = clean_image(torch.from_numpy(ws != 0).to(dev))
             supp = torch.from_numpy(seg > 0).to(dev)
@@ -1513,6 +1679,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
             "fallbacks": falls, "stages_s": {k: v for k, v in stages.items() if k.startswith("stat_fish.")},
             "csv_rows": len(rows) - 1, "files_compared": n_files, "stage_checks": stage_checks, "hand_placed_watershed": cert,
             "xla_side_ms": xla_side, "profile": profile_pass, "phase_marks_s": marks,
+            "host_watershed": {"wall_s": host_wall, "images_per_s": len(names) / host_wall, "watershed_s": host_stages.get("stat_fish.watershed", [])},
         }
         print(
             f"stat_fish: command line {cli_s:.2f} s for {len(names)} images ({len(names) / cli_s:.3f} images/s, process start included); "
@@ -1522,6 +1689,12 @@ def phase_stat_fish(args, rng, dev, errors, results):
         for name in STAT_FISH_STAGES:
             ts = stages.get(f"stat_fish.{name}", [])
             print(f"  stage stat_fish.{name:16s} n={len(ts)} total {sum(ts):.4f} s; ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts), flush=True)
+        ts = host_stages.get("stat_fish.watershed", [])
+        print(f"  stage stat_fish.watershed (ECSEG_FAST_WATERSHED=host) n={len(ts)} total {sum(ts):.4f} s; ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts), flush=True)
+        for tag, sc in stage_checks.items():
+            print(f"  watershed ms by mode on {tag}'s NuSeT outputs ({sc['markers']} markers): "
+                  + " ".join(f"{mode} {ms:.1f}" for mode, ms in sc["watershed_ms"].items())
+                  + f"; check's ties {sc['fast_ties_px']} px, on vs host {sc['fast_vs_host_px']} px", flush=True)
         # the command line's folder (images and annotated/) is interseg's input
         keep = tempfile.mkdtemp(prefix="ecseg_stat_fish_out_")
         results["stat_fish_folder"] = shutil.move(imgs, os.path.join(keep, "imgs"))
@@ -1740,6 +1913,67 @@ def phase_interseg(dev, results):
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(os.path.dirname(folder), ignore_errors=True)
+
+
+QUANT_CARD_AGREEMENT = 0.99  # the card's int8 labels against the CPU's on 2 patches
+QUANT_FLOAT_AGREEMENT = 0.95  # int8 against float32 labels, tests/test_quant.py's bound
+QUANT_ACC = (("enc2_1", (2, 128, 128, 32), False), ("up1", (2, 128, 128, 64), True))  # int32 accumulators held card vs CPU
+
+
+def phase_quant(args, dev, results):
+    """The int8 U-Net (``models/quant.py``; no entry point runs it) at the
+    default widths with the main path's crafted demo weights, on image 0's
+    100 patches.  Checks: every int8 kernel and scale quantized on the card
+    bit-equal to the CPU's; the int32 accumulators of ``enc2_1`` and of the
+    transpose ``up1`` on a seeded int8 input equal on the card and the CPU
+    (``QUANT_ACC``); the card's labels (u8 quantize + argmax) on 2 patches
+    against the CPU port's int8 labels (>= ``QUANT_CARD_AGREEMENT``); the
+    card's int8 labels against its float32 forward's on the 100 patches (>=
+    ``QUANT_FLOAT_AGREEMENT``).  Times a 100-patch forward in int8, bf16
+    and float32 (CUDA events) and counts the weights' bytes."""
+    from ecseg_torch.models import quant
+    from ecseg_torch.models.demo import demo_metaseg_params
+    from ecseg_torch.models.weights import params_to_numpy, quant_params_from_numpy
+    from ecseg_torch.ops import tiling
+
+    patches, _ = results["metaseg_patches"]
+    unet = demo_metaseg_params(torch.Generator().manual_seed(args.seed)).eval()
+    tree = params_to_numpy(unet)
+    for name, p in tree.items():
+        if name in quant.DEFAULT_SKIP:
+            continue
+        kq, scale = quant.quantize_kernel(p["kernel"])
+        kq_d, scale_d = quant.quantize_kernel(torch.from_numpy(p["kernel"]).to(dev))
+        check(torch.equal(kq_d.cpu(), kq) and torch.equal(scale_d.cpu().view(torch.int32), scale.view(torch.int32)),
+              f"int8 {name}: the card's kernel or scales != the CPU's")
+    q_cpu = quant_params_from_numpy(tree)
+    q_dev = copy.deepcopy(q_cpu).to(dev)
+    qrng = np.random.default_rng(args.seed + 9)
+    for name, shape, transpose in QUANT_ACC:
+        xq = torch.from_numpy(qrng.integers(-127, 128, shape).astype(np.int8))
+        kq = q_cpu.layers[name].tree()["kernel_q"]
+        acc = quant.qconv_int32(xq, kq, transpose)
+        check(torch.equal(quant.qconv_int32(xq.to(dev), kq.to(dev), transpose).cpu(), acc), f"int8 {name}: the card's int32 accumulators != the CPU's")
+    x = torch.from_numpy(patches).to(dev)
+    t0 = time.perf_counter()
+    lab_cpu = tiling.patch_labels(q_cpu(x[:2].cpu()))
+    cpu_s = time.perf_counter() - t0
+    unet.to(dev)
+    with torch.no_grad():
+        lab_q = tiling.patch_labels(q_dev(x))
+        lab_f = tiling.patch_labels(unet(x))
+        card_agree = float((lab_q[:2].cpu() == lab_cpu).float().mean())
+        float_agree = float((lab_q == lab_f).float().mean())
+        ms = {"int8": cuda_ms(lambda: q_dev(x), 2), "bf16": cuda_ms(lambda: unet(x, torch.bfloat16), 2), "float32": cuda_ms(lambda: unet(x), 2)}
+    check(card_agree >= QUANT_CARD_AGREEMENT, f"int8 labels on the card vs the CPU on 2 patches agree on {card_agree}")
+    check(float_agree >= QUANT_FLOAT_AGREEMENT, f"int8 labels vs the float32 forward's agree on {float_agree}")
+    nbytes = {"int8": sum(b.numel() * b.element_size() for b in q_cpu.buffers()), "float32": sum(p.numel() * 4 for p in unet.parameters())}
+    results["quant"] = {"patches": len(patches), "card_vs_cpu_agreement_2_patches": card_agree, "vs_float32_agreement": float_agree,
+                        "forward_ms": ms, "weight_bytes": nbytes, "cpu_2_patches_s": cpu_s}
+    print(f"int8 U-Net: kernels, scales and the int32 accumulators of {[n for n, _, _ in QUANT_ACC]} equal on the card and the CPU; "
+          f"labels card vs CPU on 2 patches agree {card_agree:.6f}, vs float32 on {len(patches)} patches {float_agree:.6f}; "
+          f"{len(patches)}-patch forward ms " + " ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; weights {nbytes['int8']} bytes int8 vs {nbytes['float32']} float32 [{results['card']}]", flush=True)
 
 
 def phase_keras_import(args, dev, results):
@@ -2540,6 +2774,7 @@ def main() -> int:
     # with torch 2.11), and device_ms then fails
     phase_stat_fish(args, np.random.default_rng(args.seed + 7), dev, errors, results)
     phase_interseg(dev, results)  # draws no numbers: stat_fish's outputs and the demo trees
+    phase_quant(args, dev, results)  # its own generator
     phase_keras_import(args, dev, results)
     phase_train(args, dev, results)
     for row in rows:  # stat_fish's launches and times beside B2's and B3's metaseg rows
@@ -2548,6 +2783,7 @@ def main() -> int:
             row["stat_fish"] = results["stat_fish_kernels"][key]
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
+    print(json.dumps({"grouped": results["grouped"], "host_post": results["host_post"], "quant": results["quant"], "card": smi}))
     print(json.dumps({"command_line": results["command_line"], "card": smi}))
     print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
     print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))

@@ -12,13 +12,16 @@ crop to multiples of 16 and normalize the whole image
    feature; the anchor base size from the mask (host); the RPN head,
    decode, the zero-area filter, the top 6000 by a stable descending sort,
    NMS to 800 and the clip (:func:`proposal_pass`);
-4. the certified device watershed (``ops/watershed_gpu``; kernel B3),
-   recomputed on the host when its certificate is not clean, as the JAX
-   package does, and counted in ``runtime/fallbacks``;
+4. the marker watershed (:func:`watershed_pass`) in the mode that
+   ``ECSEG_FAST_WATERSHED`` selects: by default the certified device
+   watershed (``ops/watershed_gpu``; kernel B3), recomputed on the host
+   when its certificate is not clean, as the JAX package does, and counted
+   in ``runtime/fallbacks``;
 5. the cleanup pass (:func:`cleanup_pass`): ``clean_image`` on kernel B2,
    the resize back as a float32 matmul, the min-max binarize and
    ``remove_small_objects`` (B2), or the host chain when ``device_cleanup``
-   is False or ``resize_scale > 1``.
+   is False (by default under ``ECSEG_DEVICE_PIPELINE=0``) or
+   ``resize_scale > 1``.
 
 Returns uint8 {0, 255}.  The JAX package's geometry bucketing and 1-bit
 transfers exist for XLA's compile cache and a slow host link; they change no
@@ -28,7 +31,7 @@ value and are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +43,9 @@ from ..ops.morphology_gpu import remove_small_objects as remove_small_objects_gp
 from ..ops.normalization import clean_image, foreground_norm, whole_image_norm
 from ..ops.resize import rescale, resize_linear_matmul
 from ..ops.watershed import anchor_size_from_mask, nuset_marker_watershed
-from ..ops.watershed_gpu import nuset_marker_watershed_auto
+from ..ops.watershed_gpu import nuset_marker_watershed_auto, nuset_marker_watershed_fast
 from ..runtime import fallbacks
+from ..runtime.devicepath import fast_watershed_mode, use_device_path
 from ..runtime.trace import stage
 from .nuset import NuSeTRPN, NuSeTUNet, pred_mask
 
@@ -106,15 +110,29 @@ def mask_and_proposals(model: NuSeTModel, image_norm: np.ndarray):
 
 
 def watershed_pass(model: NuSeTModel, mask: np.ndarray, proposals: np.ndarray, scores: np.ndarray) -> np.ndarray:
-    """The certified device watershed; the host priority flood when its
-    certificate is not clean (counted in ``runtime/fallbacks``).  float32."""
+    """The marker watershed in ``runtime/devicepath.fast_watershed_mode()``'s
+    mode (the JAX package's dispatch, ``nuset_infer.py:276-319``): ``host``
+    the host priority flood; ``auto`` the certified device watershed, the
+    host flood when its certificate is not clean (counted in
+    ``runtime/fallbacks``); ``on`` the ungated device pass; ``check`` that
+    pass with its tie count recorded.  float32."""
+    mode = fast_watershed_mode()
     with stage("stat_fish.watershed"):
-        out, n_unc = nuset_marker_watershed_auto(scores, proposals, mask, model.bbox_min_score, model.device)
-    if out is not None:
-        return out.astype(np.float32)
-    fallbacks.record(fallbacks.WATERSHED_UNCERTAIN_PX, n_unc)
-    fallbacks.record(fallbacks.WATERSHED_HOST_RECOMPUTE)
-    return nuset_marker_watershed(scores, proposals, mask, min_score=model.bbox_min_score).astype(np.float32)
+        if mode == "auto":
+            out, n_unc = nuset_marker_watershed_auto(scores, proposals, mask, model.bbox_min_score, model.device)
+            if out is not None:
+                return out.astype(np.float32)
+            fallbacks.record(fallbacks.WATERSHED_UNCERTAIN_PX, n_unc)
+            fallbacks.record(fallbacks.WATERSHED_HOST_RECOMPUTE)
+        elif mode == "check":
+            out, tie_px = nuset_marker_watershed_fast(scores, proposals, mask, model.bbox_min_score, model.device, count_ties=True)
+            if tie_px:
+                fallbacks.record(fallbacks.WATERSHED_TIE_PX, tie_px)
+                fallbacks.record(fallbacks.WATERSHED_TIE_IMAGES)
+            return out.astype(np.float32)
+        elif mode == "on":
+            return nuset_marker_watershed_fast(scores, proposals, mask, model.bbox_min_score, model.device).astype(np.float32)
+        return nuset_marker_watershed(scores, proposals, mask, min_score=model.bbox_min_score).astype(np.float32)
 
 
 def nuset_forward(model: NuSeTModel, image_norm: np.ndarray, pass_two: bool) -> np.ndarray:
@@ -176,14 +194,16 @@ def nuclei_segment_prepare(image: np.ndarray, resize_scale: float):
 
 
 def nuclei_segment(
-    image: np.ndarray, model: NuSeTModel, nuclei_size_t, device_cleanup: bool = True, pre=None
+    image: np.ndarray, model: NuSeTModel, nuclei_size_t, device_cleanup: Optional[bool] = None, pre=None
 ) -> np.ndarray:
     """reference src/utils.py:134-163: uint8 {0, 255} nuclei mask at the
     input's resolution.  ``pre``: a :func:`nuclei_segment_prepare` result
-    made with the model's ``resize_scale``.  ``device_cleanup`` False runs
-    the host cleanup chain, as does ``resize_scale > 1``: the host's
-    downscale back then applies a gaussian prefilter the matmul resize does
-    not."""
+    made with the model's ``resize_scale``.  ``device_cleanup`` (default:
+    ``runtime/devicepath.use_device_path()``) False runs the host cleanup
+    chain, as does ``resize_scale > 1``: the host's downscale back then
+    applies a gaussian prefilter the matmul resize does not."""
+    if device_cleanup is None:
+        device_cleanup = use_device_path()
     resize_scale = model.resize_scale
     if resize_scale > 1:
         device_cleanup = False

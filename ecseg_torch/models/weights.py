@@ -64,6 +64,20 @@ def params_from_numpy(tree: Dict) -> MetasegUNet:
     return model
 
 
+def quant_params_from_numpy(tree: Dict, skip=("enc1_1",)):
+    """The int8 U-Net (``models/quant.QuantMetasegUNet``, on the CPU) of the
+    same numpy tree that :func:`params_from_numpy` reads, quantized as the
+    JAX package's ``quantize_unet(params, skip)`` quantizes it."""
+    from .quant import QuantMetasegUNet, quantize_unet
+
+    levels = max(int(k[3]) for k in tree if k.startswith("enc"))
+    names = {"bott_1", "bott_2", "head"} | {f"{k}{i}{s}" for i in range(1, levels + 1) for k, s in
+                                             (("enc", "_1"), ("enc", "_2"), ("up", ""), ("dec", "_1"), ("dec", "_2"))}
+    if set(tree) != names:
+        raise ValueError(f"parameter tree layers {sorted(tree)} do not match the U-Net's")
+    return QuantMetasegUNet(quantize_unet(tree, skip))
+
+
 def _kernel_from_layer(layer: nn.Module, w: torch.Tensor) -> np.ndarray:
     """Inverse of :func:`_layer_from_kernel`: a tensor in ``layer``'s weight
     layout to the JAX kernel layout, as a numpy copy."""

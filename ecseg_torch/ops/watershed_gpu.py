@@ -1,5 +1,5 @@
 """The certified NuSeT watershed on device tensors (twin of
-``ecseg_tpu/ops/watershed_tpu.py:42-118,176-262,344-370``), plain torch ops
+``ecseg_tpu/ops/watershed_tpu.py:42-118,176-370``), plain torch ops
 around kernel B3.
 
 :func:`nuset_fast_pass` is the device body of the reference's watershed
@@ -15,8 +15,13 @@ for bit; :func:`nuset_marker_watershed_auto` returns it then and ``None``
 otherwise, and the caller recomputes on the host.
 
 The JAX package pads the pass to multiples of 128 so that a folder of mixed
-sizes compiles few programs; nothing here compiles, so the pass runs at the
-mask's own size, the host chain's geometry.
+sizes compiles few programs; nothing here compiles, so the certified pass
+runs at the mask's own size, the host chain's geometry (the certificate
+gates what leaves it).  The ungated fast path
+(:func:`nuset_marker_watershed_fast`, ``ECSEG_FAST_WATERSHED=on|check``)
+returns its contour as it is, and the padding moves the EDT of blobs cut by
+the bottom or right edge, so it runs the JAX package's padded geometry and
+crops.
 """
 
 from __future__ import annotations
@@ -115,6 +120,46 @@ def nuset_fast_pass(pred_mask: torch.Tensor, markers: torch.Tensor) -> Tuple[tor
         unc |= both & ~ismark & (own_tie | line_tie)
     n_unc = int(unc.sum()) + (0 if converged else UNCONVERGED)
     return (lab > 0) & ~line & mask, n_unc
+
+
+FAST_PAD = 128  # the JAX package's fast-pass geometry: each side up to a multiple of 128
+
+
+def _run_fast_pass(pred_mask: np.ndarray, markers: np.ndarray, device) -> np.ndarray:
+    """:func:`nuset_fast_pass` on ``device`` at the JAX package's padded
+    geometry (``_run_fast_pass``, ``watershed_tpu.py:277-294``), cropped
+    back: the bool (H, W) contour."""
+    h, w = pred_mask.shape
+    hp, wp = (max(FAST_PAD, -(-d // FAST_PAD) * FAST_PAD) for d in (h, w))
+    mask_p = torch.zeros((hp, wp), dtype=torch.bool, device=device)
+    mask_p[:h, :w] = torch.from_numpy(pred_mask != 0)
+    mark_p = torch.zeros((hp, wp), dtype=torch.int32, device=device)
+    mark_p[:h, :w] = torch.from_numpy(markers.astype(np.int32))
+    contour, _ = nuset_fast_pass(mask_p, mark_p)
+    return contour[:h, :w].cpu().numpy()
+
+
+def nuset_marker_watershed_fast(
+    scores: np.ndarray, proposals: np.ndarray, pred_mask: np.ndarray, min_score: float, device, count_ties: bool = False
+):
+    """The ungated device watershed (``ECSEG_FAST_WATERSHED=on|check``, the
+    JAX package's ``nuset_marker_watershed_fast``): host marker placement,
+    then the fast pass at the padded geometry, its contour kept whatever
+    the certificate says.  int32 result; with no marker ``pred_mask``
+    itself.  ``count_ties``: a second pass with the marker ids permuted
+    (id -> max + 1 - id) and ``(result, the contour pixels that differ)``
+    returned."""
+    pred_mask = np.asarray(pred_mask)
+    markers = nuset_place_markers(scores, proposals, pred_mask, min_score)
+    if markers is None:  # reference marker_watershed.py:86-89: all-ones contour
+        out = pred_mask.astype(np.int32)
+        return (out, 0) if count_ties else out
+    contour = _run_fast_pass(pred_mask, markers, device)
+    result = (pred_mask * contour).astype(np.int32)
+    if not count_ties:
+        return result
+    perm = np.where(markers > 0, int(markers.max()) + 1 - markers, 0)
+    return result, int(np.count_nonzero(contour != _run_fast_pass(pred_mask, perm, device)))
 
 
 def nuset_marker_watershed_auto(

@@ -14,6 +14,8 @@ decode, the split and its PNG writes run on reader threads
 (``runtime/batching.prefetch_map``) while the main thread drives the card.
 Non-RGB inputs are skipped; a folder with no RGB image gets no CSV (the
 reference crashes there; README "Deliberate deviations").
+``ECSEG_DEVICE_PIPELINE=0`` computes the statistics by the host oracles
+instead (:func:`host_stats`, the JAX package's host branch).
 
 Not ported (ROADMAP A6e): the JAX package's fan-out of images over several
 devices (``ECSEG_OVERLAY_SHARD``).
@@ -31,8 +33,11 @@ from ..core import imgio
 from ..core.config import Config, ConfigError, load_config
 from ..core.csvio import write_csv
 from ..device import DeviceLike, resolve_device
+from ..ops.cc import count_cc
+from ..ops.meta_post import count_colocalization, count_HSR
 from ..ops.overlay_gpu import HSR_SIZE_THRESHOLD, cc_pair_host_quirk, overlay_stats
 from ..runtime.batching import prefetch_map
+from ..runtime.devicepath import use_device_path
 from ..runtime.trace import stage
 
 FIRST_FISH, SECOND_FISH = "green", "red"
@@ -87,8 +92,29 @@ def _read_split(image_path: str, sensitivity: int):
         return res + (nuclei, chrom, ec)
 
 
+def host_stats(red, green, nuclei, chrom, ec, hsr_size_threshold: int = HSR_SIZE_THRESHOLD) -> dict:
+    """The nine statistics by the host oracles on numpy masks, the JAX
+    package's host branch (``meta_overlay.py:155-167``, the reference's
+    dataflow, meta_overlay.py:68-83), keyed as ``overlay_stats``'s.  The
+    pairs are ``count_cc``'s tuples, which ``cc_pair_host_quirk`` leaves as
+    they are."""
+    fish, fish2 = green & ~nuclei, red & ~nuclei
+    return {
+        "num_ecDNA": count_cc(ec),
+        "num_FISH": count_cc(fish & ~chrom),
+        "num_ecDNA_FISH": count_colocalization(ec, fish),
+        "num_HSR": count_HSR(chrom, fish, hsr_size_threshold),
+        "num_FISH2": count_cc(fish2 & ~chrom),
+        "num_FISH_FISH2": count_colocalization(fish & ~chrom, fish2 & ~chrom),
+        "num_ecDNA_FISH2": count_colocalization(ec, fish2),
+        "num_ecDNA_FISH_FISH2": count_colocalization(ec, fish2 & fish),
+        "num_HSR2": count_HSR(chrom, fish2, hsr_size_threshold),
+    }
+
+
 def image_row(name: str, stats: dict, hw: int) -> list:
-    """One CSV row, in ``COLUMNS`` order, from ``overlay_stats``'s output."""
+    """One CSV row, in ``COLUMNS`` order, from ``overlay_stats``'s or
+    :func:`host_stats`'s output."""
     cells = {k: cc_pair_host_quirk(v, hw) if k in PAIRS else v for k, v in stats.items()}
     return [name] + [cells[key] for _, key in COLUMNS[1:]]
 
@@ -120,12 +146,13 @@ def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) 
     os.makedirs(os.path.join(inpath, "green"), exist_ok=True)
 
     image_paths = imgio.get_imgs(inpath)
+    device_path = use_device_path()
     rows = []
     for path, masks in prefetch_map(lambda p: _read_split(p, sensitivity), image_paths):
         if masks is None:
             continue
         with stage("meta_overlay.stats"):
-            stats = overlay_stats(*masks, HSR_SIZE_THRESHOLD, device=dev)
+            stats = overlay_stats(*masks, HSR_SIZE_THRESHOLD, device=dev) if device_path else host_stats(*masks)
         rows.append(image_row(os.path.basename(path), stats, masks[2].size))
 
     if not rows:

@@ -1,28 +1,33 @@
 """metaseg: folder-batch 4-class DAPI segmentation on the card (twin of
-``ecseg_tpu/pipelines/metaseg.py``, its per-image device path).
+``ecseg_tpu/pipelines/metaseg.py``, its single-device paths).
 
 Pipeline parity target: reference src/metaseg.py:12-57 + src/utils.py:109-120.
 Per image: read -> meta_preprocess -> save inverted DAPI -> overlap-patchify
-(host, on reader threads) -> U-Net forward over the whole patch stack ->
-exact uint8 quantize + argmax -> stitch (kernel B1) -> meta_inference
-(``ops/meta_post_gpu``: by default on kernels B2-B6; ``ECSEG_MC_LABEL=0``
-selects the per-class form on B2-B4 and ``ECSEG_MC_MERGE=1`` the fused
-merge on B9, as in the JAX package) -> ecDNA count (B2) -> write
-``labels/<name>.png``, ``labels/<name>.npy`` and one row of
-``ec_quantification.csv``.  When the device meta_inference reports ``ok``
-False (a component budget overflowed) the image is redone on the host
-oracle and counted in ``runtime/fallbacks``.
+(host, on reader threads) -> U-Net forward -> exact uint8 quantize + argmax
+-> stitch (kernel B1) -> meta_inference (``ops/meta_post_gpu``: by default
+on kernels B2-B6; ``ECSEG_MC_LABEL=0`` selects the per-class form on B2-B4
+and ``ECSEG_MC_MERGE=1`` the fused merge on B9, as in the JAX package) ->
+ecDNA count (B2) -> write ``labels/<name>.png``, ``labels/<name>.npy`` and
+one row of ``ec_quantification.csv``.  When the device meta_inference
+reports ``ok`` False (a component budget overflowed) the image is redone on
+the host oracle and counted in ``runtime/fallbacks``.
 
-Not ported yet (ROADMAP): the grouped multi-image dispatch, fast start and
-the program cache, the 2-bit result packing and the sharded multi-chip
-paths.
+Images of one geometry are grouped (``ECSEG_METASEG_GROUP``, default 8,
+capped by ``ECSEG_METASEG_PATCH_BUDGET`` patches): one forward over the
+group's patches, then B1 and the post per canvas, the group's ``ok`` flags
+and counts in one copy (:func:`segment_folder`).  ``ECSEG_DEVICE_PIPELINE=0``
+runs the host oracle after the forward and B1.
+
+Not ported (ROADMAP): fast start and the program cache, the padding of
+partial groups, ``ECSEG_GROUP_POST=vmap``, the 2-bit result packing and the
+sharded multi-chip paths.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +46,7 @@ from ..ops.meta_post import meta_inference, meta_preprocess
 from ..ops.meta_post_gpu import count_roots_gpu, meta_inference_gpu
 from ..runtime import fallbacks
 from ..runtime.batching import prefetch_map
+from ..runtime.devicepath import use_device_path
 from ..runtime.trace import stage
 
 
@@ -79,35 +85,127 @@ def _prepare_image(image_path: str, save_dapi: bool = True):
     return patches, tuple(map(tuple, pos))
 
 
+def segment_group(
+    model: torch.nn.Module, stacks: Sequence[np.ndarray], positions: Sequence[Tuple[int, int]]
+) -> List[torch.Tensor]:
+    """(N, 256, 256, 1) uint8 patch stacks of images of one geometry -> their
+    stitched (H, W) int32 label maps: one forward over the concatenated
+    stacks, exact uint8 quantize + argmax per patch, then B1 per canvas, on
+    the model's device."""
+    device = model_device(model)
+    with stage("metaseg.forward"), torch.no_grad():
+        x = torch.from_numpy(stacks[0] if len(stacks) == 1 else np.concatenate(stacks)).to(device)
+        label_patches = tiling.patch_labels(model(x))
+    n = len(positions)
+    with stage("metaseg.stitch"):
+        return [stitch_labels(label_patches[k * n : (k + 1) * n], positions) for k in range(len(stacks))]
+
+
 def segment_raw(
     model: torch.nn.Module, patches: np.ndarray, positions: Sequence[Tuple[int, int]]
 ) -> torch.Tensor:
-    """(N, 256, 256, 1) uint8 patches -> the stitched (H, W) int32 label map
-    (forward, exact uint8 quantize + argmax per patch, B1 stitch), on the
-    model's device."""
-    device = model_device(model)
-    with stage("metaseg.forward"), torch.no_grad():
-        probs = model(torch.from_numpy(patches).to(device))
-        label_patches = tiling.patch_labels(probs)
-        del probs
-    with stage("metaseg.stitch"):
-        return stitch_labels(label_patches, positions)
+    """One image's stitched (H, W) int32 label map (:func:`segment_group` of
+    one stack)."""
+    return segment_group(model, [patches], positions)[0]
+
+
+def host_post(raw: np.ndarray) -> Tuple[np.ndarray, int]:
+    """The host oracle: (int64 labels, #ecDNA) of a raw label map."""
+    I = meta_inference(raw.astype(np.int64))
+    return I, count_cc(I == 3)[0]
+
+
+def post_group(raws: Sequence[torch.Tensor]) -> List[Tuple[np.ndarray, int, bool]]:
+    """Device meta_inference + ecDNA count of each canvas; every canvas's
+    ``ok`` and count come back in one device-to-host copy, the labels of the
+    ``ok`` ones in one more.  A canvas whose ``ok`` is False is redone on the
+    host oracle and counted in ``runtime/fallbacks``.  Returns (int64 labels,
+    #ecDNA, ok) per canvas."""
+    with stage("metaseg.post"):
+        outs, flags = [], []
+        for raw in raws:
+            out, ok = meta_inference_gpu(raw)
+            outs.append(out)
+            flags.append(torch.stack([ok.long(), count_roots_gpu(out == 3).long()]))
+        flags = torch.stack(flags).cpu().numpy()
+        good = [k for k in range(len(raws)) if flags[k, 0]]
+        labels = dict(zip(good, torch.stack([outs[k] for k in good]).cpu().numpy())) if good else {}
+    results = []
+    for k, raw in enumerate(raws):
+        if k in labels:
+            results.append((labels[k], int(flags[k, 1]), True))
+            continue
+        fallbacks.record(fallbacks.META_POST_OK)
+        with stage("metaseg.host_redo"):
+            results.append(host_post(raw.cpu().numpy()) + (False,))
+    return results
 
 
 def post_process(raw: torch.Tensor) -> Tuple[np.ndarray, int, bool]:
-    """Device meta_inference + ecDNA count; the host oracle redoes the image
-    when the device reports ``ok`` False.  Returns (int64 labels, #ecDNA,
-    ok)."""
-    with stage("metaseg.post"):
-        out, ok = meta_inference_gpu(raw)
-        num = count_roots_gpu(out == 3)
-        ok = bool(ok)
-        if ok:
-            return out.cpu().numpy(), int(num), ok
-    fallbacks.record(fallbacks.META_POST_OK)
-    with stage("metaseg.host_redo"):
-        I = meta_inference(raw.cpu().numpy().astype(np.int64))
-        return I, count_cc(I == 3)[0], ok
+    """:func:`post_group` of one canvas."""
+    return post_group([raw])[0]
+
+
+def _group_size() -> int:
+    """Images per grouped dispatch, from ``ECSEG_METASEG_GROUP`` (default 8,
+    8 when not an integer); <= 1 runs each image alone (the JAX package's
+    per-image program)."""
+    try:
+        return int(os.environ.get("ECSEG_METASEG_GROUP", "8"))
+    except ValueError:
+        return 8
+
+
+def geo_group(positions: Sequence[Tuple[int, int]], group: int) -> int:
+    """The group size of one geometry: at most ``ECSEG_METASEG_PATCH_BUDGET``
+    (default 256) patches in a forward, at least one image
+    (``metaseg.py:587-598``)."""
+    budget = int(os.environ.get("ECSEG_METASEG_PATCH_BUDGET", "256"))
+    return max(1, min(group, budget // max(1, len(positions))))
+
+
+def segment_folder(model: torch.nn.Module, image_paths: Sequence[str], device_post: bool = True):
+    """Yields (path, int64 labels, #ecDNA) of each image, in input order.
+    Images are bucketed by geometry; a bucket is flushed when it holds
+    ``geo_group`` images, the rest at the end of the folder.  A flush runs
+    :func:`segment_group` and :func:`post_group` (the JAX package's grouped
+    single-chip dispatch, ``metaseg.py:580-715``; its padding of partial
+    groups serves XLA's compile cache and is not ported).  ``device_post``
+    False (``ECSEG_DEVICE_PIPELINE=0``) runs each image alone through the
+    forward, B1 and the host oracle, as the JAX package's per-image host
+    branch does."""
+    group = _group_size() if device_post else 1
+    buckets, results, cursor = {}, {}, 0
+
+    def flush(pos, items):
+        raws = segment_group(model, [patches for _, _, patches in items], pos)
+        if device_post:
+            outs = post_group(raws)
+        else:
+            outs = []
+            for raw in raws:
+                with stage("metaseg.meta_inference"):
+                    outs.append(host_post(raw.cpu().numpy()))
+        for (idx, path, _), (I, num, *_) in zip(items, outs):
+            results[idx] = (path, I, num)
+
+    def emit():
+        nonlocal cursor
+        while cursor in results:
+            yield results.pop(cursor)
+            cursor += 1
+
+    for idx, (path, (patches, pos)) in enumerate(prefetch_map(_prepare_image, image_paths)):
+        items = buckets.setdefault(pos, [])
+        items.append((idx, path, patches))
+        if len(items) == geo_group(pos, group):
+            flush(pos, items)
+            buckets[pos] = []
+            yield from emit()
+    for pos, items in buckets.items():
+        if items:
+            flush(pos, items)
+    yield from emit()
 
 
 def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) -> int:
@@ -128,8 +226,7 @@ def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) 
 
     rows = []
     print("Reading from: ", inpath)
-    for path, (patches, pos) in prefetch_map(_prepare_image, image_paths):
-        I, num_ecDNA, _ = post_process(segment_raw(model, patches, pos))
+    for path, I, num_ecDNA in segment_folder(model, image_paths, use_device_path()):
         print("Processing image: ", path)
         head, tail = os.path.split(path)
         outpath = os.path.join(head, "labels", tail[:-4])

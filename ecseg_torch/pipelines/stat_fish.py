@@ -17,12 +17,14 @@ config (named by the git commit) and of the params file.
 ``scale: auto`` resolves on the first image and the number serves the rest
 (reference stat_fish.py:228): the other tails wait for it.  Results are
 gathered in submission order, so the CSV's rows keep the input order.
-``device_path=False`` runs the host cleanup chain and the host matched
-filter instead (the JAX package's CPU default; the tests' oracle).
+``device_path`` (default: ``runtime/devicepath.use_device_path()``, so
+``ECSEG_DEVICE_PIPELINE=0`` sets it False) False runs the host cleanup
+chain and the host matched filter instead (the JAX package's CPU default;
+the tests' oracle).  ``ECSEG_FAST_WATERSHED`` picks the watershed's mode
+(``models/nuset_infer.watershed_pass``).
 
 Not ported (ROADMAP): the multi-device fan-out (``ECSEG_STAT_FISH_SHARD``),
-the ungated watershed modes (``ECSEG_FAST_WATERSHED=on|check``), geometry
-bucketing and the 1-bit transfers.
+geometry bucketing and the 1-bit transfers.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..ops import maxflow, region_stats
 from ..ops.cc import label as cc_label
 from ..runtime import fallbacks
 from ..runtime.batching import prefetch_map
+from ..runtime.devicepath import use_device_path
 from ..runtime.trace import stage
 
 AQUA_RGB = [233, 137, 54]  # reference stat_fish.py:163
@@ -83,8 +86,12 @@ def _git_commit() -> str:
     return out.stdout.decode().strip().split(" ")[-1]
 
 
-def main(argv=None, config: Optional[Config] = None, params=None, device: DeviceLike = None, device_path: bool = True) -> int:
+def main(
+    argv=None, config: Optional[Config] = None, params=None, device: DeviceLike = None, device_path: Optional[bool] = None
+) -> int:
     dev = resolve_device(device)
+    if device_path is None:
+        device_path = use_device_path()
     if config is None:
         config = load_config()
     if params is None:

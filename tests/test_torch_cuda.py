@@ -21,7 +21,10 @@ tests/test_torch_nuset_infer.py hold against the JAX package.  The
 trainer's float32 step runs on the card against the CPU, and resumes from
 a checkpoint bit-equal, as chip_smoke.py's train phase checks at the
 default widths (tests/test_torch_train.py holds the trainer against the
-JAX package).
+JAX package).  metaseg's grouped dispatch runs on the card grouped, in
+pairs and per image with the same bytes as the CPU run
+(tests/test_torch_metaseg_grouped.py holds the CPU runs against the JAX
+package's grouped run).
 """
 
 import numpy as np
@@ -592,3 +595,40 @@ def test_train_step_on_the_card_matches_the_cpu_and_resumes_bit_equal(cuda, tmp_
     for bx, by in batches[2:]:
         tt.train_step(resumed, resumed_opt, bx, by)
     assert all(torch.equal(p, q) for p, q in zip(whole.parameters(), resumed.parameters()))
+
+
+@pytest.mark.cuda
+def test_grouped_metaseg_on_the_card_equals_per_image_and_the_cpu(cuda, tmp_path, monkeypatch):
+    """``metaseg.main`` on the card on four synthetic DAPI images of two
+    geometries (one crowded, redone on the host inside its group) with the
+    narrow demo U-Net: grouped (the default), in pairs and per image give
+    the same ``labels/*.npy``, PNGs and CSV bytes, equal to the CPU run's."""
+    import shutil
+
+    import chip_smoke as cs
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.demo import demo_metaseg_params
+    from ecseg_torch.models.weights import params_to_numpy, save_npz
+    from ecseg_torch.pipelines import metaseg
+
+    model = demo_metaseg_params(torch.Generator().manual_seed(0), widths=(8, 16), bottleneck=32)
+    save_npz(str(tmp_path / "models" / "metaseg.npz"), params_to_numpy(model))
+    monkeypatch.chdir(tmp_path)
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(0)
+    for k, (h, w) in enumerate([(320, 352), (320, 310), (320, 352), (320, 352)]):
+        imgio.write_tiff(str(src / f"img{k}.tif"), cs.synthetic_dapi(rng, h, w, crowded=k == 2))
+    outs = {}
+    for run, group, device in [("per_image", "1", None), ("grouped", None, None), ("pairs", "2", None), ("cpu", None, "cpu")]:
+        folder = tmp_path / run
+        shutil.copytree(src, folder)
+        if group is None:
+            monkeypatch.delenv("ECSEG_METASEG_GROUP", raising=False)
+        else:
+            monkeypatch.setenv("ECSEG_METASEG_GROUP", group)
+        assert metaseg.main(config=Config(raw={"metaseg": {"inpath": str(folder)}}), device=device) == 0
+        outs[run] = {f: (folder / f).read_bytes() for f in ["ec_quantification.csv"] + [f"labels/img{k}.{e}" for k in range(4) for e in ("npy", "png")]}
+    for run in ("grouped", "pairs", "cpu"):
+        assert outs[run] == outs["per_image"], run
