@@ -143,6 +143,20 @@ Phases (any failure raises; exit code 0 only when all pass):
    per image, the batched card labels equal per-row card labels
    (probabilities within 1e-5) and the CPU's on the same crops; the
    classifiers on the card, ecSeg-c run; per-image stage times.  Then the
+   multi-device paths (``phase_multidevice``) on every card, or on one card
+   on a logical mesh of it listed twice (printed), reusing the folders of
+   the phases above: ``metaseg.main(devices=...)`` on the main path's four
+   images in the default form and under ``ECSEG_DEVICE_PIPELINE=0``,
+   ``meta_overlay``, ``stat_fish`` and ``interseg`` ``main(devices=...)``,
+   each byte-equal to its single-card run with the same launches (``=0``:
+   none) and one host redo (the default form); every fan-out under
+   PyTorch's default cuDNN flags, which read the same after it, with
+   ``allow_tf32`` False at each float32 convolution in the workers; then
+   ``train_step_on_mesh`` on a (data 2, model 2) mesh of four entries at
+   the default widths (batch 16, 256^2): three float32 steps' losses and
+   the first step's gradients against the single card's ``train_step``
+   (phase_train's bound) and one bf16 step; ms per image (per step) of
+   each path, mesh against one card.  Then the
    int8 U-Net (``phase_quant``, ``models/quant.py``) at the default widths
    with the main path's demo weights on image 0's 100 patches: int8
    kernels, scales and two layers' int32 accumulators equal on the card
@@ -162,7 +176,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    ``python3 -m ecseg_torch.pipelines.metaseg`` (B1-B6 launches, labels
    equal to the host oracle); ms a step, TFLOP/s and peak memory in
    float32, bf16 and both with remat, and the host's crop and copy time;
-7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``,
+7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``,
    ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
@@ -179,6 +193,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -716,13 +731,14 @@ def lzw_tiff_bytes(img: np.ndarray, byte_order: str = "<", rows_per_strip: int =
     return bytes(blob)
 
 
-def run_main(folder, form, n_images, env=None, per_image=None, redos=1, tag=None):
+def run_main(folder, form, n_images, env=None, per_image=None, redos=1, tag=None, devices=None):
     """``main`` on ``folder`` in one post-processing form (and ``env``'s
-    other variables), with every launch counter, the fallback counts and the
-    stage tracer set to 0 just before and read just after; checks the
-    launches (``per_image``, by default the form's ``PER_IMAGE_LAUNCHES``,
-    times ``n_images``) and the host redos (one: each folder holds the
-    crowded image).  Returns (launches, stages, wall s)."""
+    other variables), on the card (``devices``: on that mesh), with every
+    launch counter, the fallback counts and the stage tracer set to 0 just
+    before and read just after; checks the launches (``per_image``, by
+    default the form's ``PER_IMAGE_LAUNCHES``, times ``n_images``) and the
+    host redos (one: each folder holds the crowded image).  Returns
+    (launches, stages, wall s)."""
     from ecseg_torch.core.config import Config
     from ecseg_torch.ops import cc_kernels as K
     from ecseg_torch.pipelines import metaseg
@@ -736,7 +752,8 @@ def run_main(folder, form, n_images, env=None, per_image=None, redos=1, tag=None
         tracer.reset()
         K.reset_launches()
         t0 = time.perf_counter()
-        check(metaseg.main(config=Config(raw={"metaseg": {"inpath": folder}})) == 0, f"metaseg.main ({tag}) did not return 0")
+        where = {"devices": devices} if devices is not None else {"device": "cuda"}
+        check(metaseg.main(config=Config(raw={"metaseg": {"inpath": folder}}), **where) == 0, f"metaseg.main ({tag}) did not return 0")
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         stages = tracer.times()
@@ -832,6 +849,11 @@ def phase_main_path(args, rng, dev, errors, results):
             shutil.copy(os.path.join(folder, name), keep)
             shutil.copy(os.path.join(folder, "labels", name[:-4] + ".npy"), os.path.join(keep, "labels"))
         results["train_folder"] = keep
+        # the folder with the default run's outputs and the weights: phase_multidevice's input and reference
+        keep = tempfile.mkdtemp(prefix="ecseg_multidevice_metaseg_")
+        shutil.copytree(os.path.join(work, "models"), os.path.join(keep, "models"))
+        shutil.copytree(folder, os.path.join(keep, "imgs"))
+        results["multidevice_metaseg"] = keep
         print(f"main path outputs equal the host oracle; ok flags {oks}; ec counts {counts}", flush=True)
 
         # byte-identical rerun of one image
@@ -841,7 +863,7 @@ def phase_main_path(args, rng, dev, errors, results):
         runs = []
         with post_form("default"):
             for _ in range(2):
-                check(metaseg.main(config=Config(raw={"metaseg": {"inpath": again}})) == 0, "rerun failed")
+                check(metaseg.main(config=Config(raw={"metaseg": {"inpath": again}}), device="cuda") == 0, "rerun failed")
                 runs.append(read_bytes(os.path.join(again, "labels", "img0.npy")))
         runs.append(read_bytes(os.path.join(folder, "labels", "img0.npy")))
         check(runs[0] == runs[1] == runs[2], "labels/*.npy bytes differ between runs")
@@ -989,7 +1011,7 @@ def phase_command_line(args, rng, dev, results):
         os.chdir(work)
         model = metaseg.load_model(device=dev)
         with post_form("default"):
-            check(metaseg.main(config=Config(raw={"metaseg": {"inpath": os.path.join(work, "inproc")}})) == 0, "in-process main failed")
+            check(metaseg.main(config=Config(raw={"metaseg": {"inpath": os.path.join(work, "inproc")}}), device="cuda") == 0, "in-process main failed")
             for name in names:
                 npy = os.path.join("labels", name[:-4] + ".npy")
                 out = np.load(os.path.join(work, "imgs", npy))
@@ -1164,7 +1186,7 @@ def phase_meta_overlay(args, rng, dev, errors, results):
         tracer.reset()
         K.reset_launches()
         t0 = time.perf_counter()
-        rc = meta_overlay.main(config=Config(raw={"meta_overlay": {"inpath": inproc, "color_sensitivity": OVERLAY_SENSITIVITY}}))
+        rc = meta_overlay.main(config=Config(raw={"meta_overlay": {"inpath": inproc, "color_sensitivity": OVERLAY_SENSITIVITY}}), device="cuda")
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         stages = tracer.times()
@@ -1181,7 +1203,7 @@ def phase_meta_overlay(args, rng, dev, errors, results):
         K.reset_launches()
         t0 = time.perf_counter()
         with environ({"ECSEG_DEVICE_PIPELINE": "0"}):
-            rc = meta_overlay.main(config=Config(raw={"meta_overlay": {"inpath": host_dir, "color_sensitivity": OVERLAY_SENSITIVITY}}))
+            rc = meta_overlay.main(config=Config(raw={"meta_overlay": {"inpath": host_dir, "color_sensitivity": OVERLAY_SENSITIVITY}}), device="cuda")
         host_wall = time.perf_counter() - t0
         check(rc == 0 and not any(K.LAUNCHES.values()), f"meta_overlay under ECSEG_DEVICE_PIPELINE=0: rc {rc}, launches {dict(K.LAUNCHES)}")
         check(read_bytes(csv_path(host_dir)) == read_bytes(csv_path(inproc)), "meta_overlay under ECSEG_DEVICE_PIPELINE=0: CSV bytes != the device run's")
@@ -1226,6 +1248,7 @@ def phase_meta_overlay(args, rng, dev, errors, results):
         dim_row = next(ln for ln in lines[1:] if ln.startswith(names[2] + ","))
         check(dim_row.count('"(0, 0.0)"') == 2, f"the dim image's FISH counts are not (0, 0.0): {dim_row}")
         results["overlay_launches"] = launches
+        results["multidevice_overlay"] = shutil.move(inproc, tempfile.mkdtemp(prefix="ecseg_multidevice_overlay_"))
         results["overlay_fish2_nc"] = fish2_nc
         results["overlay"] = {
             "images": len(names), "wall_s": wall, "stages_s": stages, "cli_s": cli_s, "encode_s": encode_s,
@@ -1449,7 +1472,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         K.reset_launches()
         try:
             t0 = time.perf_counter()
-            rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": inproc, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}))
+            rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": inproc, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}), device="cuda")
             wall = time.perf_counter() - t0
         finally:
             os.chdir(cwd)
@@ -1500,7 +1523,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         try:
             t0 = time.perf_counter()
             with environ({"ECSEG_FAST_WATERSHED": "host"}):
-                rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": host_ws, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}))
+                rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": host_ws, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}), device="cuda")
             host_wall = time.perf_counter() - t0
         finally:
             os.chdir(cwd)
@@ -1698,6 +1721,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         # the command line's folder (images and annotated/) is interseg's input
         keep = tempfile.mkdtemp(prefix="ecseg_stat_fish_out_")
         results["stat_fish_folder"] = shutil.move(imgs, os.path.join(keep, "imgs"))
+        shutil.copytree(os.path.join(work, "models"), os.path.join(keep, "models"))  # phase_multidevice's NuSeT weights
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1842,7 +1866,7 @@ def phase_interseg(dev, results):
         K.reset_launches()
         try:
             t0 = time.perf_counter()
-            rc = interseg.main(config=Config(raw=raw))
+            rc = interseg.main(config=Config(raw=raw), device="cuda")
             wall = time.perf_counter() - t0
         finally:
             os.chdir(cwd)
@@ -1910,9 +1934,323 @@ def phase_interseg(dev, results):
             "max_abs_batched_vs_rows": max_err, "stages_s": {k: v for k, v in stages.items() if k.startswith("interseg.")},
             "predict_tflops": tflops,
         }
+        results["multidevice_stat_fish"] = folder  # stat_fish's and interseg's inputs and outputs
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        shutil.rmtree(os.path.dirname(folder), ignore_errors=True)
+
+
+MULTIDEVICE_TRAIN_MODEL_AXIS = 2  # the training mesh: (data 2, model 2)
+MULTIDEVICE_TRAIN_STEPS = 3
+# bf16 gradients, mesh against one card: 4 L 2^-8 relative L2 for the L = 23
+# convolution layers at the default widths (tests/test_torch_train.py's BF16_GRAD_TOL)
+MULTIDEVICE_BF16_GRAD_TOL = 4 * 23 * 2.0**-8
+CALLER_FLAGS = {"enabled": True, "benchmark": False, "deterministic": False, "allow_tf32": True}  # PyTorch's defaults
+
+
+def multidevice_entries(n: int = 2):
+    """Every card when there is more than one, else a logical mesh: the one
+    card listed ``n`` times (it shows the code paths, the launches and the
+    bytes of a mesh, and no speed-up)."""
+    cards = torch.cuda.device_count()
+    return [f"cuda:{k}" for k in range(cards)] if cards > 1 else ["cuda:0"] * n
+
+
+def _cudnn_flags():
+    c = torch.backends.cudnn
+    return {"enabled": c.enabled, "benchmark": c.benchmark, "deterministic": c.deterministic, "allow_tf32": c.allow_tf32}
+
+
+@contextlib.contextmanager
+def parity_probe(tag):
+    """Run a fan-out under the caller's flags (PyTorch's defaults, TF32 on)
+    and record, at every float32 convolution (``F.conv2d`` and
+    ``F.conv_transpose2d``, which every float32 forward calls), the calling
+    thread and cuDNN's ``allow_tf32``.  After the fan-out: every record False
+    (each worker's first forward included) and the caller's flags back.
+    Yields the records."""
+    import torch.nn.functional as F
+
+    records = []
+    real = {name: getattr(F, name) for name in ("conv2d", "conv_transpose2d")}
+
+    def probe(fn):
+        def wrapped(x, *a, **kw):
+            if x.dtype == torch.float32:
+                records.append((threading.get_ident(), torch.backends.cudnn.allow_tf32))
+            return fn(x, *a, **kw)
+        return wrapped
+
+    with torch.backends.cudnn.flags(**CALLER_FLAGS):
+        for name, fn in real.items():
+            setattr(F, name, probe(fn))
+        try:
+            yield records
+        finally:
+            for name, fn in real.items():
+                setattr(F, name, fn)
+        after = _cudnn_flags()
+    check(after == CALLER_FLAGS, f"{tag}: cuDNN's flags after the fan-out {after} != the caller's {CALLER_FLAGS}")
+    first = {}
+    for thread, tf32 in records:
+        first.setdefault(thread, tf32)
+    check(not any(tf32 for _, tf32 in records), f"{tag}: {sum(t for _, t in records)} of {len(records)} float32 convolutions ran with allow_tf32 True")
+    print(f"{tag}: {len(records)} float32 convolutions on {len(first)} threads, allow_tf32 False in each (first forward of each: "
+          f"{sorted(set(first.values()))}); the caller's flags back after the fan-out", flush=True)
+
+
+def _mesh_grads(step):
+    """The mesh step's summed gradients by parameter name, float64 on the
+    CPU, split kernels concatenated (row 0's slots)."""
+    pieces = {}
+    for name, _, p in step.model.slots(0):
+        pieces.setdefault(name, []).append(p.grad.double().cpu())
+    dims = step.model.shard_dims()
+    return {n: torch.cat(g, dims.get(n, 0)) for n, g in pieces.items()}
+
+
+def phase_multidevice(args, dev, results):
+    """The multi-device paths (``ECSEG_*_SHARD``, metaseg's sharded folder
+    paths, the mesh train step) on every card, or, on one card, on a
+    logical mesh of it listed twice (printed).  It reuses the folders that
+    earlier phases wrote and checks, byte for byte against their
+    single-card runs: ``metaseg.main(devices=...)`` on the main path's four
+    2048^2 images at the default widths, in the default form (each image's
+    chain on one entry: the launches of the single-card run, one host redo
+    for the crowded image) and under ``ECSEG_DEVICE_PIPELINE=0`` (patch
+    batches split over the entries, the stitch and the oracle on the host:
+    no launch); ``meta_overlay``, ``stat_fish`` and ``interseg``
+    ``main(devices=...)`` (CSV bytes, PNG and TIFF pixels, ``.npy`` bytes,
+    B2/B8a/B3 launches equal).  Every fan-out runs under the caller's
+    cuDNN flags (PyTorch's defaults), which read the same after it, while
+    each float32 convolution in the workers sees ``allow_tf32`` False
+    (``parity_probe``).  Then ``train_step_on_mesh`` on a (data 2, model 2)
+    mesh (four entries) at the default widths, batch 16 at 256^2 from one
+    seed: float32 for three steps, the losses within ``TRAIN_LOSS_RTOL``
+    of the single-card ``train_step``'s and the first step's gradients held
+    to the CPU's float64 gradient and to the single card's, per tensor, by
+    ``_rel_p90_errors`` within ``TRAIN_GRAD_FACTOR`` x (the CPU float32
+    gradient's + ``TRAIN_GRAD_TOL``) (phase_train's bound); bf16 for one
+    step, the loss within 2^-8 and each gradient's relative L2 error within
+    ``MULTIDEVICE_BF16_GRAD_TOL`` of the single card's.  Prints ms per image
+    (and per step) of each path, mesh against single card."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.demo import demo_ecseg_c_tree, demo_ecseg_i_tree
+    from ecseg_torch.models.metaseg_unet import MetasegUNet
+    from ecseg_torch.models.weights import save_npz
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.parallel.mesh import make_mesh
+    from ecseg_torch.pipelines import interseg, meta_overlay, stat_fish
+    from ecseg_torch.runtime import fallbacks, trace
+    from ecseg_torch.runtime import train as tt
+    from ecseg_torch.runtime.data import crop_batches, load_training_pairs
+
+    card = results["card"]
+    phase_t0 = time.perf_counter()
+    mesh = multidevice_entries()
+    kind = "every card" if torch.cuda.device_count() > 1 else "a logical mesh of the one card listed twice"
+    print(f"multidevice: mesh {mesh} ({kind}) [{card}]", flush=True)
+    out = {"mesh": mesh, "kind": kind}
+    md_metaseg = results.pop("multidevice_metaseg")
+    md_overlay = results.pop("multidevice_overlay")
+    md_stat_fish = results.pop("multidevice_stat_fish")
+    work = tempfile.mkdtemp(prefix="ecseg_multidevice_")
+    cwd = os.getcwd()
+    tracer = trace.tracer()
+    try:
+        # metaseg: the default form and ECSEG_DEVICE_PIPELINE=0 against the main path's run
+        ref = os.path.join(md_metaseg, "imgs")
+        names = sorted(n for n in os.listdir(ref) if n.endswith(".tif"))
+        with open(os.path.join(ref, "ec_quantification.csv")) as f:
+            counts = {ln.rsplit(",", 1)[0]: int(ln.rsplit(",", 1)[1]) for ln in f.read().splitlines()[1:]}
+        single_ms = 1e3 * results["grouped"]["2 + 2"]["wall_s"] / len(names)
+        os.chdir(md_metaseg)  # load_model reads models/metaseg.npz from here
+        tracer.enabled = True
+        forms = (("default", {}, None, 1), ("ECSEG_DEVICE_PIPELINE=0", {"ECSEG_DEVICE_PIPELINE": "0"}, {k: 0 for k in KERNELS}, 0))
+        for k, (form, env, per_image, redos) in enumerate(forms):
+            sub = os.path.join(work, f"metaseg{k}")
+            os.makedirs(sub)
+            for name in names:
+                shutil.copy(os.path.join(ref, name), sub)
+            with parity_probe(f"metaseg mesh, {form}") as probes:
+                launches, stages, wall = run_main(sub, "default", len(names), env=env, per_image=per_image, redos=redos, tag=f"metaseg mesh, {form}", devices=mesh)
+            if form == "default":
+                check(launches == results["launches"]["default"], f"metaseg mesh: launches {launches} != the single-card run's {results['launches']['default']}")
+                check(len({t for t, _ in probes}) >= 2, f"metaseg mesh: forwards on {len({t for t, _ in probes})} threads")
+            check_same_outputs(sub, ref, names, counts, f"metaseg mesh, {form}")
+            out[f"metaseg {form}"] = {"wall_s": wall, "ms_per_image": 1e3 * wall / len(names), "launches": {k: v for k, v in launches.items() if v},
+                                      "stages_s": stages}
+        host_single_ms = 1e3 * results["host_post"]["wall_s"] / len(results["host_post"]["images"])
+        print(f"metaseg mesh: labels, PNGs and CSV rows byte-equal to the single-card run; ms per image: default {out['metaseg default']['ms_per_image']:.1f} "
+              f"(single card, 2 + 2: {single_ms:.1f}), ECSEG_DEVICE_PIPELINE=0 {out['metaseg ECSEG_DEVICE_PIPELINE=0']['ms_per_image']:.1f} "
+              f"(single card: {host_single_ms:.1f}) [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+        # meta_overlay against the in-process single-card run
+        sub = os.path.join(work, "overlay")
+        shutil.copytree(md_overlay, sub)
+        for f in ("red", "green"):
+            shutil.rmtree(os.path.join(sub, f))
+        os.remove(os.path.join(sub, "fish_quantification.csv"))
+        K.reset_launches()
+        with parity_probe("meta_overlay mesh"):
+            t0 = time.perf_counter()
+            rc = meta_overlay.main(config=Config(raw={"meta_overlay": {"inpath": sub, "color_sensitivity": OVERLAY_SENSITIVITY}}), devices=mesh)
+            wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        check(rc == 0 and launches == results["overlay_launches"], f"meta_overlay mesh: rc {rc}, launches {launches} != {results['overlay_launches']}")
+        check(read_bytes(os.path.join(sub, "fish_quantification.csv")) == read_bytes(os.path.join(md_overlay, "fish_quantification.csv")), "meta_overlay mesh: CSV bytes differ")
+        for f in ("red", "green"):
+            got = sorted(os.listdir(os.path.join(sub, f)))
+            check(got == sorted(os.listdir(os.path.join(md_overlay, f))), f"meta_overlay mesh: {f}/ holds {got}")
+            for name in got:
+                check(read_bytes(os.path.join(sub, f, name)) == read_bytes(os.path.join(md_overlay, f, name)), f"meta_overlay mesh: {f}/{name} bytes differ")
+        n_rgb = results["overlay"]["images"]
+        out["meta_overlay"] = {"wall_s": wall, "ms_per_image": 1e3 * wall / n_rgb, "single_ms_per_image": 1e3 * results["overlay"]["wall_s"] / n_rgb}
+        print(f"meta_overlay mesh: CSV and PNG bytes equal the single-card run's, launches {launches}; ms per RGB image {out['meta_overlay']['ms_per_image']:.1f} "
+              f"(single card {out['meta_overlay']['single_ms_per_image']:.1f}) [{card}]", flush=True)
+
+        # stat_fish against its command line's (equal to its in-process single-card) run
+        sub = os.path.join(work, "stat_fish")
+        os.makedirs(sub)
+        sf_names = sorted(n for n in os.listdir(md_stat_fish) if n.endswith(".tif"))
+        for name in sf_names:
+            shutil.copy(os.path.join(md_stat_fish, name), sub)
+        os.chdir(os.path.dirname(md_stat_fish))  # models/nuset.npz
+        fallbacks.reset()
+        K.reset_launches()
+        with parity_probe("stat_fish mesh") as probes:
+            t0 = time.perf_counter()
+            rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": sub, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}), devices=mesh)
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        check(rc == 0 and launches == results["stat_fish"]["launches"], f"stat_fish mesh: rc {rc}, launches {launches} != {results['stat_fish']['launches']}")
+        check(len({t for t, _ in probes}) >= 2, f"stat_fish mesh: float32 convolutions on {len({t for t, _ in probes})} threads")
+        ann_ref, ann = os.path.join(md_stat_fish, "annotated"), os.path.join(sub, "annotated")
+        check(read_bytes(os.path.join(ann, "stat_fish_lsq.csv")) == read_bytes(os.path.join(ann_ref, "stat_fish_lsq.csv")), "stat_fish mesh: CSV bytes differ")
+        n_files = 0
+        for name in sf_names:
+            stem = name[:-4]
+            got = sorted(os.listdir(os.path.join(ann, stem)))
+            check(got == sorted(os.listdir(os.path.join(ann_ref, stem))), f"stat_fish mesh: annotated/{stem} holds {got}")
+            for fname in got:
+                a_, b_ = os.path.join(ann, stem, fname), os.path.join(ann_ref, stem, fname)
+                if fname.endswith(".npy"):
+                    check(read_bytes(a_) == read_bytes(b_), f"stat_fish mesh: {fname} bytes differ")
+                else:
+                    check(np.array_equal(imgio.imread_rgb(a_), imgio.imread_rgb(b_)), f"stat_fish mesh: {fname} pixels differ")
+                n_files += 1
+        out["stat_fish"] = {"wall_s": wall, "ms_per_image": 1e3 * wall / len(sf_names), "single_ms_per_image": 1e3 * results["stat_fish"]["wall_s"] / len(sf_names),
+                            "files_compared": n_files, "fallbacks": fallbacks.counts()}
+        print(f"stat_fish mesh: CSV, .npy and TIFFs ({n_files} files) equal the single-card run's, launches {launches}; ms per image "
+              f"{out['stat_fish']['ms_per_image']:.1f} (single card {out['stat_fish']['single_ms_per_image']:.1f}) [{card}]", flush=True)
+
+        # interseg against its in-process single-card run, on stat_fish's folder
+        models = os.path.join(work, "interseg_models")
+        save_npz(os.path.join(models, "interseg.npz"), demo_ecseg_i_tree())
+        save_npz(os.path.join(models, "ecseg_c.npz"), demo_ecseg_c_tree())
+        out_csv = os.path.join(md_stat_fish, "interphase_prediction_red.csv")
+        want = read_bytes(out_csv)
+        os.remove(out_csv)
+        os.chdir(work)
+        K.reset_launches()
+        with parity_probe("interseg mesh") as probes:
+            t0 = time.perf_counter()
+            rc = interseg.main(config=Config(raw={"interseg": {"inpath": md_stat_fish, "FISH_color": "red", "has_centromeric_probe": True}}), devices=mesh)
+            wall = time.perf_counter() - t0
+        check(rc == 0 and not any(K.LAUNCHES.values()), f"interseg mesh: rc {rc}, launches {dict(K.LAUNCHES)}")
+        check(read_bytes(out_csv) == want, "interseg mesh: CSV bytes differ from the single-card run's")
+        check(len({t for t, _ in probes}) >= 2, f"interseg mesh: float32 convolutions on {len({t for t, _ in probes})} threads")
+        out["interseg"] = {"wall_s": wall, "ms_per_image": 1e3 * wall / len(sf_names), "single_ms_per_image": 1e3 * results["interseg"]["wall_s"] / len(sf_names)}
+        print(f"interseg mesh: CSV bytes equal the single-card run's; ms per image {out['interseg']['ms_per_image']:.1f} "
+              f"(single card {out['interseg']['single_ms_per_image']:.1f}) [{card}]", flush=True)
+        os.chdir(cwd)
+        tracer.enabled = False
+
+        # the mesh train step: (data 2, model 2) against one card
+        cards = torch.cuda.device_count()
+        train_entries = [f"cuda:{k % cards}" for k in range(2 * MULTIDEVICE_TRAIN_MODEL_AXIS)]
+        tmesh = make_mesh(train_entries, model_axis=MULTIDEVICE_TRAIN_MODEL_AXIS)
+        pairs = load_training_pairs(results["train_folder"])
+        batches = list(crop_batches(pairs, TRAIN_BATCH, MULTIDEVICE_TRAIN_STEPS, seed=args.seed + 9))
+        model0 = MetasegUNet(generator=torch.Generator().manual_seed(args.seed))
+        t0 = time.perf_counter()
+        x0, y0 = (torch.from_numpy(a) for a in batches[0])
+        loss64, g64 = _loss_and_grads(model0, x0, y0, torch.float64, "cpu", contextlib.nullcontext())
+        _, g32 = _loss_and_grads(model0, x0, y0, torch.float32, "cpu", contextlib.nullcontext())
+        cpu_s = time.perf_counter() - t0
+        err_cpu = _rel_p90_errors(g32, g64)
+        bound = {n: TRAIN_GRAD_FACTOR * (e + TRAIN_GRAD_TOL) for n, e in err_cpu.items()}
+
+        def single_run(dtype, steps):
+            model = copy.deepcopy(model0).to(dev)
+            opt = tt.make_optimizer(model, TRAIN_LR)
+            losses, grads, ms = [], None, []
+            for k, (x, y) in enumerate(batches[:steps]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses.append(float(tt.train_step(model, opt, x, y, dtype=dtype)))
+                ms.append(1e3 * (time.perf_counter() - t))
+                if k == 0:
+                    grads = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+            return losses, grads, ms
+
+        def mesh_run(dtype, steps):
+            step = tt.train_step_on_mesh(tmesh, copy.deepcopy(model0), TRAIN_LR, dtype=dtype)
+            losses, grads, ms = [], None, []
+            for k, (x, y) in enumerate(batches[:steps]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses.append(float(step(x, y)))
+                ms.append(1e3 * (time.perf_counter() - t))
+                if k == 0:
+                    grads = _mesh_grads(step)
+            split = sorted(step.model.shard_dims())
+            del step
+            return losses, grads, ms, split
+
+        K.reset_launches()
+        l_card, g_card, ms_card = single_run(torch.float32, MULTIDEVICE_TRAIN_STEPS)
+        with parity_probe("train mesh, float32") as probes:
+            l_mesh, g_mesh, ms_mesh, split = mesh_run(torch.float32, MULTIDEVICE_TRAIN_STEPS)
+        check(not any(K.LAUNCHES.values()), f"training launched hand kernels: {dict(K.LAUNCHES)}")
+        check(len({t for t, _ in probes}) >= 2, f"train mesh: forwards on {len({t for t, _ in probes})} threads")
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(l_mesh, l_card)]
+        err_mesh, err_card = _rel_p90_errors(g_mesh, g64), _rel_p90_errors(g_card, g64)
+        err_vs_card = _rel_p90_errors(g_mesh, g_card)
+        over = {n: err_mesh[n] / bound[n] for n in bound}
+        over_card = {n: err_vs_card[n] / bound[n] for n in bound}
+        print(f"train mesh {[list(map(str, r)) for r in tmesh.devices]} (data 2, model 2; split: {split}): float32 losses {l_mesh} vs one card {l_card} "
+              f"(rel {max(loss_rel):.3g}); first step's gradients, 90th percentile of |diff| / max |g|: from float64 the mesh {max(err_mesh.values()):.3g} "
+              f"(worst share of its bound {max(over.values()):.3f}, at {max(over, key=over.get)}), one card {max(err_card.values()):.3g}, "
+              f"CPU float32 {max(err_cpu.values()):.3g}; mesh vs one card {max(err_vs_card.values()):.3g} (worst share {max(over_card.values()):.3f}); "
+              f"CPU float64 + float32 on {TRAIN_BATCH} crops {cpu_s:.1f} s [{card}]", flush=True)
+        check(max(loss_rel) <= TRAIN_LOSS_RTOL, f"train mesh: losses {l_mesh} vs one card {l_card}")
+        check(max(over.values()) <= 1.0, f"train mesh: float32 gradients outside their bound: {over}")
+        check(max(over_card.values()) <= 1.0, f"train mesh: float32 gradients vs one card's outside the bound: {over_card}")
+        check(len(split) > 0, "train mesh: no kernel split over the model axis")
+        lb_card, gb_card, _ = single_run(torch.bfloat16, 1)
+        lb_mesh, gb_mesh, _, _ = mesh_run(torch.bfloat16, 1)
+        bf16_rel = {n: float((gb_mesh[n] - g).norm() / g.norm()) for n, g in gb_card.items()}
+        print(f"train mesh, bf16: loss {lb_mesh[0]} vs one card {lb_card[0]}; gradients' relative L2 vs one card up to {max(bf16_rel.values()):.3g} "
+              f"(bound {MULTIDEVICE_BF16_GRAD_TOL:.3g}) [{card}]", flush=True)
+        check(abs(lb_mesh[0] - lb_card[0]) <= 2.0**-8 * abs(lb_card[0]), f"train mesh bf16: loss {lb_mesh[0]} vs {lb_card[0]}")
+        check(max(bf16_rel.values()) <= MULTIDEVICE_BF16_GRAD_TOL, f"train mesh bf16: gradients {bf16_rel}")
+        out["train"] = {"mesh": [list(map(str, r)) for r in tmesh.devices], "split": split, "losses": l_mesh, "single_losses": l_card,
+                        "loss_rel": loss_rel, "grad_p90_from_f64": max(err_mesh.values()), "grad_share_of_bound": max(over.values()),
+                        "grad_p90_vs_card": max(err_vs_card.values()), "step_ms": ms_mesh, "single_step_ms": ms_card,
+                        "bf16_loss": lb_mesh[0], "single_bf16_loss": lb_card[0], "bf16_grad_rel_l2": max(bf16_rel.values()), "cpu_s": cpu_s}
+        print(f"train step ms (host clock, synchronised; the first pays cuDNN's set-up): mesh {[round(t, 1) for t in ms_mesh]}, "
+              f"one card {[round(t, 1) for t in ms_card]} [{card}]", flush=True)
+        out["phase_s"] = time.perf_counter() - phase_t0
+        print(f"phase_multidevice: {out['phase_s']:.1f} s [{card}]", flush=True)
+        results["multidevice"] = out
+    finally:
+        os.chdir(cwd)
+        tracer.enabled = False
+        for d in (work, md_metaseg, os.path.dirname(md_overlay), os.path.dirname(md_stat_fish)):
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 QUANT_CARD_AGREEMENT = 0.99  # the card's int8 labels against the CPU's on 2 patches
@@ -2128,11 +2466,12 @@ def phase_train(args, dev, results):
     print(f"train: cuDNN's process-wide flags at the phase's start {cudnn_flags} [{card}]", flush=True)
 
     def pytorch_defaults():
-        """PyTorch's default cuDNN flags, set explicitly: the process-wide
-        flags need not hold them here (threads that enter and leave
-        ``parity_flags`` at once, as stat_fish's do, can leave them set).
-        The TF32 contrast and the timed steps run under them (float32
-        steps enter the parity flags inside ``train_step``)."""
+        """PyTorch's default cuDNN flags, set explicitly.  The TF32 contrast
+        and the timed steps run under them (float32 steps enter the parity
+        flags inside ``train_step``).  This enters ``cudnn.flags`` directly,
+        not through ``parity_flags``'s holder count: it runs on the main
+        thread with no parity holder active (every fan-out has joined), so
+        nothing else saves or restores the flags meanwhile."""
         return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=True)
 
     try:
@@ -2311,7 +2650,7 @@ def phase_train(args, dev, results):
         model = metaseg.load_model(device=dev)
         with post_form("default"):
             K.reset_launches()
-            check(metaseg.main(config=Config(raw={"metaseg": {"inpath": os.path.join(serve, "inproc")}})) == 0, "served back: in-process main")
+            check(metaseg.main(config=Config(raw={"metaseg": {"inpath": os.path.join(serve, "inproc")}}), device="cuda") == 0, "served back: in-process main")
             served_launches = dict(K.LAUNCHES)
             for key, n in PER_IMAGE_LAUNCHES["default"].items():
                 check(served_launches[key] == n * len(names), f"served back: {key} launched {served_launches[key]} times, expected {n * len(names)}")
@@ -2774,6 +3113,7 @@ def main() -> int:
     # with torch 2.11), and device_ms then fails
     phase_stat_fish(args, np.random.default_rng(args.seed + 7), dev, errors, results)
     phase_interseg(dev, results)  # draws no numbers: stat_fish's outputs and the demo trees
+    phase_multidevice(args, dev, results)  # draws no numbers: the earlier phases' folders
     phase_quant(args, dev, results)  # its own generator
     phase_keras_import(args, dev, results)
     phase_train(args, dev, results)
@@ -2789,6 +3129,7 @@ def main() -> int:
     print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))
     print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "card": smi}))
     print(json.dumps({"train": results["train"], "card": smi}))
+    print(json.dumps({"multidevice": results["multidevice"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -9,9 +9,11 @@ and keeps the same task interface, folder layout and output bytes.  Rules:
   here as its own copy (``core/``, ``ops/cc.py``, ``ops/morphology.py``,
   ``ops/meta_post.py``, ``ops/region_stats.py``, ``ops/conv_host.py``,
   ``csrc/cc_maxflow.cpp``, ``runtime/``);
-- entry points take an explicit ``device``; ``None`` means ``"cuda"`` and
-  raises when no CUDA device is present (see :mod:`ecseg_torch.device`).
-  There is no silent CPU path: tests pass ``device="cpu"``;
+- entry points take an explicit ``device``; the tasks with a
+  multi-device path also take ``devices`` (a device list).  ``None`` means
+  the CUDA card (for those tasks: every CUDA card) and raises when no CUDA
+  device is present (see :mod:`ecseg_torch.device`).  There is no silent
+  CPU path: tests pass ``device="cpu"`` or ``devices=["cpu"] * n``;
 - every TPU (Pallas) kernel on a ported path is a hand-written CUDA kernel
   under ``csrc/`` with a plain PyTorch twin beside its wrapper
   (``ops/cc_kernels.py``).  A CPU tensor goes to the twin, a CUDA tensor to
@@ -23,6 +25,10 @@ post-processing in each form the JAX package's ``ECSEG_MC_LABEL`` and
 (``pipelines/meta_overlay.py``) and fish_distance_calculation
 (``pipelines/fish_distance.py``, host only); stat_fish
 (``pipelines/stat_fish.py``: NuSeT, the certified watershed on B3, the
-cleanup on B2, min-cut and the matched filter); bench.py's per-tile count
-(``pipelines/tile_count.py``).
+cleanup on B2, min-cut and the matched filter); interseg
+(``pipelines/interseg.py``); training (``pipelines/train_metaseg.py``);
+bench.py's per-tile count (``pipelines/tile_count.py``); and the
+multi-device paths: the (data, model) mesh (``parallel/mesh.py``) and its
+train step, metaseg's sharded folder paths and the fan-outs of
+meta_overlay, stat_fish and interseg.
 """

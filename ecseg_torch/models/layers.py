@@ -18,7 +18,9 @@ in PyTorch's NCHW/OIHW layout.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -62,11 +64,47 @@ class TFConvTranspose2d(nn.ConvTranspose2d):
         return add_bias(self._truncate(x, y), self.bias)
 
 
+class _ParityHolders:
+    """The holders of the parity flags across threads.  cuDNN's flags are
+    process-wide: ``torch.backends.cudnn.flags`` saves them on entry and
+    restores them on exit, so of two threads that overlap, the first to
+    leave would restore the caller's flags (TF32 on) while the other still
+    runs a float32 parity conv.  Here the first holder enters that context
+    and the last one to leave exits it; a holder in between only counts."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._count = 0
+        self._ctx = None
+
+    @contextlib.contextmanager
+    def hold(self):
+        with self._lock:
+            if self._count == 0:
+                ctx = torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+                ctx.__enter__()
+                self._ctx = ctx
+            self._count += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._count -= 1
+                if self._count == 0:
+                    ctx, self._ctx = self._ctx, None
+                    ctx.__exit__(None, None, None)
+
+
+_PARITY = _ParityHolders()
+
+
 def parity_flags():
     """cuDNN settings under which the float32 convs keep their parity with
     the JAX package's ``Precision.HIGHEST``: no TF32, deterministic
-    algorithms, no autotuning."""
-    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    algorithms, no autotuning.  Safe across threads: the flags hold while
+    any thread is inside, and the caller's come back when the last one
+    leaves."""
+    return _PARITY.hold()
 
 
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:

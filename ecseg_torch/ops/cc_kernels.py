@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -63,9 +64,21 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+_launches_lock = threading.Lock()
+
+
+def count_launch(key: str) -> None:
+    """Add one to ``LAUNCHES[key]``; wrappers call it where they launch
+    their kernel.  Under a lock: threads of a fan-out launch at once, and
+    ``d[k] += 1`` can lose increments between threads."""
+    with _launches_lock:
+        LAUNCHES[key] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -423,7 +436,7 @@ def stitch_labels(label_patches: torch.Tensor, positions: Sequence[Tuple[int, in
     desc, canvas = _descriptors(pos, label_patches.device)
     out = torch.empty_like(canvas)
     _launch("ecseg_stitch", label_patches.device, label_patches.data_ptr(), desc.data_ptr(), out.data_ptr(), *out.shape)
-    LAUNCHES["stitch"] += 1
+    count_launch("stitch")
     return out
 
 
@@ -439,7 +452,7 @@ def label(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
     if out.numel() == 0:
         return out
     _launch("ecseg_label", mask.device, mask.data_ptr(), out.data_ptr(), h, w, connectivity)
-    LAUNCHES["label"] += 1
+    count_launch("label")
     return out
 
 
@@ -461,7 +474,7 @@ def _flood(name, what, trav, seeds, *conn, labels=None):
         name, trav.device, trav.data_ptr(), *seed_ptr,
         labels.data_ptr(), out.data_ptr(), out.data_ptr(), h, w, *conn,
     )
-    LAUNCHES[what] += 1
+    count_launch(what)
     return out
 
 
@@ -496,7 +509,7 @@ def label_multiclass(cls_map: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     _launch("ecseg_label_mc", cls_map.device, cls_map.data_ptr(), out.data_ptr(), h, w)
-    LAUNCHES["label_mc"] += 1
+    count_launch("label_mc")
     return out
 
 
@@ -556,7 +569,7 @@ def count_components(mask: torch.Tensor, connectivity: int = 2) -> Tuple[torch.T
     out = torch.empty(2, dtype=torch.int32, device=mask.device)  # zeroed by the kernel's memset
     parent = torch.empty(_count_scratch(1, h, w, "count_components"), dtype=torch.int32, device=mask.device)
     _launch("ecseg_count", mask.device, mask.data_ptr(), parent.data_ptr(), h, w, connectivity, out.data_ptr())
-    LAUNCHES["count"] += 1
+    count_launch("count")
     return out[0], out[1]
 
 
@@ -595,7 +608,7 @@ def count_from_patches(
             desc.data_ptr(), t, len(pos) * SCW * SCW, h, w, int(class_id), connectivity,
             parent.data_ptr(), out.data_ptr(),
         )
-        LAUNCHES["count_patches"] += 1
+        count_launch("count_patches")
     if label_patches.dim() == 3:
         return out[0, 0], out[0, 1]
     return out[:, 0], out[:, 1]

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cc_kernels import LAUNCHES, _launch
+from .cc_kernels import _launch, count_launch
 
 
 def _check_args(x, kernel, bias, relu):
@@ -102,5 +102,5 @@ def conv2d_transpose_packed(x, kernel, bias=None, relu: bool = True) -> torch.Te
     else:
         k, b = k.contiguous(), b.contiguous()
         _launch("ecseg_convt", x.device, x.data_ptr(), k.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, cin, cout)
-    LAUNCHES["convt"] += 1
+    count_launch("convt")
     return out

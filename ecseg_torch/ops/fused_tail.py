@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cc_kernels import LAUNCHES, _launch
+from .cc_kernels import _launch, count_launch
 from .tiling import quantize_u8
 
 PATCH = 256
@@ -231,5 +231,5 @@ def fused_dec1_head(x_cat, w1, b1, w2, b2, wh, bh) -> torch.Tensor:
             "ecseg_fused_tail", dev, x_cat.data_ptr(), w1k.data_ptr(), b1k.data_ptr(), w2k.data_ptr(),
             b2k.data_ptr(), whk.data_ptr(), bhk.data_ptr(), out.data_ptr(), n, c1, c2p, ncls, tile, smem,
         )
-    LAUNCHES["fused_tail"] += 1
+    count_launch("fused_tail")
     return out

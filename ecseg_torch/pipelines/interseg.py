@@ -20,11 +20,16 @@ executor (``models/keras_import``), else ``interseg_models/<name>.npz``
 through the weight bridge, else the default architectures on torch-seeded
 weights, which differ from the JAX package's seeded ones (ROADMAP §C).
 
-Not ported (ROADMAP): the multi-device fan-out (``ECSEG_INTERSEG_SHARD``).
+On more than one device (``main(devices=...)``; by default every card) the
+images fan out as in ``interseg.py:332-389``: ecSeg-i and ecSeg-c (an
+imported-Keras graph too) replicated per entry, one worker thread per entry,
+image k on entry k % n, at most two images in flight an entry, one CSV in
+input order.  ``ECSEG_INTERSEG_SHARD=0`` forces the sequential path.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -38,12 +43,13 @@ from scipy.stats import kurtosis
 from ..core import imgio
 from ..core.config import Config, load_config
 from ..core.csvio import Column, read_csv, write_csv
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, DevicesLike, entry_devices, resolve_device
 from ..models.keras_import import model_device
 from ..ops.cc import label as cc_label, regionprops
 from ..ops.resize import resize
 from ..runtime import fallbacks
-from ..runtime.batching import prefetch_map
+from ..runtime.batching import fan_out, prefetch_map
+from ..runtime.devicepath import shard_enabled
 from ..runtime.trace import stage
 
 ECSEG_I_MODEL = "interseg"
@@ -242,8 +248,11 @@ def classify(crops: Crops, i_model, c_model, quality_pass: bool):
     return interseg_label, (ecseg_c_label if has_cent else None), ecseg_i_label
 
 
-def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) -> int:
-    dev = resolve_device(device)
+def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None, devices: DevicesLike = None) -> int:
+    """``device``: one device; ``devices``: a device list to fan the images
+    out over; neither: every card."""
+    mesh = entry_devices(device, devices)
+    dev = mesh[0]
     if config is None:
         config = load_config()
     try:
@@ -273,22 +282,30 @@ def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) 
         seg = imgio.imread_rgb(os.path.join(head, "annotated", tail[:-4], f"{tail[:-4]}_segmentation.tif"))
         return img, seg
 
-    rows = []
-    it = iter(prefetch_map(decode, image_paths))
-    while True:
-        with stage("interseg.decode_wait"):
-            nxt = next(it, None)
-        if nxt is None:
-            break
-        path, (I, segmented_cells) = nxt
+    def image_rows(path, I, segmented_cells, models):
         print("Processing image: ", path)
         name = os.path.split(path)[1][:-4]
         quality_pass = quality_passes(stat_fish_results, name, cent_channel)
         with stage("interseg.crops"):
             crops = collect_crops(name, I, segmented_cells, fish_index)
-        labels_s, labels_c, labels_i = classify(crops, i_model, c_model, quality_pass)
+        labels_s, labels_c, labels_i = classify(crops, *models, quality_pass)
         cols = [crops.names, crops.centroids, labels_s] + ([labels_c] if has_centromeric_probe else []) + [labels_i]
-        rows.extend(zip(*cols))
+        return list(zip(*cols))
+
+    rows = []
+    if len(mesh) > 1 and shard_enabled("ECSEG_INTERSEG_SHARD"):
+        models = [tuple(None if m is None else copy.deepcopy(m).to(d) for m in (i_model, c_model)) for d in mesh]
+        for part in fan_out(lambda job, k: image_rows(job[0], *job[1], models[k]), prefetch_map(decode, image_paths), mesh):
+            rows.extend(part)
+    else:
+        it = iter(prefetch_map(decode, image_paths))
+        while True:
+            with stage("interseg.decode_wait"):
+                nxt = next(it, None)
+            if nxt is None:
+                break
+            path, (I, segmented_cells) = nxt
+            rows.extend(image_rows(path, I, segmented_cells, (i_model, c_model)))
 
     if image_paths:
         header = ["image_name", "nucleus_center", "interSeg_label"]

@@ -17,8 +17,11 @@ reference crashes there; README "Deliberate deviations").
 ``ECSEG_DEVICE_PIPELINE=0`` computes the statistics by the host oracles
 instead (:func:`host_stats`, the JAX package's host branch).
 
-Not ported (ROADMAP A6e): the JAX package's fan-out of images over several
-devices (``ECSEG_OVERLAY_SHARD``).
+On more than one device (``main(devices=...)``; by default every card) the
+images fan out as in ``meta_overlay.py:182-202``: one worker thread per
+entry, image k on entry k % n (its read, split and statistics), rows in
+input order, so the CSV and PNG bytes are the sequential run's.
+``ECSEG_OVERLAY_SHARD=0`` forces the sequential path.
 """
 
 from __future__ import annotations
@@ -32,12 +35,12 @@ import numpy as np
 from ..core import imgio
 from ..core.config import Config, ConfigError, load_config
 from ..core.csvio import write_csv
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, DevicesLike, entry_devices
 from ..ops.cc import count_cc
 from ..ops.meta_post import count_colocalization, count_HSR
 from ..ops.overlay_gpu import HSR_SIZE_THRESHOLD, cc_pair_host_quirk, overlay_stats
-from ..runtime.batching import prefetch_map
-from ..runtime.devicepath import use_device_path
+from ..runtime.batching import fan_out, prefetch_map
+from ..runtime.devicepath import shard_enabled, use_device_path
 from ..runtime.trace import stage
 
 FIRST_FISH, SECOND_FISH = "green", "red"
@@ -119,8 +122,10 @@ def image_row(name: str, stats: dict, hw: int) -> list:
     return [name] + [cells[key] for _, key in COLUMNS[1:]]
 
 
-def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) -> int:
-    dev = resolve_device(device)
+def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None, devices: DevicesLike = None) -> int:
+    """``device``: one device; ``devices``: a device list to fan the images
+    out over; neither: every card."""
+    mesh = entry_devices(device, devices)
     if config is None:
         config = load_config()
     try:
@@ -147,13 +152,19 @@ def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) 
 
     image_paths = imgio.get_imgs(inpath)
     device_path = use_device_path()
-    rows = []
-    for path, masks in prefetch_map(lambda p: _read_split(p, sensitivity), image_paths):
+
+    def row(path, masks, dev):
         if masks is None:
-            continue
+            return None
         with stage("meta_overlay.stats"):
             stats = overlay_stats(*masks, HSR_SIZE_THRESHOLD, device=dev) if device_path else host_stats(*masks)
-        rows.append(image_row(os.path.basename(path), stats, masks[2].size))
+        return image_row(os.path.basename(path), stats, masks[2].size)
+
+    if len(mesh) > 1 and shard_enabled("ECSEG_OVERLAY_SHARD"):
+        results = fan_out(lambda p, k: row(p, _read_split(p, sensitivity), mesh[k]), image_paths, mesh)
+    else:
+        results = (row(p, masks, mesh[0]) for p, masks in prefetch_map(lambda p: _read_split(p, sensitivity), image_paths))
+    rows = [r for r in results if r is not None]
 
     if not rows:
         # (the reference crashes reordering an empty frame; this exits)

@@ -18,13 +18,22 @@ group's patches, then B1 and the post per canvas, the group's ``ok`` flags
 and counts in one copy (:func:`segment_folder`).  ``ECSEG_DEVICE_PIPELINE=0``
 runs the host oracle after the forward and B1.
 
+On more than one device (``main(devices=...)``; by default every card) the
+JAX package's multi-device paths run (``metaseg.py:267-475,555-579``):
+:func:`segment_folder_sharded_device`, each image's whole chain on one mesh
+entry, and under ``ECSEG_DEVICE_PIPELINE=0`` :func:`segment_folder_sharded`,
+cross-image patch batches split over the entries with the stitch and the
+oracle on the host.  The outputs are the single-device run's bytes.
+
 Not ported (ROADMAP): fast start and the program cache, the padding of
-partial groups, ``ECSEG_GROUP_POST=vmap``, the 2-bit result packing and the
-sharded multi-chip paths.
+partial groups, ``ECSEG_GROUP_POST=vmap`` and the 2-bit result packing
+(they serve XLA's compile cache and the TPU host link).
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
+import copy
 import os
 import sys
 from typing import List, Optional, Sequence, Tuple
@@ -35,7 +44,7 @@ import torch
 from ..core import imgio
 from ..core.config import Config, load_config
 from ..core.csvio import write_csv
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, DevicesLike, entry_devices, pin_thread, resolve_device
 from ..models.keras_import import model_device
 from ..models.metaseg_unet import MetasegUNet
 from ..models.weights import load_npz, params_from_numpy
@@ -115,6 +124,12 @@ def host_post(raw: np.ndarray) -> Tuple[np.ndarray, int]:
     return I, count_cc(I == 3)[0]
 
 
+def _host_post_traced(raw: np.ndarray) -> Tuple[np.ndarray, int]:
+    """:func:`host_post` as the ``ECSEG_DEVICE_PIPELINE=0`` branches run it."""
+    with stage("metaseg.meta_inference"):
+        return host_post(raw)
+
+
 def post_group(raws: Sequence[torch.Tensor]) -> List[Tuple[np.ndarray, int, bool]]:
     """Device meta_inference + ecDNA count of each canvas; every canvas's
     ``ok`` and count come back in one device-to-host copy, the labels of the
@@ -182,10 +197,7 @@ def segment_folder(model: torch.nn.Module, image_paths: Sequence[str], device_po
         if device_post:
             outs = post_group(raws)
         else:
-            outs = []
-            for raw in raws:
-                with stage("metaseg.meta_inference"):
-                    outs.append(host_post(raw.cpu().numpy()))
+            outs = [_host_post_traced(raw.cpu().numpy()) for raw in raws]
         for (idx, path, _), (I, num, *_) in zip(items, outs):
             results[idx] = (path, I, num)
 
@@ -208,8 +220,124 @@ def segment_folder(model: torch.nn.Module, image_paths: Sequence[str], device_po
     yield from emit()
 
 
-def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) -> int:
-    dev = resolve_device(device)
+def replicate(model: torch.nn.Module, devices: Sequence[torch.device]) -> List[torch.nn.Module]:
+    """One copy of ``model`` per mesh entry, on the entry's device (a
+    ``.h5`` model's graph too): the counterpart of the JAX package's
+    replicated parameters."""
+    return [copy.deepcopy(model).to(dev) for dev in devices]
+
+
+def _segment_on(replica: torch.nn.Module, dev: torch.device, patches: np.ndarray, pos) -> Tuple[np.ndarray, int, bool]:
+    """One image's whole chain on one mesh entry, in that entry's worker:
+    forward, quantize + argmax, B1, the device post and the count (host
+    redo when ``ok`` is False)."""
+    pin_thread(dev)
+    return post_group(segment_group(replica, [patches], pos))[0]
+
+
+def segment_folder_sharded_device(model: torch.nn.Module, image_paths: Sequence[str], devices: Sequence[torch.device]):
+    """Yields (path, int64 labels, #ecDNA) of each image, in input order,
+    as ``segment_folder_sharded_device`` (``metaseg.py:348-475``) does:
+    images are grouped by geometry into groups of ``len(devices)``, and the
+    k-th image of a group runs its whole chain (:func:`_segment_on`) on
+    entry k, one worker thread per entry, on its own replica of the model.
+    An image whose ``ok`` is False is redone on the host oracle and counted
+    in ``runtime/fallbacks``.  Partial groups run as they are (the JAX
+    package's zero padding serves XLA's compile cache: deviation 9)."""
+    devices = list(devices)
+    replicas = replicate(model, devices)
+    buckets, results, cursor = {}, {}, 0
+
+    def flush(pos, items, pool):
+        futures = [pool.submit(_segment_on, replicas[k], devices[k], patches, pos) for k, (_, _, patches) in enumerate(items)]
+        for (idx, path, _), fut in zip(items, futures):
+            I, num, _ = fut.result()
+            results[idx] = (path, I, num)
+
+    def emit():
+        nonlocal cursor
+        while cursor in results:
+            yield results.pop(cursor)
+            cursor += 1
+
+    with cf.ThreadPoolExecutor(max_workers=len(devices)) as pool:
+        for idx, (path, (patches, pos)) in enumerate(prefetch_map(_prepare_image, image_paths)):
+            items = buckets.setdefault(pos, [])
+            items.append((idx, path, patches))
+            if len(items) == len(devices):
+                flush(pos, items, pool)
+                buckets[pos] = []
+                yield from emit()
+        for pos, items in buckets.items():
+            if items:
+                flush(pos, items, pool)
+    yield from emit()
+
+
+def _patch_labels_on(replica: torch.nn.Module, dev: torch.device, chunk: np.ndarray) -> np.ndarray:
+    """A chunk of patches through one entry's replica: (n, 256, 256) uint8
+    labels on the host."""
+    pin_thread(dev)
+    with torch.no_grad():
+        return tiling.patch_labels(replica(torch.from_numpy(chunk).to(dev))).cpu().numpy()
+
+
+def segment_folder_sharded(model: torch.nn.Module, image_paths: Sequence[str], devices: Sequence[torch.device], batch_patches: int = 256):
+    """Yields (path, stitched int64 raw label map) of each image, in input
+    order, as ``segment_folder_sharded`` (``metaseg.py:267-345``) does: the
+    patches of all images are packed into batches of ``batch_patches``
+    (rounded up to a multiple of the data axis), each batch is split over
+    the entries (one thread each, a replica each), uint8 patch labels come
+    back, and the stitch runs on the host (``cc_kernels.stitch_plain``; the
+    caller runs the oracle).  The last batch runs as it is, unpadded."""
+    devices = list(devices)
+    n = len(devices)
+    replicas = replicate(model, devices)
+    batch_patches = -(-max(batch_patches, n) // n) * n
+    pending = []  # (path, positions, patch count) awaiting labels
+    buf = np.zeros((0, tiling.SCW, tiling.SCW, 1), np.uint8)
+    out = []  # label patch arrays in pending order
+
+    def dispatch(stack, pool):
+        with stage("metaseg.sharded_forward"):
+            chunks = [c for c in np.array_split(stack, n) if len(c)]
+            futures = [pool.submit(_patch_labels_on, replicas[k], devices[k], c) for k, c in enumerate(chunks)]
+            out.extend(f.result() for f in futures)
+
+    def drain(pool):
+        nonlocal buf
+        if len(buf):
+            dispatch(buf, pool)
+            buf = buf[:0]
+        flat = np.concatenate(out) if out else np.zeros((0, tiling.SCW, tiling.SCW), np.uint8)
+        offset = 0
+        for path, pos, count in pending:
+            with stage("metaseg.stitch"):
+                canvas = stitch_labels(torch.from_numpy(flat[offset : offset + count]), pos)
+            offset += count
+            yield path, canvas.numpy().astype(np.int64)
+        pending.clear()
+        out.clear()
+
+    with cf.ThreadPoolExecutor(max_workers=n) as pool:
+        for path, (patches, pos) in prefetch_map(_prepare_image, image_paths):
+            pending.append((path, pos, len(patches)))
+            buf = np.concatenate([buf, patches])
+            while len(buf) >= batch_patches:
+                dispatch(buf[:batch_patches], pool)
+                buf = buf[batch_patches:]
+            # bound host memory: emit the finished images now and then
+            if sum(c for _, _, c in pending) >= 8 * batch_patches:
+                yield from drain(pool)
+        yield from drain(pool)
+
+
+def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None, devices: DevicesLike = None) -> int:
+    """``device``: one device (the single-card path); ``devices``: that
+    mesh; neither: every card (``device.resolve_devices``).  More than one
+    entry takes the sharded paths."""
+    mesh = entry_devices(device, devices)
+    dev = mesh[0]
     if config is None:
         config = load_config()
     inpath = config.metaseg.inpath
@@ -224,9 +352,17 @@ def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None) 
     model = load_model(device=dev)
     image_paths = imgio.get_imgs(inpath)
 
+    device_post = use_device_path()
+    if len(mesh) == 1:
+        results = segment_folder(model, image_paths, device_post)
+    elif device_post:
+        results = segment_folder_sharded_device(model, image_paths, mesh)
+    else:
+        results = ((path, *_host_post_traced(raw)) for path, raw in segment_folder_sharded(model, image_paths, mesh))
+
     rows = []
     print("Reading from: ", inpath)
-    for path, I, num_ecDNA in segment_folder(model, image_paths, use_device_path()):
+    for path, I, num_ecDNA in results:
         print("Processing image: ", path)
         head, tail = os.path.split(path)
         outpath = os.path.join(head, "labels", tail[:-4])

@@ -23,13 +23,23 @@ chain and the host matched filter instead (the JAX package's CPU default;
 the tests' oracle).  ``ECSEG_FAST_WATERSHED`` picks the watershed's mode
 (``models/nuset_infer.watershed_pass``).
 
-Not ported (ROADMAP): the multi-device fan-out (``ECSEG_STAT_FISH_SHARD``),
-geometry bucketing and the 1-bit transfers.
+On more than one device (``main(devices=...)``; by default every card) the
+images fan out as in ``stat_fish.py:366-474``: the NuSeT model replicated
+per entry, one worker thread per entry running the whole image there, tail
+included, image k on entry k % n, at most two images in flight an entry,
+the CSV in input order; with ``scale: auto`` image 0 runs alone on entry 0
+before the fan-out starts.  ``ECSEG_STAT_FISH_SHARD=0`` keeps the
+single-card path (the main thread and ``TAIL_WORKERS`` tails).
+
+Not ported (ROADMAP): geometry bucketing and the 1-bit transfers (they
+serve XLA's compile cache and the TPU host link).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import copy
+import dataclasses
 import datetime
 import os
 import shutil
@@ -44,15 +54,15 @@ import numpy as np
 from ..core import imgio
 from ..core.config import Config, default_params_path, load_config, load_stat_fish_params
 from ..core.csvio import write_csv
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, DevicesLike, entry_devices
 from ..models import nuset_infer
 from ..models.weights import load_nuset_model
 from ..ops import matched_filter as mf
 from ..ops import maxflow, region_stats
 from ..ops.cc import label as cc_label
 from ..runtime import fallbacks
-from ..runtime.batching import prefetch_map
-from ..runtime.devicepath import use_device_path
+from ..runtime.batching import fan_out, prefetch_map
+from ..runtime.devicepath import shard_enabled, use_device_path
 from ..runtime.trace import stage
 
 AQUA_RGB = [233, 137, 54]  # reference stat_fish.py:163
@@ -87,9 +97,17 @@ def _git_commit() -> str:
 
 
 def main(
-    argv=None, config: Optional[Config] = None, params=None, device: DeviceLike = None, device_path: Optional[bool] = None
+    argv=None,
+    config: Optional[Config] = None,
+    params=None,
+    device: DeviceLike = None,
+    device_path: Optional[bool] = None,
+    devices: DevicesLike = None,
 ) -> int:
-    dev = resolve_device(device)
+    """``device``: one device; ``devices``: a device list to fan the images
+    out over; neither: every card."""
+    mesh = entry_devices(device, devices)
+    dev = mesh[0]
     if device_path is None:
         device_path = use_device_path()
     if config is None:
@@ -127,15 +145,16 @@ def main(
     if scaling_factor != "auto":
         scale_ready.set()
 
-    def tail(path, I, segmented_cells, first):
+    def tail(path, I, segmented_cells, first, tail_dev=dev):
         try:
-            return tail_impl(path, I, segmented_cells, first)
+            return tail_impl(path, I, segmented_cells, first, tail_dev)
         except BaseException:
             scale_ready.set()  # release the tails parked on the gate; the error surfaces in order
             raise
 
-    def tail_impl(path, I, segmented_cells, first):
-        """Everything after the segmentation, on a worker thread."""
+    def tail_impl(path, I, segmented_cells, first, tail_dev):
+        """Everything after the segmentation, on a worker thread; the
+        matched filter on ``tail_dev``."""
         nonlocal scaling_factor
         img_name = os.path.basename(path)[:-4]
         annotated_path = os.path.join(inpath, output_folder, img_name)
@@ -167,7 +186,7 @@ def main(
             kernel_shape = [int(d // sf) if (d // sf % 2) else int(d // sf) + 1 for d in params.kernel_size]
             args = (I, segmented_cells, gaussian_stdev, params.normal_threshold, color_sensitivity, kernel_shape)
             with stage("stat_fish.matched_filter"):
-                thresholded = mf.get_thresholded_device(*args, dev) if device_path else mf.get_thresholded(*args)
+                thresholded = mf.get_thresholded_device(*args, tail_dev) if device_path else mf.get_thresholded(*args)
         else:
             thresholded = np.zeros_like(I)[..., 1:]
             gaussian_stdev = min_cc_size = np.nan
@@ -213,32 +232,54 @@ def main(
             imgio.imwrite(lsq_path, blob_labeled)
         return num_channels - 1, list(zip(*columns))
 
+    def segment(path, I, pre, seg_model):
+        """NuSeT's segmentation of one image: (I, the nuclei mask), cut to
+        the mask's shape."""
+        print("Processing image: ", path)
+        with stage("stat_fish.nuclei_segment"):
+            segmented = nuset_infer.nuclei_segment(I[:, :, 0], seg_model, var.nuclei_size_T, device_cleanup=device_path, pre=pre)
+        h, w = segmented.shape
+        I = I[:h, :w, :]
+        return I, segmented[: I.shape[0], : I.shape[1]]
+
     results = []
-    with cf.ThreadPoolExecutor(max_workers=TAIL_WORKERS) as pool:
-        inflight = deque()
-        it = iter(prefetch_map(decode, imgio.get_imgs(inpath)))
-        first = True
-        while True:
-            with stage("stat_fish.decode_wait"):
-                nxt = next(it, None)
-            if nxt is None:
-                break
-            path, (I, pre) = nxt
-            print("Processing image: ", path)
-            with stage("stat_fish.nuclei_segment"):
-                segmented = nuset_infer.nuclei_segment(I[:, :, 0], model, var.nuclei_size_T, device_cleanup=device_path, pre=pre)
-            h, w = segmented.shape
-            I = I[:h, :w, :]
-            segmented = segmented[: I.shape[0], : I.shape[1]]
-            # at most TAIL_WORKERS + 1 tails in flight bounds host memory
-            while len(inflight) > TAIL_WORKERS:
+    image_paths = imgio.get_imgs(inpath)
+    if len(mesh) > 1 and shard_enabled("ECSEG_STAT_FISH_SHARD"):
+        models = [dataclasses.replace(model, **{k: copy.deepcopy(getattr(model, k)).to(d) for k in ("unet_whole", "unet_fg", "rpn_fg")})
+                  for d in mesh]
+
+        def whole(job, k, first=False):
+            path, (I, pre) = job
+            return tail(path, *segment(path, I, pre, models[k]), first, mesh[k])
+
+        jobs = iter(prefetch_map(decode, image_paths))
+        start = 0
+        if scaling_factor == "auto" and image_paths:
+            # image 0 resolves 'auto' alone on entry 0 before the fan-out
+            results += fan_out(lambda job, k: whole(job, k, first=True), [next(jobs)], mesh)
+            start = 1
+        results += fan_out(whole, jobs, mesh, start=start)
+    else:
+        with cf.ThreadPoolExecutor(max_workers=TAIL_WORKERS) as pool:
+            inflight = deque()
+            it = iter(prefetch_map(decode, image_paths))
+            first = True
+            while True:
+                with stage("stat_fish.decode_wait"):
+                    nxt = next(it, None)
+                if nxt is None:
+                    break
+                path, (I, pre) = nxt
+                I, segmented = segment(path, I, pre, model)
+                # at most TAIL_WORKERS + 1 tails in flight bounds host memory
+                while len(inflight) > TAIL_WORKERS:
+                    with stage("stat_fish.tail_wait"):
+                        results.append(inflight.popleft().result())
+                inflight.append(pool.submit(tail, path, I, segmented, first))
+                first = False
+            while inflight:
                 with stage("stat_fish.tail_wait"):
                     results.append(inflight.popleft().result())
-            inflight.append(pool.submit(tail, path, I, segmented, first))
-            first = False
-        while inflight:
-            with stage("stat_fish.tail_wait"):
-                results.append(inflight.popleft().result())
 
     if results:
         write_csv(

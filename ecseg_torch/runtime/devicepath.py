@@ -78,3 +78,10 @@ def use_device_path() -> bool:
             file=sys.stderr,
         )
     return True
+
+
+def shard_enabled(var: str) -> bool:
+    """A fan-out switch (``ECSEG_OVERLAY_SHARD``, ``ECSEG_STAT_FISH_SHARD``,
+    ``ECSEG_INTERSEG_SHARD``) as the JAX package parses it: on unless set to
+    0/false/no/off.  It matters only on more than one device."""
+    return os.environ.get(var, "1").strip().lower() not in ("0", "false", "no", "off")

@@ -5,6 +5,11 @@ total / mean / max) at exit.  Stages do not nest: each records its own
 elapsed wall time.  CUDA work is asynchronous, so while tracing is on a
 stage synchronises the card when it ends and its time includes the device
 work it enqueued.  When tracing is off ``stage()`` costs one attribute test.
+
+Stages may run on several threads at once (the fan-outs over a device
+list): a stage synchronises the calling thread's current CUDA device, so a
+fan-out worker sets its device (``torch.cuda.set_device``) before its first
+stage, and each of its stages waits for its own card.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -25,6 +31,7 @@ class Tracer:
             enabled = os.environ.get("ECSEG_TRACE", "") not in ("", "0")
         self.enabled = enabled
         self._times: Dict[str, List[float]] = defaultdict(list)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -37,11 +44,14 @@ class Tracer:
         finally:
             if torch.cuda.is_initialized():
                 torch.cuda.synchronize()
-            self._times[name].append(time.perf_counter() - t0)
+            elapsed = time.perf_counter() - t0
+            with self._lock:
+                self._times[name].append(elapsed)
 
     def times(self) -> Dict[str, List[float]]:
         """stage -> the seconds of each of its runs."""
-        return {k: list(v) for k, v in self._times.items()}
+        with self._lock:
+            return {k: list(v) for k, v in self._times.items()}
 
     def report(self, out=None) -> str:
         if not self._times:
@@ -59,7 +69,8 @@ class Tracer:
         return text
 
     def reset(self):
-        self._times.clear()
+        with self._lock:
+            self._times.clear()
 
 
 _tracer: Optional[Tracer] = None

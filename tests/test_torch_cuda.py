@@ -621,7 +621,7 @@ def test_grouped_metaseg_on_the_card_equals_per_image_and_the_cpu(cuda, tmp_path
     for k, (h, w) in enumerate([(320, 352), (320, 310), (320, 352), (320, 352)]):
         imgio.write_tiff(str(src / f"img{k}.tif"), cs.synthetic_dapi(rng, h, w, crowded=k == 2))
     outs = {}
-    for run, group, device in [("per_image", "1", None), ("grouped", None, None), ("pairs", "2", None), ("cpu", None, "cpu")]:
+    for run, group, device in [("per_image", "1", "cuda"), ("grouped", None, "cuda"), ("pairs", "2", "cuda"), ("cpu", None, "cpu")]:
         folder = tmp_path / run
         shutil.copytree(src, folder)
         if group is None:
@@ -632,3 +632,45 @@ def test_grouped_metaseg_on_the_card_equals_per_image_and_the_cpu(cuda, tmp_path
         outs[run] = {f: (folder / f).read_bytes() for f in ["ec_quantification.csv"] + [f"labels/img{k}.{e}" for k in range(4) for e in ("npy", "png")]}
     for run in ("grouped", "pairs", "cpu"):
         assert outs[run] == outs["per_image"], run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_post", ["1", "0"])
+def test_logical_mesh_metaseg_equals_the_single_card_run(cuda, tmp_path, monkeypatch, device_post):
+    """``metaseg.main(devices=["cuda:0"] * 2)``, a logical mesh (the card
+    listed twice: each entry its own worker thread and replica), in the
+    default form (each image's chain on one entry, B1-B6 launched as often
+    as on one card) and under ``ECSEG_DEVICE_PIPELINE=0`` (patch batches
+    split over the entries, the stitch and the oracle on the host: no
+    launch): labels, PNGs and CSV bytes equal to the single-card run's."""
+    import shutil
+
+    import chip_smoke as cs
+    from ecseg_torch.core import imgio
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.demo import demo_metaseg_params
+    from ecseg_torch.models.weights import params_to_numpy, save_npz
+    from ecseg_torch.pipelines import metaseg
+
+    model = demo_metaseg_params(torch.Generator().manual_seed(0), widths=(8, 16), bottleneck=32)
+    save_npz(str(tmp_path / "models" / "metaseg.npz"), params_to_numpy(model))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ECSEG_DEVICE_PIPELINE", device_post)
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(1)
+    for k, (h, w) in enumerate([(320, 352), (320, 310), (320, 352), (320, 352), (320, 352)]):
+        imgio.write_tiff(str(src / f"img{k}.tif"), cs.synthetic_dapi(rng, h, w, crowded=k == 2))
+    outs, launches = {}, {}
+    for run, kw in (("card", {"device": "cuda"}), ("mesh", {"devices": ["cuda:0"] * 2})):
+        folder = tmp_path / run
+        shutil.copytree(src, folder)
+        K.reset_launches()
+        assert metaseg.main(config=Config(raw={"metaseg": {"inpath": str(folder)}}), **kw) == 0
+        launches[run] = dict(K.LAUNCHES)
+        outs[run] = {f: (folder / f).read_bytes() for f in ["ec_quantification.csv"] + [f"labels/img{k}.{e}" for k in range(5) for e in ("npy", "png")]}
+    assert outs["mesh"] == outs["card"]
+    if device_post == "1":
+        assert launches["mesh"] == launches["card"] and launches["mesh"]["stitch"] == 5
+    else:
+        assert not any(launches["mesh"].values()) and launches["card"]["stitch"] == 5
