@@ -111,7 +111,19 @@ Phases (any failure raises; exit code 0 only when all pass):
    wrapper's own kernel by name, and a pass whose device sum differs from
    the CUDA-event mean by more than 25 % is repeated; B8a, B8b and B10
    bit-equal to their twins on the timed inputs, B10 on the whole level-1
-   concat of both widths' paths (800 and 200 patches);
+   concat of both widths' paths (800 and 200 patches); then ``make
+   bench`` as the port runs it (``phase_bench``): ``python3 -m
+   ecseg_torch.bench`` with its default flags as a subprocess (three JSON
+   lines, the scored tiles/s line last and the only one on stdout, every
+   value > 0, ``forward_mfu`` in (0, 1]); in-process at one chunk and one
+   pass (launch counters set to 0 just before each measure, read just
+   after), the full-pipeline program cut after each stage (``fwd``,
+   ``stitch``, ``meta``, ``full``: per canvas the launches of
+   ``bench_stage_launches``, a cut of one metaseg image's) and the
+   fused-tail tile program (``tile_path_launches``); the full program's
+   counts on 2 tiles equal to the same program through the kernels' plain
+   twins on the card; ``python3 -m ecseg_torch.bench_stat_fish 3`` (exit
+   code 0, one JSON line);
 6. after every profiler timing (once stat_fish has run, ``torch.profiler``
    drops device records of short windows on the card): ``make stat_fish`` as a user runs
    it (``phase_stat_fish``): ``python3 -m ecseg_torch.pipelines.stat_fish``
@@ -176,7 +188,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    ``python3 -m ecseg_torch.pipelines.metaseg`` (B1-B6 launches, labels
    equal to the host oracle); ms a step, TFLOP/s and peak memory in
    float32, bf16 and both with remat, and the host's crop and copy time;
-7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``,
+7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``,
    ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
@@ -336,6 +348,25 @@ def tile_path_launches(fused_tail: bool):
     want["count_patches"] = 1
     want["fused_tail"] = int(fused_tail)
     return want
+
+
+BENCH_TWIN_TILES = 2  # tiles of the full program held against its run through the plain twins
+BENCH_STAT_FISH_IMAGES = 3
+BENCH_TIMEOUT_S = 600  # each bench command line
+PLAIN_TWINS = {"stitch_labels": "stitch_plain"}  # wrapper -> its twin in cc_kernels, where not wrapper + "_plain"
+
+
+def bench_stage_launches(stage: str):
+    """Kernel launches of one canvas through ``ecseg_torch.bench``'s full
+    program cut after ``stage`` (one of ``bench.STAGES``): none through the forward, B1 through the
+    stitch, one metaseg image's post (``PER_IMAGE_LAUNCHES["default"]``)
+    without the count's B2 through ``meta``, all of it at ``full``."""
+    per = dict(PER_IMAGE_LAUNCHES["default"])
+    if stage in ("fwd", "stitch"):
+        return {key: int(stage == "stitch" and key == "stitch") for key in per}
+    if stage == "meta":
+        per["label"] -= 1
+    return per
 
 
 def check(cond, msg: str) -> None:
@@ -3068,6 +3099,158 @@ def tile_rows(K, dev, errors, results):
     return rows
 
 
+@contextlib.contextmanager
+def plain_twins():
+    """Run the bench's full program and the post it calls through the
+    kernels' plain twins: each wrapper name that ``ecseg_torch.bench``,
+    ``meta_post_gpu`` or ``morphology_gpu`` calls is bound to its twin, and
+    restored after."""
+    from ecseg_torch import bench
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import meta_post_gpu, morphology_gpu
+
+    saved = []
+    try:
+        for _, fname, *_ in KERNELS.values():
+            plain = getattr(K, PLAIN_TWINS.get(fname, fname + "_plain"))
+            for m in (bench, meta_post_gpu, morphology_gpu):
+                if getattr(m, fname, None) is getattr(K, fname):
+                    saved.append((m, fname))
+                    setattr(m, fname, plain)
+        check(saved, "no module of the full program calls a wrapper")
+        yield
+    finally:
+        for m, fname in saved:
+            setattr(m, fname, getattr(K, fname))
+
+
+def run_streams(cmd, timeout, **kw):
+    """Run ``cmd`` to its end; (exit code, [(stream, line), ...] in the order
+    the lines arrived, stream "out" or "err").  Killed at ``timeout``."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, **kw)
+    lines, lock = [], threading.Lock()
+
+    def pump(f, tag):
+        for ln in f:
+            with lock:
+                lines.append((tag, ln.rstrip("\n")))
+
+    pumps = [threading.Thread(target=pump, args=(f, tag)) for f, tag in ((proc.stdout, "out"), (proc.stderr, "err"))]
+    for t in pumps:
+        t.start()
+    try:
+        rc = proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        for t in pumps:
+            t.join()
+    return rc, lines
+
+
+def phase_bench(dev, results):
+    """``make bench`` as the port runs it, then its programs in-process.
+
+    ``python3 -m ecseg_torch.bench`` with its default flags as a subprocess:
+    exit code 0; three JSON lines (the full-pipeline and XL lines, then the
+    scored tiles/s line, last, the only one on stdout, with bench.py's
+    metric); every value > 0; ``forward_mfu`` in (0, 1].  In-process at one
+    chunk and one pass, with the launch counters set to 0 just before each
+    ``measure`` (a first call, a warm-up and one timed call) and read just
+    after: the full program cut after each stage, per canvas
+    ``bench_stage_launches``; the fused-tail tile program, per call
+    ``tile_path_launches(True)``.  The full program's counts on
+    ``BENCH_TWIN_TILES`` tiles equal to the same program through the plain
+    twins on the card, which launch nothing.  Then ``python3 -m
+    ecseg_torch.bench_stat_fish 3``: exit code 0, one JSON line on stdout."""
+    from ecseg_torch import bench
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import tiling
+    from ecseg_torch.pipelines import tile_count as tc
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    for var in FORM_VARS + ("ECSEG_BENCH_FULL_TILES",):
+        env.pop(var, None)
+    work = tempfile.mkdtemp(prefix="ecseg_bench_")
+    phase_t0 = time.perf_counter()
+    out = {}
+    try:
+        torch.cuda.empty_cache()  # the subprocesses need the card's memory
+        t0 = time.perf_counter()
+        rc, lines = run_streams([sys.executable, "-m", "ecseg_torch.bench"], BENCH_TIMEOUT_S, cwd=work, env=env)
+        out["command_s"] = time.perf_counter() - t0
+        check(rc == 0, f"python -m ecseg_torch.bench exited {rc}:\n" + "\n".join(ln for _, ln in lines[-40:]))
+        js = [(tag, json.loads(ln)) for tag, ln in lines if ln.startswith("{")]
+        check(len(js) == 3, f"python -m ecseg_torch.bench printed {len(js)} JSON lines, not 3: {js}")
+        check([tag for tag, _ in js] == ["err", "err", "out"], f"the scored line is not the last and only stdout JSON line: {js}")
+        scored_metric = "1024x1024 DAPI tiles/sec/chip (U-Net seg + CC labeling)"
+        want_metrics = [scored_metric + " [full-pipeline: + device meta_inference]", scored_metric + " [arch=xl]", scored_metric]
+        check([r["metric"] for _, r in js] == want_metrics, f"metrics {[r['metric'] for _, r in js]}")
+        for _, r in js:
+            check(r["value"] > 0 and r["unit"] == "tiles/s/chip", f"bench line {r}")
+            check(r["forward_mfu"] is not None and 0 < r["forward_mfu"] <= 1, f"forward_mfu of {r}")
+        out["lines"] = [r for _, r in js]
+        print(f"python -m ecseg_torch.bench: rc 0 in {out['command_s']:.1f} s; " + "; ".join(
+            f"{r['metric'][len(scored_metric):].strip() or '[scored]'} {r['value']} tiles/s (forward_mfu {r['forward_mfu']})" for _, r in js), flush=True)
+
+        with post_form("default"), environ({"ECSEG_BENCH_FULL_TILES": None}):
+            batch = bench._sizes("default")[0]
+            calls = 3  # a first call, a warm-up and reps=1
+            stage_ms = {}
+            for stage in bench.STAGES:
+                K.reset_launches()
+                rate = bench.measure("default", full=True, full_stage=stage, nchunks=1, passes=1, reps=1)
+                torch.cuda.synchronize()
+                launches = dict(K.LAUNCHES)
+                want = {k: calls * batch * v for k, v in bench_stage_launches(stage).items()}
+                check(launches == want, f"bench full program through {stage}: launches {launches}, want {want}")
+                stage_ms[stage] = 1e3 / rate
+            K.reset_launches()
+            fused_rate = bench.measure("default", fused_tail=True, nchunks=1, passes=1, reps=1)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            want = {k: calls * v for k, v in tile_path_launches(True).items()}
+            check(launches == want, f"bench fused-tail: launches {launches}, want {want}")
+            out["in_process"] = {"full_ms_per_tile": stage_ms, "fused_tail_tiles_per_s": fused_rate, "launches_per_canvas": bench_stage_launches("full")}
+            print(f"bench in-process (1 chunk, 1 pass, {batch} tiles a call): full program ms per tile through each stage {stage_ms}; "
+                  f"launches per canvas as bench_stage_launches; fused-tail {fused_rate:.2f} tiles/s, launches as tile_path_launches", flush=True)
+
+            model = tc.realistic_model("default", torch.Generator().manual_seed(0)).to(dev)
+            patches, positions = tc.tile_patches(tc.synthetic_tiles(BENCH_TWIN_TILES, 0))
+            group = torch.from_numpy(patches).to(dev)
+            K.reset_launches()
+            got = bench.full_program(model, group, positions).cpu()
+            check(K.LAUNCHES == {k: BENCH_TWIN_TILES * v for k, v in bench_stage_launches("full").items()}, f"full program on {BENCH_TWIN_TILES} tiles: launches {K.LAUNCHES}")
+            K.reset_launches()
+            with plain_twins():
+                want = bench.full_program(model, group, positions).cpu()
+            check(all(v == 0 for v in K.LAUNCHES.values()), f"the twins' run launched {K.LAUNCHES}")
+            check(torch.equal(got, want), f"full program counts {got.tolist()} != the plain twins' {want.tolist()}")
+            check(bool((got > 10).all()), f"full program counts {got.tolist()} <= 10")
+            out["twin_counts"] = got.tolist()
+            print(f"bench full program on {BENCH_TWIN_TILES} tiles: counts {got.tolist()} equal the plain twins' on the card", flush=True)
+            del model, group
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc, lines = run_streams([sys.executable, "-m", "ecseg_torch.bench_stat_fish", str(BENCH_STAT_FISH_IMAGES)], BENCH_TIMEOUT_S, cwd=work, env=env)
+        out["stat_fish_command_s"] = time.perf_counter() - t0
+        check(rc == 0, f"python -m ecseg_torch.bench_stat_fish exited {rc}:\n" + "\n".join(ln for _, ln in lines[-40:]))
+        js = [json.loads(ln) for tag, ln in lines if tag == "out" and ln.startswith("{")]
+        check(len(js) == 1 and js[0]["n_images"] == BENCH_STAT_FISH_IMAGES and js[0]["value"] > 0, f"bench_stat_fish printed {js}")
+        out["stat_fish"] = js[0]
+        print(f"python -m ecseg_torch.bench_stat_fish {BENCH_STAT_FISH_IMAGES}: rc 0 in {out['stat_fish_command_s']:.1f} s; "
+              f"{js[0]['value']} images/s, top stage {js[0]['top_stage']}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"phase_bench: {out['phase_s']:.1f} s", flush=True)
+    results["bench"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3108,6 +3291,7 @@ def main() -> int:
     xl_ms = phase_xl_forward(rng, dev)
     per_tile = phase_tile_count(K, dev, results)
     rows += tile_rows(K, dev, errors, results)
+    phase_bench(dev, results)
     # after every profiler timing: once stat_fish has run, torch.profiler on
     # the card drops device records of short windows (observed on an H100
     # with torch 2.11), and device_ms then fails
@@ -3130,6 +3314,7 @@ def main() -> int:
     print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "card": smi}))
     print(json.dumps({"train": results["train"], "card": smi}))
     print(json.dumps({"multidevice": results["multidevice"], "card": smi}))
+    print(json.dumps({"bench": results["bench"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -27,8 +27,10 @@ post-processing in each form the JAX package's ``ECSEG_MC_LABEL`` and
 (``pipelines/stat_fish.py``: NuSeT, the certified watershed on B3, the
 cleanup on B2, min-cut and the matched filter); interseg
 (``pipelines/interseg.py``); training (``pipelines/train_metaseg.py``);
-bench.py's per-tile count (``pipelines/tile_count.py``); and the
-multi-device paths: the (data, model) mesh (``parallel/mesh.py``) and its
-train step, metaseg's sharded folder paths and the fan-outs of
-meta_overlay, stat_fish and interseg.
+bench.py's per-tile count (``pipelines/tile_count.py``); the multi-device
+paths: the (data, model) mesh (``parallel/mesh.py``) and its train step,
+metaseg's sharded folder paths and the fan-outs of meta_overlay, stat_fish
+and interseg; and the benchmarks: ``python -m ecseg_torch.bench`` (bench.py's
+tile and full-pipeline programs and JSON lines) and ``python -m
+ecseg_torch.bench_stat_fish`` (scripts/bench_stat_fish.py).
 """

@@ -64,24 +64,25 @@ def realistic_model(
     return model.to(dtype).eval()
 
 
-def synthetic_tiles(n: int, seed: int = 0) -> np.ndarray:
-    """(n, 1024, 1024) uint8 tiles, bench's recipe (``bench.py:207-215``) in
-    its draw order: dark noise below 80, then per tile 120 bright (230)
-    squares of side 2..6, the ecDNA-like blobs the program counts."""
+def synthetic_tiles(n: int, seed: int = 0, side: int = TILE) -> np.ndarray:
+    """(n, side, side) uint8 tiles, bench's recipe (``bench.py:207-215``,
+    where ``side`` is 1024) in its draw order: dark noise below 80, then per
+    tile 120 bright (230) squares of side 2..6, the ecDNA-like blobs the
+    program counts."""
     rng = np.random.default_rng(seed)
-    tiles = (rng.random((n, TILE, TILE)) * 80).astype(np.uint8)
+    tiles = (rng.random((n, side, side)) * 80).astype(np.uint8)
     for b in range(n):
         for _ in range(120):
-            y, x = rng.integers(0, TILE - 12), rng.integers(0, TILE - 12)
+            y, x = rng.integers(0, side - 12), rng.integers(0, side - 12)
             r = rng.integers(2, 7)
             tiles[b, y : y + r, x : x + r] = 230
     return tiles
 
 
 def tile_patches(tiles: np.ndarray):
-    """(T, 1024, 1024) uint8 -> ((T, 25, 256, 256, 1) uint8 patches, the
-    patch positions)."""
-    positions = tuple(map(tuple, tiling.patch_positions(TILE, TILE)))
+    """(T, H, W) uint8 -> ((T, P, 256, 256, 1) uint8 patches, the patch
+    positions); P is 25 at 1024^2."""
+    positions = tuple(map(tuple, tiling.patch_positions(*tiles.shape[1:3])))
     patches = np.stack([tiling.im2patches_overlap(t[..., None])[1] for t in tiles])
     return patches, positions
 
