@@ -54,7 +54,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    byte-identical labels; the card's forward agrees with the CPU forward
    (TF32 off).  ``main`` groups the images of a geometry by default (2 + 2
    at 2048^2, 100 patches an image, the crowded image in the second group:
-   one forward a group, B1 and the post per canvas); ``main`` again per
+   the forwards one an image, B1 and the post per canvas); ``main`` again per
    image (``ECSEG_METASEG_GROUP=1``) and as 3 + 1
    (``ECSEG_METASEG_GROUP=3 ECSEG_METASEG_PATCH_BUDGET=300``): the same
    launches and host redo, the forwards per group, labels, PNGs and CSV
@@ -73,7 +73,8 @@ Phases (any failure raises; exit code 0 only when all pass):
    0, two CSV rows, labels equal to the host oracle and byte-equal to an
    in-process ``main``, and the host decode times of both files.  Then
    ``make metaseg && make meta_overlay`` as a user runs them: the two
-   command lines on a folder of three 2048^2 RGB uint16 LZW TIFFs (blue a
+   command lines on a folder of three 2048^2 RGB uint16 LZW TIFFs (written
+   by the port's encoder, ``imgio.write_tiff_lzw``; blue a
    synthetic DAPI image, red and green seeded FISH dots and blobs; one
    image's FISH below color_sensitivity) and one grayscale TIFF, and
    ``meta_overlay.main`` in-process on a copy (launch counters set to 0
@@ -129,7 +130,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    it (``phase_stat_fish``): ``python3 -m ecseg_torch.pipelines.stat_fish``
    and ``stat_fish.main`` in-process (launch counters set to 0 just before,
    read just after: four B2 an image and one B3 a watershed with markers)
-   on three 2048^2 RGB uint16 LZW TIFFs (half the nuclei with an
+   on three 2048^2 RGB uint16 LZW TIFFs (``imgio.write_tiff_lzw``; half the nuclei with an
    amplified red probe, drawn from seed + 8, for interseg) with the demo
    NuSeT at its published widths (RPN scores raised so that markers are
    placed).
@@ -187,8 +188,19 @@ Phases (any failure raises; exit code 0 only when all pass):
    and with ``--bf16 --remat``, the float32 export served back through
    ``python3 -m ecseg_torch.pipelines.metaseg`` (B1-B6 launches, labels
    equal to the host oracle); ms a step, TFLOP/s and peak memory in
-   float32, bf16 and both with remat, and the host's crop and copy time;
-7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``,
+   float32, bf16 and both with remat, and the host's crop and copy time.
+   Last, README's end-to-end demo through the port (``phase_demo``): in an
+   empty directory with the repository's ``config.yaml``, ``python3 -m
+   ecseg_torch.make_demo_weights`` and the five task command lines in
+   README's order (stat_fish under ``ECSEG_TRACE=1 ECSEG_TRACE_DIR``):
+   exit codes 0, the rows the CPU test pins, a Chrome trace with B2's
+   kernels; stat_fish again under ``ECSEG_STAT_FISH_TAIL_WORKERS=3
+   ECSEG_TIF_LZW=1 ECSEG_NO_NATIVE=1`` (the default run's CSV and ``.npy``
+   bytes, LZW TIFFs of the same pixels); the five tasks in-process on a
+   copy (launch counters set to 0 just before each, read just after:
+   ``DEMO_LAUNCHES``), byte-equal to the command lines; each command's
+   wall;
+7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``, ``{"demo": ...}``,
    ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
@@ -729,7 +741,10 @@ def lzw_strip(data: bytes) -> bytes:
 def lzw_tiff_bytes(img: np.ndarray, byte_order: str = "<", rows_per_strip: int = 8) -> bytes:
     """A strip TIFF of a uint8/uint16 gray or RGB image, LZW with the
     horizontal predictor, as libtiff writes the reference's default TIFFs;
-    ``byte_order`` "<" (II) or ">" (MM)."""
+    ``byte_order`` "<" (II) or ">" (MM).  Independent of the port's writer
+    (``imgio.write_tiff_lzw``), so the files it makes hold the port's
+    decoder to a second encoder on the card (the command-line and
+    fish_distance phases)."""
     h, w = img.shape[:2]
     spp = 1 if img.ndim == 2 else img.shape[2]
     diff = img.copy()
@@ -1097,24 +1112,6 @@ def synthetic_overlay_rgb(rng, h, w, dim=False):
     return np.stack([red, green, blue], axis=-1)
 
 
-def _write_lzw_tiff(job):
-    """(path, image): write the image as an LZW strip TIFF (a process-pool
-    job; the encoder is Python)."""
-    path, img = job
-    with open(path, "wb") as f:
-        f.write(lzw_tiff_bytes(img))
-
-
-def write_lzw_tiffs(jobs):
-    """``_write_lzw_tiff`` of every (path, image) in ``jobs`` at once, one
-    worker process each."""
-    import concurrent.futures as cf
-    import multiprocessing
-
-    with cf.ProcessPoolExecutor(max_workers=len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
-        list(pool.map(_write_lzw_tiff, jobs))
-
-
 def overlay_host_row(name, red, green, nuclei, chrom, ec):
     """One fish_quantification.csv row from the port's host oracles (the
     reference's dataflow, meta_overlay.py:68-83, on scipy): the branch
@@ -1184,7 +1181,8 @@ def phase_meta_overlay(args, rng, dev, errors, results):
         names = [f"fish{k}.tif" for k in range(3)]
         rgbs = [synthetic_overlay_rgb(rng, SIZE, SIZE, dim=k == 2) for k in range(3)]
         t0 = time.perf_counter()
-        write_lzw_tiffs([(os.path.join(imgs, n), img) for n, img in zip(names, rgbs)])
+        for n, img in zip(names, rgbs):
+            imgio.write_tiff_lzw(os.path.join(imgs, n), img)
         encode_s = time.perf_counter() - t0
         imgio.write_tiff(os.path.join(imgs, "gray.tif"), synthetic_dapi(rng, SIZE, SIZE, crowded=False))
         t0 = time.perf_counter()
@@ -1290,7 +1288,7 @@ def phase_meta_overlay(args, rng, dev, errors, results):
             f"meta_overlay: command lines metaseg {cli_s['metaseg']:.2f} s, meta_overlay {cli_s['meta_overlay']:.2f} s (process start "
             f"included); in-process main on {len(names)} RGB images + 1 grayscale in {wall:.3f} s; launches {results['overlay']['launches']}; "
             f"CSV equals the host oracle and the command line's; PNGs decode to 255 - channel; RGB LZW decode {1e3 * decode_s:.1f} ms, "
-            f"3 encodes in parallel {encode_s:.1f} s", flush=True,
+            f"3 encodes (imgio.write_tiff_lzw) {encode_s:.2f} s", flush=True,
         )
         for name, ts in sorted(stages.items()):
             print(f"  stage {name:24s} n={len(ts)} total {sum(ts):.4f} s; per image ms: " + " ".join(f"{1e3 * t:.2f}" for t in ts), flush=True)
@@ -1478,7 +1476,8 @@ def phase_stat_fish(args, rng, dev, errors, results):
         amp_rng = np.random.default_rng(args.seed + 8)  # the red amplification interseg classifies
         rgbs = [synthetic_interphase_rgb(rng, SIZE, SIZE, amp_rng) for _ in names]
         t0 = time.perf_counter()
-        write_lzw_tiffs([(os.path.join(imgs, n), img) for n, img in zip(names, rgbs)])
+        for n, img in zip(names, rgbs):
+            imgio.write_tiff_lzw(os.path.join(imgs, n), img)
         encode_s = time.perf_counter() - t0
         shutil.copytree(imgs, inproc)
         with open(os.path.join(work, "config.yaml"), "w") as f:
@@ -2710,6 +2709,164 @@ def phase_train(args, dev, results):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+DEMO_TASKS = ("metaseg", "meta_overlay", "stat_fish", "interseg", "fish_distance")  # README's demo, in its order
+DEMO_SWITCHES = {"ECSEG_STAT_FISH_TAIL_WORKERS": "3", "ECSEG_TIF_LZW": "1", "ECSEG_NO_NATIVE": "1"}
+# the kernel launches of each demo task on its one image; stat_fish's demo
+# RPN places no marker, so its watershed passes through and launches no B3
+DEMO_LAUNCHES = {
+    "metaseg": PER_IMAGE_LAUNCHES["default"],
+    "meta_overlay": OVERLAY_LAUNCHES,
+    "stat_fish": {key: STAT_FISH_LABELS_PER_IMAGE * (key == "label") for key in ALL_KERNELS},
+    "interseg": {key: 0 for key in ALL_KERNELS},
+    "fish_distance": {key: 0 for key in ALL_KERNELS},
+}
+B2_ONLY_KERNEL = "uf_resolve"  # B2's flattening pass; B5 runs it too, but not on stat_fish's path
+
+
+def demo_files(work):
+    """relative path -> bytes of every file under ``work``'s example folders."""
+    out = {}
+    for sub in ("example_ecSeg", "example_interSeg"):
+        for dirpath, _, names in os.walk(os.path.join(work, sub)):
+            for name in names:
+                path = os.path.join(dirpath, name)
+                out[os.path.relpath(path, work)] = read_bytes(path)
+    return out
+
+
+def demo_counts(work):
+    """The rows README's demo promises, as the CPU test pins them
+    (tests/test_torch_demo_weights.py): one metaseg and one meta_overlay
+    row for input.tif; three nuclei, each with one green and three red
+    foci, three ``EC-amp`` rows and three distances."""
+    rows = lambda *p: open(os.path.join(work, *p)).read().splitlines()[1:]
+    fish = [r.split(",") for r in rows("example_interSeg", "annotated", "stat_fish_lsq.csv")]
+    return {
+        "metaseg": rows("example_ecSeg", "ec_quantification.csv"),
+        "meta_overlay": len(rows("example_ecSeg", "fish_quantification.csv")),
+        "stat_fish": [(r[0], r[3], r[7]) for r in fish],
+        "interseg": [r.split(",")[2:] for r in rows("example_interSeg", "interphase_prediction_red.csv")],
+        "fish_distance": len(rows("example_interSeg", "centromere_distances.csv")),
+    }
+
+
+DEMO_COUNTS = {
+    "metaseg": ["input.tif,1"], "meta_overlay": 1, "stat_fish": [("cells", "1", "3")] * 3,
+    "interseg": [["EC-amp", "EC-amp"]] * 3, "fish_distance": 3,
+}
+
+
+def phase_demo(results):
+    """README's end-to-end demo through the port, as a user runs it on the
+    card: in an empty directory with a copy of the repository's
+    ``config.yaml``, ``python3 -m ecseg_torch.make_demo_weights`` and then
+    ``python3 -m ecseg_torch.pipelines.<task>`` for metaseg, meta_overlay,
+    stat_fish (under ``ECSEG_TRACE=1 ECSEG_TRACE_DIR=<dir>``), interseg and
+    fish_distance.  Checks: exit codes 0; the rows of ``DEMO_COUNTS``; one
+    Chrome trace in the directory, with CUDA kernel events among which B2's
+    ``uf_resolve``; stat_fish again on a fresh copy under
+    ``DEMO_SWITCHES`` (three tail workers, LZW TIFFs, the Python min-cut
+    and watershed): its CSV, ``.npy`` and copied YAML bytes equal the
+    default run's, its TIFFs carry compression 5 (the default's 1) and
+    decode to the same pixels; then the five tasks in-process on another
+    copy (``main()`` reading ``./config.yaml``), each with every launch
+    counter set to 0 just before and read just after (``DEMO_LAUNCHES``),
+    every output file byte-equal to the command lines'."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.pipelines import fish_distance, interseg, meta_overlay, metaseg, stat_fish
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = results["card"]
+    work = tempfile.mkdtemp(prefix="ecseg_demo_")
+    cwd = os.getcwd()
+    env = {k: v for k, v in os.environ.items() if k not in ("ECSEG_TRACE", "ECSEG_TRACE_DIR", *DEMO_SWITCHES)}
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    walls = {}
+
+    def run(name, args, where, extra=None):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=where, env=dict(env, **(extra or {})), capture_output=True, text=True, timeout=600)
+        walls[name] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"demo: python -m {' '.join(args)} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        print(f"demo: python -m {' '.join(args)}{' under ' + str(extra) if extra else ''}: rc 0 in {walls[name]:.2f} s [{card}]", flush=True)
+        return proc
+
+    try:
+        shutil.copy(os.path.join(root, "config.yaml"), work)
+        out = run("make_demo_weights", ["ecseg_torch.make_demo_weights"], work).stdout.splitlines()
+        check(len(out) == 6 and all(ln.startswith("wrote ") for ln in out), f"make_demo_weights printed {out}")
+        for sub in ("switches", "inproc"):  # fresh copies of the inputs and weights
+            os.makedirs(os.path.join(work, sub))
+            shutil.copy(os.path.join(work, "config.yaml"), os.path.join(work, sub))
+            for d in ("example_ecSeg", "example_interSeg", "models", "interseg_models"):
+                shutil.copytree(os.path.join(work, d), os.path.join(work, sub, d))
+        trace_dir = os.path.join(work, "traces")
+        for task in DEMO_TASKS:
+            extra = {"ECSEG_TRACE": "1", "ECSEG_TRACE_DIR": trace_dir} if task == "stat_fish" else None
+            proc = run(task, [f"ecseg_torch.pipelines.{task}"], work, extra)
+            if task == "stat_fish":
+                check("[ecseg trace]" in proc.stdout, "demo: stat_fish under ECSEG_TRACE=1 printed no stage table")
+        counts = demo_counts(work)
+        check(counts == DEMO_COUNTS, f"demo: rows {counts} != {DEMO_COUNTS}")
+
+        traces = sorted(os.listdir(trace_dir))
+        check(len(traces) == 1 and traces[0].startswith("ecseg_trace_"), f"demo: the trace directory holds {traces}")
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        check(any(B2_ONLY_KERNEL in k for k in kernels), f"demo: the stat_fish trace shows no B2 launch among {len(kernels)} kernel events")
+        trace_info = {"file_bytes": os.path.getsize(os.path.join(trace_dir, traces[0])), "events": len(events), "kernel_events": len(kernels),
+                      "b2_resolve_events": sum(B2_ONLY_KERNEL in k for k in kernels)}
+        print(f"demo: stat_fish's Chrome trace {trace_info}", flush=True)
+
+        sw = os.path.join(work, "switches")
+        run("stat_fish_switches", ["ecseg_torch.pipelines.stat_fish"], sw, DEMO_SWITCHES)
+        base, other = (os.path.join(d, "example_interSeg", "annotated") for d in (work, sw))
+        names = sorted(os.path.relpath(os.path.join(dp, n), base) for dp, _, ns in os.walk(base) for n in ns)
+        check(names == sorted(os.path.relpath(os.path.join(dp, n), other) for dp, _, ns in os.walk(other) for n in ns),
+              "demo: stat_fish under the switches wrote other files")
+        n_tif = 0
+        for name in names:
+            a, b = read_bytes(os.path.join(base, name)), read_bytes(os.path.join(other, name))
+            if name.endswith(".tif"):
+                comp = (imgio._tiff_header(a)[1][259], imgio._tiff_header(b)[1][259])
+                check(comp == ((1,), (5,)), f"demo: {name} compression {comp}, expected 1 by default and 5 under ECSEG_TIF_LZW=1")
+                check(np.array_equal(imgio.imread_rgb(os.path.join(base, name)), imgio.imread_rgb(os.path.join(other, name))),
+                      f"demo: {name} pixels differ under the switches")
+                n_tif += 1
+            else:
+                check(a == b, f"demo: {name} bytes differ under the switches")
+        check(n_tif == 5, f"demo: {n_tif} TIFFs compared")
+        print(f"demo: stat_fish under {DEMO_SWITCHES}: {len(names) - n_tif} CSV/.npy/YAML files byte-equal, {n_tif} LZW TIFFs decode to the default's pixels", flush=True)
+
+        inproc = os.path.join(work, "inproc")
+        os.chdir(inproc)
+        launches, inproc_s = {}, {}
+        mains = {"metaseg": metaseg.main, "meta_overlay": meta_overlay.main, "stat_fish": stat_fish.main, "interseg": interseg.main}
+        for task in DEMO_TASKS:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            rc = fish_distance.main() if task == "fish_distance" else mains[task](device="cuda")
+            torch.cuda.synchronize()
+            inproc_s[task] = time.perf_counter() - t0
+            launches[task] = dict(K.LAUNCHES)
+            check(rc == 0, f"demo: in-process {task}.main returned {rc}")
+            check(launches[task] == DEMO_LAUNCHES[task], f"demo: in-process {task} launched {launches[task]}, expected {DEMO_LAUNCHES[task]}")
+        got, want = demo_files(inproc), demo_files(work)
+        check(sorted(got) == sorted(want), f"demo: in-process files {sorted(set(got) ^ set(want))} differ from the command lines'")
+        for name, data in want.items():
+            check(got[name] == data, f"demo: in-process {name} bytes != the command line's")
+        results["demo"] = {
+            "command_s": walls, "inproc_s": inproc_s, "rows": counts, "trace": trace_info,
+            "launches": {task: {k: v for k, v in ln.items() if v} for task, ln in launches.items()}, "files_compared": len(want),
+        }
+        print(f"demo: in-process runs {inproc_s}, launches {results['demo']['launches']}, {len(want)} files byte-equal to the command lines' [{card}]", flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_timings(K, dev, errors, results):
     lp, pos, raw = results.pop("inputs")
     results["ec_mask"] = raw == 3  # B8a's timing input (tile phase)
@@ -3301,10 +3458,15 @@ def main() -> int:
     phase_quant(args, dev, results)  # its own generator
     phase_keras_import(args, dev, results)
     phase_train(args, dev, results)
+    torch.cuda.empty_cache()  # the demo's command lines share the card
+    phase_demo(results)  # README's demo: command lines, and in-process on a copy
+    wrapper_key = {names[1]: key for key, names in ALL_KERNELS.items()}
     for row in rows:  # stat_fish's launches and times beside B2's and B3's metaseg rows
         key = {"label": "label", "flood_from_border": "flood_border"}.get(row["name"])
         if key:
             row["stat_fish"] = results["stat_fish_kernels"][key]
+        # the demo path's launches (its in-process run), beside the main path's
+        row["demo_launches"] = sum(ln.get(wrapper_key.get(row["name"]), 0) for ln in results["demo"]["launches"].values())
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
     print(json.dumps({"grouped": results["grouped"], "host_post": results["host_post"], "quant": results["quant"], "card": smi}))
@@ -3315,6 +3477,7 @@ def main() -> int:
     print(json.dumps({"train": results["train"], "card": smi}))
     print(json.dumps({"multidevice": results["multidevice"], "card": smi}))
     print(json.dumps({"bench": results["bench"], "card": smi}))
+    print(json.dumps({"demo": results["demo"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -14,9 +14,14 @@ the reference's channel-order and rounding semantics
 - :func:`save_label_png` writes the metaseg palette PNG with ``zlib``; the
   contract is pixel-level (the decoded colours), as in the JAX package.
 - :func:`save_gray_inverted` writes metaseg's ``dapi/`` image as an
-  uncompressed TIFF (the JAX package's default encoding too) and
-  meta_overlay's ``red/`` and ``green/`` images as 8-bit grayscale PNGs
-  (``zlib``); the contract is the decoded pixels, not the file bytes.
+  uncompressed TIFF (the JAX package writes it through ``cv2.imwrite``,
+  LZW) and meta_overlay's ``red/`` and ``green/`` images as 8-bit
+  grayscale PNGs (``zlib``); the contract is the decoded pixels, not the
+  file bytes.
+- :func:`imwrite` writes stat_fish's TIFFs uncompressed (the JAX
+  package's default) or, under ``ECSEG_TIF_LZW=1``, LZW with the bytes
+  ``cv2.imwrite`` writes (:func:`write_tiff_lzw`; the encoder is in
+  ``csrc/tiff_lzw.cpp``).
 """
 
 from __future__ import annotations
@@ -204,27 +209,117 @@ def imread_bgr8(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., 2::-1])
 
 
+def tif_lzw() -> bool:
+    """``ECSEG_TIF_LZW``, parsed as the JAX package parses it
+    (``ecseg_tpu/core/imgio.py:57-59``)."""
+    return os.environ.get("ECSEG_TIF_LZW", "0").strip().lower() in ("1", "true", "yes", "on")
+
+
 def imwrite(path: str, img: np.ndarray) -> None:
-    """``cv2.imwrite`` of an (H, W) or BGR (H, W, 3) uint8/uint16 array to an
-    uncompressed TIFF (the JAX package's ``imgio.imwrite`` default, whose
-    contract is the decoded pixels): the file holds RGB, as OpenCV writes
-    it.  A failed write raises."""
+    """``cv2.imwrite`` of an (H, W) or BGR (H, W, 3) uint8/uint16 array to a
+    TIFF that holds RGB, as OpenCV writes it: uncompressed (the JAX
+    package's ``imgio.imwrite`` default, whose contract is the decoded
+    pixels), or, under ``ECSEG_TIF_LZW=1`` with a ``.tif``/``.tiff`` path,
+    LZW as cv2's default encoding (:func:`write_tiff_lzw`).  A failed write
+    raises."""
     img = np.asarray(img)
-    write_tiff(path, img[..., ::-1] if img.ndim == 3 else img)
+    rgb = img[..., ::-1] if img.ndim == 3 else img
+    if tif_lzw() and path.lower().endswith((".tif", ".tiff")):
+        write_tiff_lzw(path, rgb)
+    else:
+        write_tiff(path, rgb)
+
+
+def _layout(img: np.ndarray):
+    """(samples per pixel, photometric) of a uint8/uint16 gray or RGB image."""
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"a TIFF is written from uint8/uint16, got {img.dtype}")
+    if img.ndim == 2:
+        return 1, 1
+    if img.ndim == 3 and img.shape[2] == 3:
+        return 3, 2
+    raise ValueError(f"a TIFF is written from (H, W) or (H, W, 3), got {img.shape}")
+
+
+@functools.lru_cache(maxsize=1)
+def _lzw_encoder():
+    """``ecseg_lzw_encode_strips`` of csrc/tiff_lzw.cpp (built at first use)."""
+    from .._build import host_library
+
+    fn = host_library("tiff_lzw.cpp").ecseg_lzw_encode_strips
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, p64, p64, ctypes.c_void_p, p64, p64]
+    fn.restype = None
+    return fn
+
+
+LZW_STRIP_BYTES = 1 << 13  # OpenCV's strip size target: rows per strip = max(1, 8192 // row bytes)
+
+
+def write_tiff_lzw(path: str, img: np.ndarray) -> None:
+    """A little-endian strip TIFF of a uint8/uint16 gray (H, W) or RGB
+    (H, W, 3) image, LZW (``csrc/tiff_lzw.cpp``) with the horizontal
+    predictor, laid out as OpenCV's libtiff writes ``cv2.imwrite``'s default
+    TIFF: its rows per strip, the strips from byte 8, the IFD after them on
+    an even offset (tags 256-279, 284, 317, 339; each type as libtiff
+    picks it), then the values that do not fit an entry (bits per sample,
+    strip byte counts, strip offsets, sample formats).  The file's bytes
+    equal cv2's (tests/test_torch_tiff.py)."""
+    img = np.ascontiguousarray(img)
+    spp, photometric = _layout(img)
+    h, w = img.shape[:2]
+    diff = img.copy()
+    diff[:, 1:] -= img[:, :-1]  # wraps, as the predictor's differences do
+    raw = np.ascontiguousarray(diff.astype(img.dtype.newbyteorder("<")))
+    row = w * spp * img.dtype.itemsize
+    rps = max(1, min(h, LZW_STRIP_BYTES // row))
+    starts = np.arange(0, h, rps, dtype=np.int64)
+    src_len = np.minimum(rps, h - starts) * row
+    src_off = starts * row
+    cap = 2 * src_len + 64
+    dst_off = np.concatenate([[0], np.cumsum(cap)[:-1]]).astype(np.int64)
+    dst = np.empty(int(cap.sum()), np.uint8)
+    dst_len = np.zeros(len(starts), np.int64)
+    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    _lzw_encoder()(raw.ctypes.data, len(starts), ptr(src_off), ptr(src_len), dst.ctypes.data, ptr(dst_off), ptr(dst_len))
+    strips = [dst[o : o + n].tobytes() for o, n in zip(dst_off, dst_len)]
+    offsets = np.concatenate([[8], 8 + np.cumsum(dst_len)[:-1]]).astype(np.int64)
+    ifd = 8 + int(dst_len.sum())
+    ifd += ifd % 2
+    n_tags = 12
+    extra = ifd + 2 + 12 * n_tags + 4  # the first byte after the IFD
+    short = lambda v: 3 if v <= 0xFFFF else 4
+    pack = lambda typ, vals: struct.pack("<" + ("H" if typ == 3 else "I") * len(vals), *vals)
+    # libtiff writes several strips' byte counts as SHORT when an LZW strip
+    # of rps rows could not pass 65535 bytes at 10x its raw size
+    counts_type = 3 if len(starts) > 1 and rps * row < 0xFFFF // 10 else 4
+    values = {  # tag -> (type, values); SHORT (3) or LONG (4)
+        256: (short(w), [w]), 257: (short(h), [h]), 258: (3, [8 * img.dtype.itemsize] * spp), 259: (3, [5]),
+        262: (3, [photometric]), 273: (4, offsets.tolist()), 277: (3, [spp]), 278: (short(rps), [rps]),
+        279: (counts_type, dst_len.tolist()), 284: (3, [1]), 317: (3, [2]), 339: (3, [1] * spp),
+    }
+    fields, tail = {}, []
+    for tag in (258, 279, 273, 339):  # libtiff's order for values past the entry
+        data = pack(*values[tag])
+        if len(data) > 4:
+            fields[tag] = struct.pack("<I", extra)
+            tail.append(data)
+            extra += len(data)
+    out = [b"II", struct.pack("<HI", 42, ifd), *strips, b"\0" * (ifd - 8 - int(dst_len.sum())), struct.pack("<H", n_tags)]
+    for tag in sorted(values):
+        typ, vals = values[tag]
+        field = fields.get(tag) or pack(typ, vals).ljust(4, b"\0")
+        out.append(struct.pack("<HHI", tag, typ, len(vals)) + field)
+    out.append(struct.pack("<I", 0))  # no next IFD
+    with open(path, "wb") as f:
+        f.write(b"".join(out + tail))
 
 
 def write_tiff(path: str, img: np.ndarray) -> None:
     """Baseline little-endian uncompressed TIFF, one strip: uint8/uint16,
     gray (H, W) or RGB (H, W, 3)."""
     img = np.ascontiguousarray(img)
-    if img.dtype not in (np.uint8, np.uint16):
-        raise TypeError(f"write_tiff takes uint8/uint16, got {img.dtype}")
-    if img.ndim == 2:
-        spp, photometric = 1, 1
-    elif img.ndim == 3 and img.shape[2] == 3:
-        spp, photometric = 3, 2
-    else:
-        raise ValueError(f"write_tiff takes (H, W) or (H, W, 3), got {img.shape}")
+    spp, photometric = _layout(img)
     h, w = img.shape[:2]
     bits = 8 * img.dtype.itemsize
     data = img.astype(img.dtype.newbyteorder("<")).tobytes()

@@ -16,8 +16,10 @@ back; the visualization's blake2b colours.
 The reference seeds NumPy's global generator (``np.random.seed(seed)``) and
 draws with ``np.random.randint``; here a ``np.random.RandomState(seed)`` is
 passed down, which draws the same numbers.  The partition runs in C++
-(``csrc/cc_maxflow.cpp``, built at first use; a failed build raises), with
-its Python twin :func:`partition_py` kept for the tests.  The L1 distance
+(``csrc/cc_maxflow.cpp``, built at first use; a failed build raises, and
+nothing falls back), or in its Python twin :func:`partition_py` when
+``ECSEG_NO_NATIVE`` is set, as the JAX package's switch selects its Python
+paths.  The L1 distance
 is scipy's ``distance_transform_cdt(metric="taxicab")`` with
 ``cv2.distanceTransform(DIST_L1, 3)``'s value on a crop with no zero.
 """
@@ -27,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import os
 from collections import deque
 from typing import List, Tuple
 
@@ -198,7 +201,11 @@ def _partition_min_cut(img, g: _Graph, start, target):
 
 
 def _partition(mask, center_1, center_2, dist):
-    """The C++ partition (``csrc/cc_maxflow.cpp``): (group 1, group 2)."""
+    """The C++ partition (``csrc/cc_maxflow.cpp``): (group 1, group 2);
+    :func:`partition_py` when ``ECSEG_NO_NATIVE`` is set to any non-empty
+    value (``ecseg_tpu/native/__init__.py:65``)."""
+    if os.environ.get("ECSEG_NO_NATIVE"):
+        return partition_py(mask, center_1, center_2, dist)
     img = np.ascontiguousarray(mask, dtype=np.int32)
     h, w = img.shape
     group_1 = np.empty((h, w), np.int32)

@@ -6,8 +6,9 @@ skimage.segmentation.watershed's order (reference
 src/model_layers/marker_watershed.py:84): a min-heap keyed by (image value,
 insertion age), 4-connected by default; with ``watershed_line`` a pixel next
 to another label is a line pixel, zeroed in the output.  It runs in C++
-(``csrc/cc_maxflow.cpp``, built at first use; a failed build raises);
-:func:`watershed_py` is its Python twin, kept for the tests.
+(``csrc/cc_maxflow.cpp``, built at first use; a failed build raises, and
+nothing falls back), or in its Python twin :func:`watershed_py` when
+``ECSEG_NO_NATIVE`` is set (``ecseg_tpu/native/__init__.py:65``).
 
 :func:`nuset_marker_watershed` is the body of the reference's NuSeT
 watershed py_func (marker_watershed.py:9-96), quirks included: the no-op
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import heapq
+import os
 from typing import Optional
 
 import numpy as np
@@ -58,7 +60,10 @@ def watershed(
     watershed_line: bool = False,
 ) -> np.ndarray:
     """Flood ``markers`` over ``image`` (ascending values) within ``mask``;
-    int64 labels."""
+    int64 labels.  :func:`watershed_py` when ``ECSEG_NO_NATIVE`` is set to
+    any non-empty value."""
+    if os.environ.get("ECSEG_NO_NATIVE"):
+        return watershed_py(image, markers, mask, connectivity, watershed_line)
     image, markers, mask = _inputs(image, markers, mask)
     h, w = image.shape
     markers = np.ascontiguousarray(markers)

@@ -13,9 +13,9 @@ reports ``ok`` False (a component budget overflowed) the image is redone on
 the host oracle and counted in ``runtime/fallbacks``.
 
 Images of one geometry are grouped (``ECSEG_METASEG_GROUP``, default 8,
-capped by ``ECSEG_METASEG_PATCH_BUDGET`` patches): one forward over the
-group's patches, then B1 and the post per canvas, the group's ``ok`` flags
-and counts in one copy (:func:`segment_folder`).  ``ECSEG_DEVICE_PIPELINE=0``
+capped by ``ECSEG_METASEG_PATCH_BUDGET`` patches): the group's forwards
+enqueued back to back, one an image, then B1 and the post per canvas, the
+group's ``ok`` flags and counts in one copy (:func:`segment_folder`).  ``ECSEG_DEVICE_PIPELINE=0``
 runs the host oracle after the forward and B1.
 
 On more than one device (``main(devices=...)``; by default every card) the
@@ -98,16 +98,18 @@ def segment_group(
     model: torch.nn.Module, stacks: Sequence[np.ndarray], positions: Sequence[Tuple[int, int]]
 ) -> List[torch.Tensor]:
     """(N, 256, 256, 1) uint8 patch stacks of images of one geometry -> their
-    stitched (H, W) int32 label maps: one forward over the concatenated
-    stacks, exact uint8 quantize + argmax per patch, then B1 per canvas, on
-    the model's device."""
+    stitched (H, W) int32 label maps: one forward an image, exact uint8
+    quantize + argmax per patch, then B1 per canvas, on the model's device.
+    The forwards are not concatenated: on the card a patch's float32
+    probabilities move in the last bits with the batch it runs in (cuDNN
+    picks its algorithm by shape), which can flip a knife-edge argmax, so
+    an image runs at its own batch whatever its group and keeps the
+    per-image run's bytes (ROADMAP C8)."""
     device = model_device(model)
     with stage("metaseg.forward"), torch.no_grad():
-        x = torch.from_numpy(stacks[0] if len(stacks) == 1 else np.concatenate(stacks)).to(device)
-        label_patches = tiling.patch_labels(model(x))
-    n = len(positions)
+        label_patches = [tiling.patch_labels(model(torch.from_numpy(s).to(device))) for s in stacks]
     with stage("metaseg.stitch"):
-        return [stitch_labels(label_patches[k * n : (k + 1) * n], positions) for k in range(len(stacks))]
+        return [stitch_labels(lp, positions) for lp in label_patches]
 
 
 def segment_raw(
@@ -173,8 +175,8 @@ def _group_size() -> int:
 
 def geo_group(positions: Sequence[Tuple[int, int]], group: int) -> int:
     """The group size of one geometry: at most ``ECSEG_METASEG_PATCH_BUDGET``
-    (default 256) patches in a forward, at least one image
-    (``metaseg.py:587-598``)."""
+    (default 256) patches in a group, at least one image
+    (``metaseg.py:587-598``, where the group is one forward)."""
     budget = int(os.environ.get("ECSEG_METASEG_PATCH_BUDGET", "256"))
     return max(1, min(group, budget // max(1, len(positions))))
 

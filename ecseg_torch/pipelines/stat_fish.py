@@ -5,8 +5,8 @@ path; reference src/stat_fish.py:144-317).
 Per image: decode (``cv2.imread`` semantics, 8-bit BGR) and the NuSeT host
 prep on two reader threads -> NuSeT nuclei segmentation on the card
 (``models/nuset_infer``: both U-Net passes, proposals, the certified
-watershed on kernel B3, the cleanup on kernel B2) -> on a pool of two tail
-workers: min-cut splitting of touching nuclei (host C++), the matched-filter
+watershed on kernel B3, the cleanup on kernel B2) -> on a pool of tail
+workers (two; ``ECSEG_STAT_FISH_TAIL_WORKERS``): min-cut splitting of touching nuclei (host C++), the matched-filter
 FISH detection (device conv), per-nucleus statistics, and the writes --
 ``<name>__segmentation_min_cut.npy`` and five TIFFs per image in
 ``annotated/<name>/`` and one ``stat_fish_lsq.csv``.  Outputs go to a
@@ -29,7 +29,7 @@ per entry, one worker thread per entry running the whole image there, tail
 included, image k on entry k % n, at most two images in flight an entry,
 the CSV in input order; with ``scale: auto`` image 0 runs alone on entry 0
 before the fan-out starts.  ``ECSEG_STAT_FISH_SHARD=0`` keeps the
-single-card path (the main thread and ``TAIL_WORKERS`` tails).
+single-card path (the main thread and ``tail_workers()`` tails).
 
 Not ported (ROADMAP): geometry bucketing and the 1-bit transfers (they
 serve XLA's compile cache and the TPU host link).
@@ -67,7 +67,14 @@ from ..runtime.trace import stage
 
 AQUA_RGB = [233, 137, 54]  # reference stat_fish.py:163
 FISH_NAMES = ("green", "red", "aqua")
-TAIL_WORKERS = 2
+
+
+def tail_workers() -> int:
+    """The single-card path's tail pool size: ``ECSEG_STAT_FISH_TAIL_WORKERS``
+    (default 2, at least 1), parsed as the JAX package parses it
+    (``ecseg_tpu/pipelines/stat_fish.py:381-383``); a value that is not an
+    integer raises."""
+    return max(1, int(os.environ.get("ECSEG_STAT_FISH_TAIL_WORKERS", "2") or 2))
 
 
 def csv_header(n_fish: int):
@@ -260,7 +267,8 @@ def main(
             start = 1
         results += fan_out(whole, jobs, mesh, start=start)
     else:
-        with cf.ThreadPoolExecutor(max_workers=TAIL_WORKERS) as pool:
+        workers = tail_workers()
+        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
             inflight = deque()
             it = iter(prefetch_map(decode, image_paths))
             first = True
@@ -271,8 +279,8 @@ def main(
                     break
                 path, (I, pre) = nxt
                 I, segmented = segment(path, I, pre, model)
-                # at most TAIL_WORKERS + 1 tails in flight bounds host memory
-                while len(inflight) > TAIL_WORKERS:
+                # at most workers + 1 tails in flight bounds host memory
+                while len(inflight) > workers:
                     with stage("stat_fish.tail_wait"):
                         results.append(inflight.popleft().result())
                 inflight.append(pool.submit(tail, path, I, segmented, first))

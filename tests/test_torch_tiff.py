@@ -4,8 +4,13 @@ horizontal predictor, equal to ``cv2.imread(..., IMREAD_UNCHANGED)`` on the
 repository's own input and on files cv2 writes, all decoded with cv2 made
 unimportable, which proves the port decodes them itself.  Also the LZW
 writer ``chip_smoke.py`` uses on the card (no cv2 there): cv2 and the port
-read its files back, in both byte orders."""
+read its files back, in both byte orders.  And the port's own LZW writer
+(``imgio.write_tiff_lzw``, the encoder of ``csrc/tiff_lzw.cpp``), which
+``imgio.imwrite`` takes under ``ECSEG_TIF_LZW=1`` as the JAX package's
+``imwrite`` takes cv2's default: its files equal ``cv2.imwrite``'s byte for
+byte and decode to the same pixels; every spelling of the switch."""
 
+import os
 import pathlib
 import sys
 
@@ -120,3 +125,74 @@ def test_malformed_lzw_raises_naming_the_file(tmp_path):
     p.write_bytes(bytes(data))
     with pytest.raises(ValueError, match=r"broken\.tif: LZW strip 0"):
         imgio.imread_rgb(str(p))
+
+
+_LZW_SIZES = {"1x1": (1, 1), "5x7": (5, 7), "37x2049": (37, 2049), "211x131": (211, 131), "3x5000": (3, 5000)}
+
+
+@pytest.mark.parametrize("size", sorted(_LZW_SIZES))
+@pytest.mark.parametrize("kind", ["u8_gray", "u16_gray", "u8_rgb", "u16_rgb"])
+@pytest.mark.parametrize("content", ["flat", "random", "sparse"])
+def test_lzw_writer_equals_cv2(tmp_path, monkeypatch, content, kind, size):
+    """The port's LZW file of a BGR/gray array against ``cv2.imwrite``'s
+    default TIFF of the same array: equal bytes (the codes, table clears,
+    rows per strip, tags and layout of OpenCV's libtiff), compression 5 with
+    the predictor, and the same pixels through cv2 and the port's decoder.
+    Random full-range samples run the table full and through the ratio
+    check's clears."""
+    dtype, spp = _KINDS[kind]
+    h, w = _LZW_SIZES[size]
+    rng = np.random.default_rng(h * w + spp)
+    shape = (h, w) if spp == 0 else (h, w, spp)
+    top = np.iinfo(dtype).max
+    img = {"flat": np.full(shape, top // 3, dtype), "random": rng.integers(0, top, shape, dtype, endpoint=True),
+           "sparse": ((rng.random(shape) < 0.02) * (top - 5)).astype(dtype)}[content]
+    want, got = str(tmp_path / "cv2.tif"), str(tmp_path / "port.tif")
+    assert cv2.imwrite(want, img)
+    monkeypatch.setenv("ECSEG_TIF_LZW", "1")
+    imgio.imwrite(got, img)
+    data = pathlib.Path(got).read_bytes()
+    assert data == pathlib.Path(want).read_bytes()
+    tags = imgio._tiff_header(data)[1]
+    assert tags[259] == (5,) and tags[317] == (2,)
+    np.testing.assert_array_equal(cv2.imread(got, cv2.IMREAD_UNCHANGED), img)
+    np.testing.assert_array_equal(_rgb_order(_read_no_cv2(got, monkeypatch)), img)
+
+
+def test_lzw_is_smaller_on_the_flat_image(tmp_path, monkeypatch):
+    """tests/test_imgio_tif.py's image: LZW shrinks it, the pixels stay."""
+    img = np.zeros((64, 96, 3), np.uint8)
+    img[8:30, 10:40] = (40, 200, 120)
+    img[50:60, 60:90, 2] = 255
+    raw, lzw = str(tmp_path / "raw.tif"), str(tmp_path / "lzw.tif")
+    monkeypatch.delenv("ECSEG_TIF_LZW", raising=False)
+    imgio.imwrite(raw, img)
+    monkeypatch.setenv("ECSEG_TIF_LZW", "1")
+    imgio.imwrite(lzw, img)
+    np.testing.assert_array_equal(cv2.imread(raw), img)
+    np.testing.assert_array_equal(cv2.imread(lzw), img)
+    assert os.path.getsize(raw) > os.path.getsize(lzw)
+
+
+@pytest.mark.parametrize("value", [None, "", "0", "false", "no", "off", "2", "1", "true", "yes", "on", " TRUE ", "On\n", "YES"])
+@pytest.mark.parametrize("suffix", [".tif", ".TIFF", ".png"])
+def test_tif_lzw_switch_spellings(tmp_path, monkeypatch, value, suffix):
+    """``ECSEG_TIF_LZW`` is on for 1/true/yes/on, stripped and in any case
+    (ecseg_tpu/core/imgio.py:57-59), and only for .tif/.tiff paths; off, the
+    file's bytes are the uncompressed writer's, as before the switch."""
+    img = (np.random.default_rng(4).random((19, 23, 3)) * 255).astype(np.uint8)
+    if value is None:
+        monkeypatch.delenv("ECSEG_TIF_LZW", raising=False)
+    else:
+        monkeypatch.setenv("ECSEG_TIF_LZW", value)
+    on = value is not None and value.strip().lower() in ("1", "true", "yes", "on")
+    assert imgio.tif_lzw() == on
+    p = str(tmp_path / ("img" + suffix))
+    imgio.imwrite(p, img)
+    data = pathlib.Path(p).read_bytes()
+    lzw = on and suffix != ".png"
+    assert imgio._tiff_header(data)[1][259] == ((5,) if lzw else (1,))
+    if not lzw:
+        imgio.write_tiff(str(tmp_path / "plain.tif"), img[..., ::-1])
+        assert data == (tmp_path / "plain.tif").read_bytes()
+    np.testing.assert_array_equal(_rgb_order(_read_no_cv2(p, monkeypatch)), img)
