@@ -180,6 +180,15 @@ Phases (any failure raises; exit code 0 only when all pass):
    and weights: the metaseg U-Net as a Keras Functional graph, its
    stitched labels over image 0's patches byte-equal to ``MetasegUNet``'s,
    and ecSeg-i as a Keras Sequential against ``EcsegI``.  Then the
+   ``.h5`` entry points (``phase_keras_h5``): a full-width
+   ``models/metaseg.h5`` and ``interseg_models/{interseg,ecseg_c}.h5``
+   written by ``write_keras_h5`` (TF-Keras 2's legacy layout) and read by
+   the port's own HDF5 reader, ``python3 -m ecseg_torch.pipelines.metaseg``
+   on the main path's four images (labels and CSV byte-equal to the
+   in-process run, the ``.npz`` run and the host oracle; B1-B6 launched as
+   the default form) and ``python3 -m ecseg_torch.pipelines.interseg`` (the
+   ``.npz`` run's CSV bytes); the reader's host seconds and each command's
+   wall.  Then the
    metaseg trainer (``phase_train``) at the default widths on 256^2 crops
    of the main path's images and labels: card against CPU (each gradient
    tensor held to the CPU's float64 gradient; a TF32 backward outside the
@@ -900,6 +909,14 @@ def phase_main_path(args, rng, dev, errors, results):
         shutil.copytree(os.path.join(work, "models"), os.path.join(keep, "models"))
         shutil.copytree(folder, os.path.join(keep, "imgs"))
         results["multidevice_metaseg"] = keep
+        # the images and the .npz run's labels/*.npy and CSV: phase_keras_h5's input and reference
+        keep = os.path.join(tempfile.mkdtemp(prefix="ecseg_keras_h5_metaseg_"), "npz_run")
+        os.makedirs(os.path.join(keep, "labels"))
+        for name in names:
+            shutil.copy(os.path.join(folder, name), keep)
+            shutil.copy(os.path.join(folder, "labels", name[:-4] + ".npy"), os.path.join(keep, "labels"))
+        shutil.copy(os.path.join(folder, "ec_quantification.csv"), keep)
+        results["keras_h5_metaseg"] = keep
         print(f"main path outputs equal the host oracle; ok flags {oks}; ec counts {counts}", flush=True)
 
         # byte-identical rerun of one image
@@ -1838,6 +1855,145 @@ def classifier_keras_weights(tree):
     return {name: [p["kernel"], p["bias"]] for name, p in tree.items()}
 
 
+def ecseg_c_keras_config():
+    """ecSeg-c (``models/classifiers.EcsegC``) as a Keras Sequential: the
+    (N, 256, 256, 3) floats ``interseg.preprocess_ecseg_c`` gives, four
+    blocks of 3x3 conv + ReLU and 2x2 max pool, the global mean, a sigmoid
+    dense head of one unit."""
+    from ecseg_torch.models.classifiers import WIDTHS
+
+    layers = [_keras_layer("InputLayer", "in0")]
+    for i, w in enumerate(WIDTHS, start=1):
+        layers += [_keras_conv(f"conv{i}", w, 3), _keras_layer("MaxPooling2D", f"pool{i}", pool_size=[2, 2], strides=[2, 2], padding="same")]
+    layers += [_keras_layer("GlobalAveragePooling2D", "gap"), _keras_layer("Dense", "head", units=1, activation="sigmoid", use_bias=True)]
+    return {"class_name": "Sequential", "config": {"name": "ecseg_c", "layers": layers}}
+
+
+# --- a minimal HDF5 writer: the legacy Keras save as TF-Keras 2 writes it ---
+#
+# Superblock v0 (8-byte offsets and lengths), version 1 object headers,
+# groups as symbol tables (one B-tree leaf over SNODs of 8 entries, names in
+# a local heap), contiguous little-endian float datasets, and attributes of
+# fixed-length strings (scalar or array) and float arrays.  The card's
+# machine has no h5py; the tests read this writer's files with h5py.
+
+_H5_UNDEF = b"\xff" * 8
+_H5_SNOD_ENTRIES = 8  # 2 x the group leaf node K (4)
+_H5_BTREE_CHILDREN = 32  # 2 x the group internal node K (16)
+_H5_FLOAT = {  # dtype -> the datatype message's bit fields and properties
+    "<f4": (b"\x20\x1f\x00", struct.pack("<HHBBBBI", 0, 32, 23, 8, 0, 23, 127)),
+    "<f8": (b"\x20\x3f\x00", struct.pack("<HHBBBBI", 0, 64, 52, 11, 0, 52, 1023)),
+}
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+class _H5Out:
+    """The file's bytes, each object 8-byte aligned."""
+
+    def __init__(self):
+        self.buf = bytearray(96)  # the superblock, written last
+
+    def put(self, data: bytes) -> int:
+        addr = len(self.buf)
+        self.buf += _pad8(data)
+        return addr
+
+    def header(self, messages) -> int:
+        """A version 1 object header of ``messages`` [(type, body)]."""
+        body = b"".join(struct.pack("<HHB3x", t, len(_pad8(m)), 0) + _pad8(m) for t, m in messages)
+        return self.put(struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body)
+
+
+def _h5_type_space(value):
+    """(datatype message, dataspace message, raw data) of an attribute or
+    dataset value: bytes (a fixed-length string scalar), a list of bytes (a
+    fixed-length string array) or a float32/float64 array."""
+    if isinstance(value, bytes) or (isinstance(value, list) and all(isinstance(v, bytes) for v in value)):
+        arr = np.array(value, dtype=f"S{max([len(v) for v in np.atleast_1d(value)] + [1])}")
+        dtype = b"\x13\x01\x00\x00" + struct.pack("<I", arr.dtype.itemsize)  # null-padded ASCII, as numpy's S
+    else:
+        arr = np.ascontiguousarray(value)
+        bits, props = _H5_FLOAT[arr.dtype.str]
+        dtype = b"\x11" + bits + struct.pack("<I", arr.dtype.itemsize) + props
+    space = struct.pack("<BBBB4x", 1, arr.ndim, 0, 0) + b"".join(struct.pack("<Q", n) for n in arr.shape)
+    return dtype, space, arr.tobytes()
+
+
+def _h5_attribute(name: str, value) -> bytes:
+    dtype, space, data = _h5_type_space(value)
+    key = name.encode() + b"\0"
+    return struct.pack("<BBHHH", 1, 0, len(key), len(dtype), len(space)) + _pad8(key) + _pad8(dtype) + _pad8(space) + data
+
+
+def _h5_object(out: _H5Out, node) -> tuple:
+    """Writes ``node`` (a numpy array: a dataset; a dict: a group, its
+    attributes under the key ``"@attrs"``) and returns (object header
+    address, symbol table entry's cache type and scratch-pad)."""
+    if isinstance(node, np.ndarray):
+        dtype, space, data = _h5_type_space(node)
+        layout = struct.pack("<BBQQ", 3, 1, out.put(data), len(data))  # contiguous
+        return out.header([(0x01, space), (0x03, dtype), (0x08, layout)]), 0, bytes(16)
+    attrs = node.get("@attrs", {})
+    members = sorted(((k.encode(), v) for k, v in node.items() if k != "@attrs"), key=lambda kv: kv[0])
+    if len(members) > _H5_SNOD_ENTRIES * _H5_BTREE_CHILDREN:
+        raise ValueError(f"a group of {len(members)} members needs a B-tree of two levels")
+    entries = [(name, _h5_object(out, v)) for name, v in members]
+    names, offsets = bytearray(8), []  # offset 0: the empty name
+    for name, _ in entries:
+        offsets.append(len(names))
+        names += _pad8(name + b"\0")
+    heap = out.put(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(names), 1, out.put(bytes(names))))  # free list: none (1)
+    keys, children = [0], []
+    for k in range(0, len(entries), _H5_SNOD_ENTRIES):
+        group = entries[k : k + _H5_SNOD_ENTRIES]
+        body = b"".join(struct.pack("<QQI4x", offsets[k + j], addr, cache) + scratch for j, (_, (addr, cache, scratch)) in enumerate(group))
+        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(group)) + body
+        children.append(out.put(snod + bytes(8 + _H5_SNOD_ENTRIES * 40 - len(snod))))
+        keys.append(offsets[k + len(group) - 1])
+    tree = b"TREE" + struct.pack("<BBH", 0, 0, len(children)) + _H5_UNDEF * 2 + struct.pack("<Q", keys[0])
+    tree += b"".join(struct.pack("<QQ", c, key) for c, key in zip(children, keys[1:]))
+    btree = out.put(tree + bytes(24 + 8 * (2 * _H5_BTREE_CHILDREN + 1) - len(tree)))
+    messages = [(0x11, struct.pack("<QQ", btree, heap))] + [(0x0C, _h5_attribute(k, v)) for k, v in attrs.items()]
+    return out.header(messages), 1, struct.pack("<QQ", btree, heap)
+
+
+def write_h5(path: str, root: dict) -> int:
+    """Writes the group tree ``root`` (see ``_h5_object``) as an HDF5 file;
+    returns its size in bytes."""
+    out = _H5Out()
+    addr, cache, scratch = _h5_object(out, root)
+    out.buf[:96] = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + struct.pack("<HHI", 4, 16, 0)
+                    + struct.pack("<Q", 0) + _H5_UNDEF + struct.pack("<Q", len(out.buf)) + _H5_UNDEF
+                    + struct.pack("<QQI4x", 0, addr, cache) + scratch)
+    with open(path, "wb") as f:
+        f.write(out.buf)
+    return len(out.buf)
+
+
+def write_keras_h5(path: str, config: dict, weights: dict) -> int:
+    """A legacy Keras whole-model save as TF-Keras 2 writes it: the root's
+    ``model_config``, ``keras_version`` and ``backend``; ``model_weights``
+    with ``layer_names`` and a group a layer, its ``weight_names``
+    (``<layer>/kernel:0``, ``<layer>/bias:0``, a weightless layer's empty)
+    over ``<layer>/<layer>/kernel:0`` and ``bias:0``.  ``weights``:
+    ``{layer: [kernel, bias]}`` in Keras's layouts (as ``DictFetcher``
+    takes them).  Returns the file's size in bytes."""
+    meta = {"keras_version": b"2.15.0", "backend": b"tensorflow"}
+    names = [lc["config"]["name"] for lc in config["config"]["layers"]]
+    model_weights = {"@attrs": {**meta, "layer_names": [n.encode() for n in names]}}
+    for name in names:
+        arrays = weights.get(name, [])
+        wnames = [f"{name}/{w}:0" for w in ("kernel", "bias")[: len(arrays)]]
+        model_weights[name] = {"@attrs": {"weight_names": [w.encode() for w in wnames] if wnames else np.zeros((0,))}}
+        if arrays:
+            model_weights[name][name] = {w.split("/")[1]: np.ascontiguousarray(a, np.float32) for w, a in zip(wnames, arrays)}
+    root = {"@attrs": {**meta, "model_config": json.dumps(config).encode()}, "model_weights": model_weights}
+    return write_h5(path, root)
+
+
 INTERSEG_PROB_ATOL = 1e-5  # tests/test_torch_classifiers.py's PROB_ATOL
 INTERSEG_STAGES = ("decode_wait", "crops", "predict_i", "predict_c", "write")
 
@@ -1965,11 +2121,14 @@ def phase_interseg(dev, results):
             "predict_tflops": tflops,
         }
         results["multidevice_stat_fish"] = folder  # stat_fish's and interseg's inputs and outputs
+        # the same with the .npz run's CSV: phase_keras_h5's input and reference
+        results["keras_h5_stat_fish"] = shutil.copytree(folder, os.path.join(tempfile.mkdtemp(prefix="ecseg_keras_h5_interseg_"), "imgs"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
 MULTIDEVICE_TRAIN_MODEL_AXIS = 2  # the training mesh: (data 2, model 2)
+METASEG_SHARDED_BATCH = 256  # metaseg.segment_folder_sharded's batch_patches (its default; a multiple of 2 and 4 entries)
 MULTIDEVICE_TRAIN_STEPS = 3
 # bf16 gradients, mesh against one card: 4 L 2^-8 relative L2 for the L = 23
 # convolution layers at the default widths (tests/test_torch_train.py's BF16_GRAD_TOL)
@@ -2038,6 +2197,39 @@ def _mesh_grads(step):
     return {n: torch.cat(g, dims.get(n, 0)) for n, g in pieces.items()}
 
 
+def sharded_host_path_reordered(ref, names, mesh, card):
+    """ROADMAP C8's remainder: ``metaseg.segment_folder_sharded`` (the
+    ``ECSEG_DEVICE_PIPELINE=0`` mesh path) on ``ref``'s images reversed with
+    the first removed, so that other patches share each image's batches and
+    the last batch is padded otherwise.  Checks that every chunk dispatched
+    has the one shape (``METASEG_SHARDED_BATCH`` / entries patches) and
+    that each image's labels (``host_post`` of its raw canvas) equal
+    ``ref/labels/*.npy``; the model is ``load_model``'s from the working
+    directory."""
+    from ecseg_torch.device import entry_devices
+    from ecseg_torch.pipelines import metaseg
+
+    shapes = []
+    real = metaseg._patch_labels_on
+    metaseg._patch_labels_on = lambda replica, d, chunk: (shapes.append(tuple(chunk.shape)), real(replica, d, chunk))[1]
+    paths = [os.path.join(ref, n) for n in names][::-1][1:]
+    try:
+        raws = list(metaseg.segment_folder_sharded(metaseg.load_model(device=mesh[0]), paths, entry_devices(None, mesh)))
+    finally:
+        metaseg._patch_labels_on = real
+    total = sum(len(metaseg._prepare_image(p, save_dapi=False)[0]) for p in paths)
+    batches = -(-total // METASEG_SHARDED_BATCH)
+    check(shapes == [(METASEG_SHARDED_BATCH // len(mesh), 256, 256, 1)] * (len(mesh) * batches), f"metaseg mesh, =0: chunks dispatched {shapes} for {total} patches")
+    check([p for p, _ in raws] == paths, "metaseg mesh, =0: images out of order")
+    for path, raw in raws:
+        npy = os.path.join(ref, "labels", os.path.basename(path)[:-4] + ".npy")
+        check(np.array_equal(metaseg.host_post(raw)[0], np.load(npy)), f"metaseg mesh, =0: {os.path.basename(path)} labels on a reordered folder != the single-card run's")
+    images = [os.path.basename(p) for p in paths]
+    print(f"metaseg mesh, ECSEG_DEVICE_PIPELINE=0 on {images} ({total} patches): {len(shapes)} chunks of {shapes[0][0]} patches, "
+          f"the last batch padded; labels equal the single-card run's [{card}]", flush=True)
+    return {"images": images, "patches": total, "chunks": len(shapes)}
+
+
 def phase_multidevice(args, dev, results):
     """The multi-device paths (``ECSEG_*_SHARD``, metaseg's sharded folder
     paths, the mesh train step) on every card, or, on one card, on a
@@ -2048,7 +2240,9 @@ def phase_multidevice(args, dev, results):
     chain on one entry: the launches of the single-card run, one host redo
     for the crowded image) and under ``ECSEG_DEVICE_PIPELINE=0`` (patch
     batches split over the entries, the stitch and the oracle on the host:
-    no launch); ``meta_overlay``, ``stat_fish`` and ``interseg``
+    no launch), and that path again on the folder reversed with one image
+    removed (``sharded_host_path_reordered``: one chunk shape, the same
+    labels); ``meta_overlay``, ``stat_fish`` and ``interseg``
     ``main(devices=...)`` (CSV bytes, PNG and TIFF pixels, ``.npy`` bytes,
     B2/B8a/B3 launches equal).  Every fan-out runs under the caller's
     cuDNN flags (PyTorch's defaults), which read the same after it, while
@@ -2110,6 +2304,8 @@ def phase_multidevice(args, dev, results):
             check_same_outputs(sub, ref, names, counts, f"metaseg mesh, {form}")
             out[f"metaseg {form}"] = {"wall_s": wall, "ms_per_image": 1e3 * wall / len(names), "launches": {k: v for k, v in launches.items() if v},
                                       "stages_s": stages}
+        # ROADMAP C8's remainder on the mesh
+        out["metaseg ECSEG_DEVICE_PIPELINE=0"]["reordered"] = sharded_host_path_reordered(ref, names, mesh, card)
         host_single_ms = 1e3 * results["host_post"]["wall_s"] / len(results["host_post"]["images"])
         print(f"metaseg mesh: labels, PNGs and CSV rows byte-equal to the single-card run; ms per image: default {out['metaseg default']['ms_per_image']:.1f} "
               f"(single card, 2 + 2: {single_ms:.1f}), ECSEG_DEVICE_PIPELINE=0 {out['metaseg ECSEG_DEVICE_PIPELINE=0']['ms_per_image']:.1f} "
@@ -2397,6 +2593,138 @@ def phase_keras_import(args, dev, results):
         "unet_patches": len(patches), "unet_labels_equal": True, "unet_max_abs": unet_err, "unet_ms": {"executor": keras_ms, "module": unet_ms},
         "ecseg_i_crops": len(xi), "ecseg_i_max_abs": i_err, "ecseg_i_ms": {"executor": seq_ms, "module": mod_ms},
     }
+
+
+def phase_keras_h5(args, dev, results):
+    """The ``.h5`` entry points as a user runs them, through the port's own
+    HDF5 reader (``core/hdf5.py``; the card's machine has no h5py).
+    metaseg: ``models/metaseg.h5`` written by ``write_keras_h5`` (the legacy
+    layout TF-Keras 2 writes) from ``unet_keras_config`` at the default
+    widths with the main path's demo weights, in a directory with a
+    ``config.yaml`` whose folder holds the main path's four 2048^2 images
+    (the crowded ``img2`` among them); ``python3 -m
+    ecseg_torch.pipelines.metaseg`` as a subprocess on the default device,
+    then ``main`` in-process on a copy (``run_main``: B1-B6 launched
+    ``PER_IMAGE_LAUNCHES`` x 4 times, one host redo).  Checks: exit code 0,
+    the ``.h5`` named on stderr, every ``labels/*.npy`` and the CSV
+    byte-equal between the two runs and to the main path's run of the same
+    weights from ``metaseg.npz``, and each image's labels equal to the host
+    oracle on its raw canvas.  interseg: ``interseg_models/interseg.h5`` and
+    ``ecseg_c.h5`` (``ecseg_i_keras_config``, ``ecseg_c_keras_config``, the
+    demo trees) and no ``.npz`` beside them, on a copy of the folder that
+    ``phase_interseg`` ran on; ``python3 -m ecseg_torch.pipelines.interseg``
+    must write that run's CSV bytes, and that run gave ecSeg-c rows.
+    Prints the reader's host seconds (the file parsed and read, the
+    executor built on the CPU) and each command's wall time beside the
+    card."""
+    from ecseg_torch.core import hdf5
+    from ecseg_torch.models.demo import demo_ecseg_c_tree, demo_ecseg_i_tree, demo_metaseg_params
+    from ecseg_torch.models.keras_import import KerasModel, import_keras_h5
+    from ecseg_torch.models.metaseg_unet import BOTTLENECK, ENC_WIDTHS, NUM_CLASSES
+    from ecseg_torch.models.weights import params_to_numpy
+    from ecseg_torch.ops.meta_post import meta_inference
+    from ecseg_torch.pipelines import metaseg
+
+    card = results["card"]
+    phase_t0 = time.perf_counter()
+    npz_run = results.pop("keras_h5_metaseg")
+    sf_folder = results.pop("keras_h5_stat_fish")
+    work = tempfile.mkdtemp(prefix="ecseg_keras_h5_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cwd = os.getcwd()
+    out = {}
+    try:
+        # metaseg from models/metaseg.h5
+        mwork = os.path.join(work, "metaseg")
+        h5_path = os.path.join(mwork, "models", "metaseg.h5")
+        os.makedirs(os.path.dirname(h5_path))
+        tree = params_to_numpy(demo_metaseg_params(torch.Generator().manual_seed(args.seed)))
+        t0 = time.perf_counter()
+        size = write_keras_h5(h5_path, unet_keras_config(ENC_WIDTHS, BOTTLENECK, NUM_CLASSES), unet_keras_weights(tree))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with hdf5.File(h5_path) as f:
+            arrays = []
+            f.visititems(lambda name, obj: arrays.append(np.array(obj)) if isinstance(obj, hdf5.Dataset) else None)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_model = import_keras_h5(h5_path, device="cpu")
+        import_s = time.perf_counter() - t0
+        n_params = sum(a.size for p in tree.values() for a in p.values())
+        check(sum(a.size for a in arrays) == n_params and sum(b.numel() for b in host_model.buffers()) == n_params,
+              f"metaseg.h5 holds {sum(a.size for a in arrays)} floats, the executor {sum(b.numel() for b in host_model.buffers())}, the tree {n_params}")
+        del host_model, arrays
+        names = sorted(n for n in os.listdir(npz_run) if n.endswith(".tif"))
+        for sub in ("imgs", "inproc"):
+            os.makedirs(os.path.join(mwork, sub))
+            for name in names:
+                shutil.copy(os.path.join(npz_run, name), os.path.join(mwork, sub))
+        with open(os.path.join(mwork, "config.yaml"), "w") as f:
+            f.write("metaseg:\n  inpath: ./imgs\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ecseg_torch.pipelines.metaseg"], cwd=mwork, env=env, capture_output=True, text=True, timeout=600)
+        metaseg_cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"metaseg.h5: python -m ecseg_torch.pipelines.metaseg exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        check(f"[ecseg] loading model {os.path.join('models', 'metaseg.h5')}" in proc.stderr, f"metaseg.h5: the command line did not load the .h5:\n{proc.stderr[-2000:]}")
+        check(proc.stdout.count("Processing image:") == len(names), "metaseg.h5: the command line did not process every image")
+        os.chdir(mwork)  # load_model reads models/metaseg.h5 from here
+        launches, _, inproc_s = run_main(os.path.join(mwork, "inproc"), "default", len(names), tag="metaseg.h5 in-process")
+        model = metaseg.load_model(device=dev)
+        check(isinstance(model, KerasModel) and all(b.is_cuda for b in model.buffers()), "metaseg.h5: load_model did not give the executor on the card")
+        for name in names + ["ec_quantification.csv"]:
+            rel = name if name.endswith(".csv") else os.path.join("labels", name[:-4] + ".npy")
+            cli = read_bytes(os.path.join(mwork, "imgs", rel))
+            check(cli == read_bytes(os.path.join(mwork, "inproc", rel)), f"metaseg.h5: the command line's {rel} bytes != the in-process run's")
+            check(cli == read_bytes(os.path.join(npz_run, rel)), f"metaseg.h5: {rel} bytes != the main path's metaseg.npz run's")
+        with post_form("default"):
+            for name in names:
+                patches, pos = metaseg._prepare_image(os.path.join(mwork, "imgs", name), save_dapi=False)
+                raw = metaseg.segment_raw(model, patches, pos)
+                want = meta_inference(raw.cpu().numpy().astype(np.int64))
+                check(np.array_equal(np.load(os.path.join(mwork, "imgs", "labels", name[:-4] + ".npy")), want), f"metaseg.h5: {name} labels != host oracle")
+        del model
+        os.chdir(cwd)
+        out["metaseg"] = {"h5_bytes": size, "write_s": write_s, "parse_s": parse_s, "import_cpu_s": import_s, "cli_s": metaseg_cli_s,
+                          "inproc_s": inproc_s, "images": len(names), "launches": {k: v for k, v in launches.items() if v}}
+        print(f"metaseg.h5 ({size} bytes, written in {write_s:.2f} s): host read {parse_s:.3f} s (file parsed, {n_params} floats read), "
+              f"executor built on the CPU from the file {import_s:.3f} s; python -m ecseg_torch.pipelines.metaseg on {len(names)} images of "
+              f"{SIZE}x{SIZE} {metaseg_cli_s:.2f} s (process start and model load included), in-process main {inproc_s:.3f} s, launches "
+              f"{out['metaseg']['launches']}; labels and CSV byte-equal to the in-process run, the metaseg.npz run and the host oracle [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+        # interseg from interseg_models/interseg.h5 and ecseg_c.h5
+        iwork = os.path.join(work, "interseg")
+        models = os.path.join(iwork, "interseg_models")
+        os.makedirs(models)
+        sizes = {
+            "interseg.h5": write_keras_h5(os.path.join(models, "interseg.h5"), ecseg_i_keras_config(), classifier_keras_weights(demo_ecseg_i_tree())),
+            "ecseg_c.h5": write_keras_h5(os.path.join(models, "ecseg_c.h5"), ecseg_c_keras_config(), classifier_keras_weights(demo_ecseg_c_tree())),
+        }
+        out_csv = os.path.join(sf_folder, "interphase_prediction_red.csv")
+        want = read_bytes(out_csv)
+        os.remove(out_csv)
+        c_rows = sum(v["ecseg_c_rows"] for v in results["interseg"]["per_image"].values())
+        check(c_rows > 0, f"the .npz run of interseg gave no ecSeg-c row: {results['interseg']['per_image']}")
+        with open(os.path.join(iwork, "config.yaml"), "w") as f:
+            f.write(f"interseg:\n  inpath: {sf_folder}\n  FISH_color: red\n  has_centromeric_probe: True\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ecseg_torch.pipelines.interseg"], cwd=iwork, env=env, capture_output=True, text=True, timeout=300)
+        interseg_cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"interseg .h5: python -m ecseg_torch.pipelines.interseg exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        for f in sizes:
+            check(f"[ecseg] loading model {os.path.join('interseg_models', f)}" in proc.stderr, f"interseg: the command line did not load {f}:\n{proc.stderr[-2000:]}")
+        check(read_bytes(out_csv) == want, "interseg .h5: the CSV bytes != the interseg_models/*.npz run's")
+        out["interseg"] = {"h5_bytes": sizes, "cli_s": interseg_cli_s, "csv_rows": want.decode().count("\n") - 1, "ecseg_c_rows": c_rows}
+        out["phase_s"] = time.perf_counter() - phase_t0
+        print(f"interseg .h5 (interseg.h5 {sizes['interseg.h5']} bytes, ecseg_c.h5 {sizes['ecseg_c.h5']}): python -m ecseg_torch.pipelines.interseg "
+              f"{interseg_cli_s:.2f} s, {out['interseg']['csv_rows']} CSV rows byte-equal to the .npz run's ({c_rows} ecSeg-c rows); "
+              f"phase_keras_h5: {out['phase_s']:.1f} s [{card}]", flush=True)
+        results["keras_h5"] = out
+    finally:
+        os.chdir(cwd)
+        for d in (work, os.path.dirname(npz_run), os.path.dirname(sf_folder)):
+            shutil.rmtree(d, ignore_errors=True)
 
 
 TRAIN_BATCH = 16  # scripts/train_metaseg.py's default
@@ -3457,6 +3785,7 @@ def main() -> int:
     phase_multidevice(args, dev, results)  # draws no numbers: the earlier phases' folders
     phase_quant(args, dev, results)  # its own generator
     phase_keras_import(args, dev, results)
+    phase_keras_h5(args, dev, results)  # draws no numbers: the main path's and interseg's folders
     phase_train(args, dev, results)
     torch.cuda.empty_cache()  # the demo's command lines share the card
     phase_demo(results)  # README's demo: command lines, and in-process on a copy
@@ -3473,7 +3802,7 @@ def main() -> int:
     print(json.dumps({"command_line": results["command_line"], "card": smi}))
     print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
     print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))
-    print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "card": smi}))
+    print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "keras_h5": results["keras_h5"], "card": smi}))
     print(json.dumps({"train": results["train"], "card": smi}))
     print(json.dumps({"multidevice": results["multidevice"], "card": smi}))
     print(json.dumps({"bench": results["bench"], "card": smi}))

@@ -6,9 +6,10 @@ drop into the port without TensorFlow.
 Containers: a legacy Keras HDF5 save (``model_config`` attr, per-layer
 groups under ``model_weights``) through :func:`import_keras_h5`, and a
 Keras 3 ``.keras`` zip (``config.json`` + ``model.weights.h5``) through
-:func:`import_keras_file`.  Both read the file with ``h5py``, imported there
-and nowhere else (as the JAX package imports it): without h5py the port
-runs, and only reading such a file fails.  :func:`import_from_config`, the
+:func:`import_keras_file`.  Both read the file with the port's own HDF5
+reader (``core/hdf5.py``: plain Python and numpy, the subset of HDF5 that
+h5py writes under its default ``libver``), so no HDF5 package is needed
+(the JAX package reads them with h5py).  :func:`import_from_config`, the
 graph constructor below the readers, takes a parsed config and any fetcher with
 the readers' ``fetch``/``child`` methods.
 
@@ -44,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import hdf5
 from ..device import DeviceLike, resolve_device
 from .layers import parity_flags
 
@@ -80,9 +82,7 @@ class _LegacyH5Fetcher:
         out = []
 
         def visit(_, obj):
-            import h5py
-
-            if isinstance(obj, h5py.Dataset):
+            if isinstance(obj, hdf5.Dataset):
                 out.append(np.array(obj))
 
         grp.visititems(visit)
@@ -290,9 +290,7 @@ def _upsample(x: torch.Tensor, size: Tuple[int, int], interpolation: str) -> tor
 def import_keras_h5(path: str, device: DeviceLike = None) -> KerasModel:
     """Legacy Keras H5 whole-model save -> KerasModel on ``device`` (None:
     the card)."""
-    import h5py
-
-    with h5py.File(path, "r") as h5:
+    with hdf5.File(path) as h5:
         cfg_raw = h5.attrs.get("model_config")
         if cfg_raw is None:
             raise ValueError(f"{path} has no embedded model_config")
@@ -307,13 +305,9 @@ def import_keras_file(path: str, device: DeviceLike = None) -> KerasModel:
     import zipfile
 
     if zipfile.is_zipfile(path):
-        import io
-
-        import h5py
-
         with zipfile.ZipFile(path) as z:
             cfg = json.loads(z.read("config.json"))
-            with h5py.File(io.BytesIO(z.read("model.weights.h5")), "r") as wh5:
+            with hdf5.File(z.read("model.weights.h5")) as wh5:
                 layers_group = wh5["layers"] if "layers" in wh5 else None
                 fetcher = _K3Fetcher(layers_group, cfg["config"].get("layers", []))
                 return import_from_config(cfg, fetcher, device)

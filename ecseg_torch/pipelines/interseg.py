@@ -109,10 +109,11 @@ def im2patches_grid(img: np.ndarray, overlap: int = 75, scw: int = 256):
 
 def load_classifier_models(has_centromeric_probe: bool, model_dir: str = "interseg_models", device: DeviceLike = None):
     """(ecSeg-i, ecSeg-c or None) on ``device`` (None: the card), each
-    resolved in the JAX package's order: ``<model_dir>/<name>.h5`` (the
-    imported-Keras executor), ``<model_dir>/<name>.npz`` (the JAX parameter
-    tree, through the weight bridge), else the default architecture on
-    seeds 1 and 2."""
+    resolved in the JAX package's order: ``<model_dir>/<name>.h5`` (read by
+    the port's own HDF5 reader, run by the imported-Keras executor),
+    ``<model_dir>/<name>.npz`` (the JAX parameter tree, through the weight
+    bridge), else the default architecture on seeds 1 and 2.  Names each
+    ``.h5`` it loads on stderr (stdout stays the JAX package's)."""
     from ..models.classifiers import EcsegC, EcsegI
     from ..models.keras_import import import_keras_h5
     from ..models.weights import classifier_from_numpy, load_npz
@@ -122,6 +123,7 @@ def load_classifier_models(has_centromeric_probe: bool, model_dir: str = "inters
     def resolve(name, cls, seed):
         h5 = os.path.join(model_dir, f"{name}.h5")
         if os.path.exists(h5):
+            print(f"[ecseg] loading model {h5}", file=sys.stderr)
             return import_keras_h5(h5, device=dev)
         npz = os.path.join(model_dir, f"{name}.npz")
         if os.path.exists(npz):

@@ -62,18 +62,20 @@ from ..runtime.trace import stage
 def load_model(model_dir: str = "models", device: DeviceLike = None) -> torch.nn.Module:
     """The metaseg model, in the JAX package's order
     (``ecseg_tpu/pipelines/metaseg.py:478-513``): ``<model_dir>/metaseg.h5``
-    (the reference's Keras model, through the imported-Keras executor, fed
-    the patches as float32; reading it needs ``h5py``), else
+    (the reference's Keras model, read by the port's own HDF5 reader and run
+    by the imported-Keras executor, fed the patches as float32), else
     ``<model_dir>/metaseg.npz`` (the JAX parameter tree, through the weight
     bridge), else the default architecture on seeded random weights
     (development; these differ from the JAX package's seeded weights).
     Either module takes (N, 256, 256, 1) uint8 patches and returns
-    (N, 256, 256, C) float32 probabilities."""
+    (N, 256, 256, C) float32 probabilities.  Names a ``.h5`` it loads on stderr
+    (stdout stays the JAX package's)."""
     dev = resolve_device(device)
     h5_path = os.path.join(model_dir, "metaseg.h5")
     if os.path.exists(h5_path):
         from ..models.keras_import import import_keras_h5
 
+        print(f"[ecseg] loading model {h5_path}", file=sys.stderr)
         return import_keras_h5(h5_path, device=dev).eval()
     npz_path = os.path.join(model_dir, "metaseg.npz")
     if os.path.exists(npz_path):
@@ -291,7 +293,13 @@ def segment_folder_sharded(model: torch.nn.Module, image_paths: Sequence[str], d
     (rounded up to a multiple of the data axis), each batch is split over
     the entries (one thread each, a replica each), uint8 patch labels come
     back, and the stitch runs on the host (``cc_kernels.stitch_plain``; the
-    caller runs the oracle).  The last batch runs as it is, unpadded."""
+    caller runs the oracle).  Every batch has the one shape: the last is
+    padded with zero patches, whose labels are dropped, as the JAX package
+    pads to one static shape (``metaseg.py:303-305``).  On the card a
+    patch's float32 probabilities move in the last bits with the shape of
+    the batch it runs in (cuDNN picks its algorithm by shape), so an
+    unpadded remainder made an image's labels depend on the rest of the
+    folder (ROADMAP C8)."""
     devices = list(devices)
     n = len(devices)
     replicas = replicate(model, devices)
@@ -301,10 +309,12 @@ def segment_folder_sharded(model: torch.nn.Module, image_paths: Sequence[str], d
     out = []  # label patch arrays in pending order
 
     def dispatch(stack, pool):
+        valid = len(stack)
+        if valid < batch_patches:
+            stack = np.concatenate([stack, np.zeros((batch_patches - valid,) + stack.shape[1:], stack.dtype)])
         with stage("metaseg.sharded_forward"):
-            chunks = [c for c in np.array_split(stack, n) if len(c)]
-            futures = [pool.submit(_patch_labels_on, replicas[k], devices[k], c) for k, c in enumerate(chunks)]
-            out.extend(f.result() for f in futures)
+            futures = [pool.submit(_patch_labels_on, replicas[k], devices[k], c) for k, c in enumerate(np.split(stack, n))]
+            out.append(np.concatenate([f.result() for f in futures])[:valid])
 
     def drain(pool):
         nonlocal buf

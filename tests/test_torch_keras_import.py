@@ -11,9 +11,15 @@ Concatenate/Add, a nested sub-model, a multi-output sub-model read at tensor
 index 1, a shared layer, Flatten -> Dense), a ``.keras`` zip, an unsupported
 type, and the metaseg loader's ``.h5``-first order.  Tolerance: outputs
 within 1e-5 absolute + 1e-5 relative of the JAX executor's (float32, both
-on the CPU).  Also chip_smoke's Keras configs of the metaseg U-Net and
-ecSeg-i, through its dict-backed fetcher, against ``MetasegUNet`` and
-``EcsegI`` at small widths."""
+on the CPU).  The port reads every file with its own HDF5 reader
+(``core/hdf5.py``), the JAX package with h5py.  Also chip_smoke's Keras
+configs of the metaseg U-Net, ecSeg-i and ecSeg-c, through its dict-backed
+fetcher, against ``MetasegUNet``, ``EcsegI`` and ``EcsegC`` at small
+widths; Keras 3.13's own saves (``tests/fixtures/keras3_small.*``) through
+both executors; files written by chip_smoke's HDF5 writer, read alike by
+h5py and the port's reader and run alike by both executors; and
+``metaseg.main`` from such a ``metaseg.h5`` against the same weights'
+``metaseg.npz``, byte for byte."""
 
 import io
 import json
@@ -428,3 +434,120 @@ def test_chip_smoke_ecseg_i_config_matches_ecseg_i():
         got, want = model(torch.from_numpy(x)), classifier_from_numpy(tree)(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_chip_smoke_ecseg_c_config_matches_ecseg_c():
+    """``chip_smoke.ecseg_c_keras_config`` (ecSeg-c as a Keras Sequential
+    on ``preprocess_ecseg_c``'s floats) against ``EcsegC`` on the same
+    weights: probabilities within the tolerance, the same side of 0.5."""
+    from ecseg_torch.models.classifiers import EcsegC
+    from ecseg_torch.models.demo import demo_ecseg_c_tree
+    from ecseg_torch.models.weights import classifier_from_numpy
+    from ecseg_torch.pipelines.interseg import preprocess_ecseg_c
+
+    tree = demo_ecseg_c_tree()
+    tree["conv2"]["kernel"] = np.random.default_rng(3).standard_normal(tree["conv2"]["kernel"].shape).astype(np.float32) * 0.05
+    model = tk.import_from_config(chip_smoke.ecseg_c_keras_config(), chip_smoke.DictFetcher(chip_smoke.classifier_keras_weights(tree)), "cpu")
+    rng = np.random.default_rng(4)
+    x = np.stack([preprocess_ecseg_c((rng.random((256, 256, 3)) * 255 * s).astype(np.uint8)) for s in (0.2, 1.0)])
+    ecseg_c = classifier_from_numpy(tree)
+    assert isinstance(ecseg_c, EcsegC)
+    with torch.no_grad():
+        got, want = model(torch.from_numpy(x)), ecseg_c(torch.from_numpy(x))
+    assert got.shape == want.shape == (2, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got > 0.5, want > 0.5)
+
+
+# --- files: Keras 3's own saves and chip_smoke's HDF5 writer ----------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+
+
+@pytest.mark.parametrize("name", ["keras3_small.h5", "keras3_small.keras"])
+def test_keras3_fixture_matches_jax(name):
+    """A file Keras 3.13's ``model.save`` wrote (Conv2D, BatchNormalization,
+    Conv2DTranspose, softmax head): the JAX executor reading it with h5py
+    against the port's reading it with ``core.hdf5``."""
+    path = os.path.join(FIXTURES, name)
+    x = np.load(os.path.join(FIXTURES, "keras3_small.npz"))["x"]
+    want = _jax_run(jk.import_keras_file(path), x)
+    _assert_close(_port_run(tk.import_keras_file(path, device="cpu"), x), want)
+
+
+def _writer_cases():
+    from ecseg_torch.models.demo import demo_ecseg_i_tree
+
+    from test_torch_metaseg_pipeline import _crafted_tiny_params
+
+    itree = demo_ecseg_i_tree()
+    itree["conv2"]["kernel"] = np.random.default_rng(1).standard_normal(itree["conv2"]["kernel"].shape).astype(np.float32) * 0.05
+    rng = np.random.default_rng(6)
+    return {
+        "unet": (chip_smoke.unet_keras_config((8, 16), 32, 4), chip_smoke.unet_keras_weights(_crafted_tiny_params()),
+                 (rng.random((2, 64, 64, 1)) * 255).astype(np.uint8)),
+        "ecseg_i": (chip_smoke.ecseg_i_keras_config(), chip_smoke.classifier_keras_weights(itree), (rng.random((2, 256, 256)) * 255).astype(np.uint8)),
+    }
+
+
+@pytest.mark.parametrize("case", ["unet", "ecseg_i"])
+def test_chip_smoke_h5_writer_files_read_alike(tmp_path, case):
+    """``chip_smoke.write_keras_h5`` (the legacy layout TF-Keras 2 writes):
+    h5py and the port's reader give the same attributes and arrays, the
+    arrays those written; the JAX executor on the file matches the
+    port's."""
+    from ecseg_torch.core import hdf5
+
+    cfg, weights, x = _writer_cases()[case]
+    path = str(tmp_path / "m.h5")
+    size = chip_smoke.write_keras_h5(path, cfg, weights)
+    assert size == os.path.getsize(path)
+    with h5py.File(path, "r") as f, hdf5.File(path) as r:
+        assert json.loads(f.attrs["model_config"]) == json.loads(r.attrs["model_config"]) == cfg
+        assert type(r.attrs["model_config"]) is type(f.attrs["model_config"]) is np.bytes_
+        layers = [lc["config"]["name"] for lc in cfg["config"]["layers"]]
+        assert [n.decode() for n in f["model_weights"].attrs["layer_names"]] == layers
+        np.testing.assert_array_equal(r["model_weights"].attrs["layer_names"], f["model_weights"].attrs["layer_names"])
+        for layer in layers:
+            names_f, names_r = f["model_weights"][layer].attrs["weight_names"], r["model_weights"][layer].attrs["weight_names"]
+            assert names_f.dtype == names_r.dtype and list(names_f) == list(names_r)
+            for k, wname in enumerate(names_f):
+                got, want = r["model_weights"][layer][wname.decode()][()], f["model_weights"][layer][wname.decode()][()]
+                assert got.dtype == want.dtype == np.float32 and np.array_equal(got, want)
+                np.testing.assert_array_equal(got, weights[layer][k])
+            assert len(names_f) == len(weights.get(layer, []))
+    want = _jax_run(jk.import_keras_h5(path), x)
+    _assert_close(_port_run(tk.import_keras_h5(path, device="cpu"), x), want)
+
+
+def test_metaseg_main_from_h5_writes_the_npz_runs_bytes(tmp_path, monkeypatch):
+    """``metaseg.main(device="cpu")`` on a folder, once with
+    ``models/metaseg.h5`` (chip_smoke's writer, the crafted (8, 16) U-Net)
+    and once with ``models/metaseg.npz`` of the same weights: the same
+    ``labels/*.npy``, ``labels/*.png`` and CSV bytes."""
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.weights import save_npz
+    from ecseg_torch.pipelines import metaseg
+
+    from test_torch_metaseg_pipeline import _crafted_tiny_params, _make_folder
+
+    tree = _crafted_tiny_params()
+    outputs = {}
+    for kind in ("h5", "npz"):
+        work = tmp_path / kind
+        os.makedirs(work / "models")
+        if kind == "h5":
+            chip_smoke.write_keras_h5(str(work / "models" / "metaseg.h5"), chip_smoke.unet_keras_config((8, 16), 32, 4), chip_smoke.unet_keras_weights(tree))
+        else:
+            save_npz(str(work / "models" / "metaseg.npz"), tree)
+        _make_folder(str(work / "imgs"))
+        monkeypatch.chdir(work)
+        for var in ("ECSEG_DEVICE_PIPELINE", "ECSEG_MC_LABEL", "ECSEG_MC_MERGE"):
+            monkeypatch.delenv(var, raising=False)
+        model = metaseg.load_model(device="cpu")
+        assert isinstance(model, tk.KerasModel) == (kind == "h5")
+        assert metaseg.main(config=Config(raw={"metaseg": {"inpath": str(work / "imgs")}}), device="cpu") == 0
+        files = sorted(os.listdir(work / "imgs" / "labels"))
+        outputs[kind] = {f: open(work / "imgs" / "labels" / f, "rb").read() for f in files}
+        outputs[kind]["csv"] = open(work / "imgs" / "ec_quantification.csv", "rb").read()
+    assert len(outputs["h5"]) > 2 and outputs["h5"] == outputs["npz"]

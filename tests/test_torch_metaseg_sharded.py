@@ -217,3 +217,36 @@ def test_redos_and_kernel_calls(port_mains):
     assert port_mains["one"][2] == want
     assert port_mains["mesh"][2] == want
     assert port_mains["mesh host"][2] == {"stitch": len(NAMES)}
+
+
+def test_sharded_host_path_pads_its_last_batch_and_ignores_the_rest_of_the_folder(folder, monkeypatch):
+    """ROADMAP C8's remainder: on two entries every chunk dispatched has the
+    one shape (``batch_patches`` / 2 patches), the last batch padded with
+    zero patches whose labels are dropped; each image's raw labels equal
+    its single-device ``segment_raw`` and a run on the folder reversed with
+    one image removed (its patches in other batches, beside others)."""
+    model = params_from_numpy(_crafted_tiny_params())
+    shapes = []
+    real = port_metaseg._patch_labels_on
+
+    def recording(replica, dev, chunk):
+        shapes.append(chunk.shape)
+        return real(replica, dev, chunk)
+
+    monkeypatch.setattr(port_metaseg, "_patch_labels_on", recording)
+    cpu2 = [torch.device("cpu")] * 2
+    got = list(port_metaseg.segment_folder_sharded(model, folder, cpu2, batch_patches=16))
+    prepared = {p: port_metaseg._prepare_image(p, save_dapi=False) for p in folder}
+    total = sum(len(patches) for patches, _ in prepared.values())
+    assert total % 16, "the folder must leave a partial last batch"
+    assert set(shapes) == {(8, 256, 256, 1)} and len(shapes) == 2 * -(-total // 16)
+    assert [p for p, _ in got] == folder
+    for path, raw in got:
+        want = port_metaseg.segment_raw(model, *prepared[path]).numpy().astype(np.int64)
+        np.testing.assert_array_equal(raw, want, err_msg=path)
+    others = folder[::-1][1:]
+    again = list(port_metaseg.segment_folder_sharded(model, others, cpu2, batch_patches=16))
+    assert [p for p, _ in again] == others
+    ref = dict(got)
+    for path, raw in again:
+        np.testing.assert_array_equal(raw, ref[path], err_msg=path)
