@@ -182,13 +182,24 @@ Phases (any failure raises; exit code 0 only when all pass):
    and ecSeg-i as a Keras Sequential against ``EcsegI``.  Then the
    ``.h5`` entry points (``phase_keras_h5``): a full-width
    ``models/metaseg.h5`` and ``interseg_models/{interseg,ecseg_c}.h5``
-   written by ``write_keras_h5`` (TF-Keras 2's legacy layout) and read by
-   the port's own HDF5 reader, ``python3 -m ecseg_torch.pipelines.metaseg``
-   on the main path's four images (labels and CSV byte-equal to the
-   in-process run, the ``.npz`` run and the host oracle; B1-B6 launched as
-   the default form) and ``python3 -m ecseg_torch.pipelines.interseg`` (the
-   ``.npz`` run's CSV bytes); the reader's host seconds and each command's
-   wall.  Then the
+   written by ``core/hdf5.write_keras_h5`` (TF-Keras 2's legacy layout) and
+   read by the port's own HDF5 reader, ``python3 -m
+   ecseg_torch.pipelines.metaseg`` on the main path's four images (labels
+   and CSV byte-equal to the in-process run, the ``.npz`` run and the host
+   oracle; B1-B6 launched as the default form) and ``python3 -m
+   ecseg_torch.pipelines.interseg`` (the ``.npz`` run's CSV bytes); the
+   reader's host seconds and each command's wall.  Then the reference's
+   TensorFlow formats (``phase_tf_models``): the demo NuSeT at its
+   published widths written as the reference's TF1 checkpoint pair
+   (``write_tf_bundle``) and converted by ``python3 -m
+   ecseg_torch.convert_tf1_ckpt`` (``models/nuset.npz`` equal to the tree),
+   stat_fish's command line from it on the stat_fish phase's images (every
+   output byte-equal to that phase's command line) and in-process (four B2
+   an image, one B3 a watershed with markers); the demo ecSeg-i and
+   ecSeg-c written as SavedModels (``write_keras_savedmodel``), converted
+   by ``python3 -m ecseg_torch.convert_savedmodel`` and run by interseg's
+   command line (the ``.h5`` run's CSV bytes); the bytes written and each
+   command's wall.  Then the
    metaseg trainer (``phase_train``) at the default widths on 256^2 crops
    of the main path's images and labels: card against CPU (each gradient
    tensor held to the CPU's float64 gradient; a TF32 backward outside the
@@ -209,7 +220,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    copy (launch counters set to 0 just before each, read just after:
    ``DEMO_LAUNCHES``), byte-equal to the command lines; each command's
    wall;
-7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``, ``{"demo": ...}``,
+7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"tf_models": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``, ``{"demo": ...}``,
    ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
@@ -1869,129 +1880,231 @@ def ecseg_c_keras_config():
     return {"class_name": "Sequential", "config": {"name": "ecseg_c", "layers": layers}}
 
 
-# --- a minimal HDF5 writer: the legacy Keras save as TF-Keras 2 writes it ---
-#
-# Superblock v0 (8-byte offsets and lengths), version 1 object headers,
-# groups as symbol tables (one B-tree leaf over SNODs of 8 entries, names in
-# a local heap), contiguous little-endian float datasets, and attributes of
-# fixed-length strings (scalar or array) and float arrays.  The card's
-# machine has no h5py; the tests read this writer's files with h5py.
+# --- test writers of TensorFlow's formats: a TF1 V2 checkpoint (a tensor
+# bundle: a LevelDB table of BundleEntryProto under <prefix>.index, the
+# bytes in <prefix>.data-NNNNN-of-NNNNN) and a TF-Keras SavedModel's
+# keras_metadata.pb and variables bundle.  The card's machine has no
+# TensorFlow; the tests read these writers' files with TensorFlow's readers.
 
-_H5_UNDEF = b"\xff" * 8
-_H5_SNOD_ENTRIES = 8  # 2 x the group leaf node K (4)
-_H5_BTREE_CHILDREN = 32  # 2 x the group internal node K (16)
-_H5_FLOAT = {  # dtype -> the datatype message's bit fields and properties
-    "<f4": (b"\x20\x1f\x00", struct.pack("<HHBBBBI", 0, 32, 23, 8, 0, 23, 127)),
-    "<f8": (b"\x20\x3f\x00", struct.pack("<HHBBBBI", 0, 64, 52, 11, 0, 52, 1023)),
-}
+TF_DTYPES = {"<f4": 1, "<f8": 2, "<i4": 3, "|u1": 4, "<c8": 8, "<i8": 9, "|b1": 10}  # numpy -> TF DataType
+TF_BLOCK_BYTES = 4096  # LevelDB's default block size
+TF_RESTART_INTERVAL = 16  # LevelDB's default
 
 
-def _pad8(b: bytes) -> bytes:
-    return b + bytes(-len(b) % 8)
+def _pb_varint(n: int) -> bytes:
+    n &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
 
 
-class _H5Out:
-    """The file's bytes, each object 8-byte aligned."""
-
-    def __init__(self):
-        self.buf = bytearray(96)  # the superblock, written last
-
-    def put(self, data: bytes) -> int:
-        addr = len(self.buf)
-        self.buf += _pad8(data)
-        return addr
-
-    def header(self, messages) -> int:
-        """A version 1 object header of ``messages`` [(type, body)]."""
-        body = b"".join(struct.pack("<HHB3x", t, len(_pad8(m)), 0) + _pad8(m) for t, m in messages)
-        return self.put(struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body)
+def _pb(number: int, value, fixed32: bool = False) -> bytes:
+    """One protobuf field: an int as a varint (``fixed32``: 4 bytes), bytes
+    or str length-delimited."""
+    if fixed32:
+        return _pb_varint(number << 3 | 5) + struct.pack("<I", value)
+    if isinstance(value, int):
+        return _pb_varint(number << 3) + _pb_varint(value)
+    value = value.encode() if isinstance(value, str) else value
+    return _pb_varint(number << 3 | 2) + _pb_varint(len(value)) + value
 
 
-def _h5_type_space(value):
-    """(datatype message, dataspace message, raw data) of an attribute or
-    dataset value: bytes (a fixed-length string scalar), a list of bytes (a
-    fixed-length string array) or a float32/float64 array."""
-    if isinstance(value, bytes) or (isinstance(value, list) and all(isinstance(v, bytes) for v in value)):
-        arr = np.array(value, dtype=f"S{max([len(v) for v in np.atleast_1d(value)] + [1])}")
-        dtype = b"\x13\x01\x00\x00" + struct.pack("<I", arr.dtype.itemsize)  # null-padded ASCII, as numpy's S
-    else:
-        arr = np.ascontiguousarray(value)
-        bits, props = _H5_FLOAT[arr.dtype.str]
-        dtype = b"\x11" + bits + struct.pack("<I", arr.dtype.itemsize) + props
-    space = struct.pack("<BBBB4x", 1, arr.ndim, 0, 0) + b"".join(struct.pack("<Q", n) for n in arr.shape)
-    return dtype, space, arr.tobytes()
+def _table_block(entries) -> bytes:
+    """A LevelDB block: keys prefix-compressed against the one before,
+    restarted every ``TF_RESTART_INTERVAL`` entries, then the restart array."""
+    buf, restarts, prev = bytearray(), [], b""
+    for i, (key, value) in enumerate(entries):
+        shared = 0
+        if i % TF_RESTART_INTERVAL == 0:
+            restarts.append(len(buf))
+        else:
+            while shared < min(len(prev), len(key)) and prev[shared] == key[shared]:
+                shared += 1
+        buf += _pb_varint(shared) + _pb_varint(len(key) - shared) + _pb_varint(len(value)) + key[shared:] + value
+        prev = key
+    restarts = restarts or [0]
+    return bytes(buf) + struct.pack(f"<{len(restarts)}I", *restarts) + struct.pack("<I", len(restarts))
 
 
-def _h5_attribute(name: str, value) -> bytes:
-    dtype, space, data = _h5_type_space(value)
-    key = name.encode() + b"\0"
-    return struct.pack("<BBHHH", 1, 0, len(key), len(dtype), len(space)) + _pad8(key) + _pad8(dtype) + _pad8(space) + data
+def write_table(path: str, entries, compression: int = 0) -> int:
+    """A LevelDB table of sorted (key, value) byte pairs: data blocks of
+    about ``TF_BLOCK_BYTES``, an empty metaindex block, the index block
+    (each data block's last key and handle) and the footer; every block
+    followed by its compression byte (``compression`` on data blocks) and
+    masked crc32c.  Returns the file's size."""
+    from ecseg_torch.core.tfbundle import TABLE_MAGIC, crc32c, mask
 
+    out = bytearray()
 
-def _h5_object(out: _H5Out, node) -> tuple:
-    """Writes ``node`` (a numpy array: a dataset; a dict: a group, its
-    attributes under the key ``"@attrs"``) and returns (object header
-    address, symbol table entry's cache type and scratch-pad)."""
-    if isinstance(node, np.ndarray):
-        dtype, space, data = _h5_type_space(node)
-        layout = struct.pack("<BBQQ", 3, 1, out.put(data), len(data))  # contiguous
-        return out.header([(0x01, space), (0x03, dtype), (0x08, layout)]), 0, bytes(16)
-    attrs = node.get("@attrs", {})
-    members = sorted(((k.encode(), v) for k, v in node.items() if k != "@attrs"), key=lambda kv: kv[0])
-    if len(members) > _H5_SNOD_ENTRIES * _H5_BTREE_CHILDREN:
-        raise ValueError(f"a group of {len(members)} members needs a B-tree of two levels")
-    entries = [(name, _h5_object(out, v)) for name, v in members]
-    names, offsets = bytearray(8), []  # offset 0: the empty name
-    for name, _ in entries:
-        offsets.append(len(names))
-        names += _pad8(name + b"\0")
-    heap = out.put(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(names), 1, out.put(bytes(names))))  # free list: none (1)
-    keys, children = [0], []
-    for k in range(0, len(entries), _H5_SNOD_ENTRIES):
-        group = entries[k : k + _H5_SNOD_ENTRIES]
-        body = b"".join(struct.pack("<QQI4x", offsets[k + j], addr, cache) + scratch for j, (_, (addr, cache, scratch)) in enumerate(group))
-        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(group)) + body
-        children.append(out.put(snod + bytes(8 + _H5_SNOD_ENTRIES * 40 - len(snod))))
-        keys.append(offsets[k + len(group) - 1])
-    tree = b"TREE" + struct.pack("<BBH", 0, 0, len(children)) + _H5_UNDEF * 2 + struct.pack("<Q", keys[0])
-    tree += b"".join(struct.pack("<QQ", c, key) for c, key in zip(children, keys[1:]))
-    btree = out.put(tree + bytes(24 + 8 * (2 * _H5_BTREE_CHILDREN + 1) - len(tree)))
-    messages = [(0x11, struct.pack("<QQ", btree, heap))] + [(0x0C, _h5_attribute(k, v)) for k, v in attrs.items()]
-    return out.header(messages), 1, struct.pack("<QQ", btree, heap)
+    def block(contents: bytes, kind: int = 0) -> bytes:
+        handle = _pb_varint(len(out)) + _pb_varint(len(contents))
+        out.extend(contents + bytes([kind]) + struct.pack("<I", mask(crc32c(contents + bytes([kind])))))
+        return handle
 
-
-def write_h5(path: str, root: dict) -> int:
-    """Writes the group tree ``root`` (see ``_h5_object``) as an HDF5 file;
-    returns its size in bytes."""
-    out = _H5Out()
-    addr, cache, scratch = _h5_object(out, root)
-    out.buf[:96] = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + struct.pack("<HHI", 4, 16, 0)
-                    + struct.pack("<Q", 0) + _H5_UNDEF + struct.pack("<Q", len(out.buf)) + _H5_UNDEF
-                    + struct.pack("<QQI4x", 0, addr, cache) + scratch)
+    index, pending, size = [], [], 0
+    for key, value in entries:
+        pending.append((key, value))
+        size += len(key) + len(value)
+        if size >= TF_BLOCK_BYTES:
+            index.append((key, block(_table_block(pending), compression)))
+            pending, size = [], 0
+    if pending:
+        index.append((pending[-1][0], block(_table_block(pending), compression)))
+    meta = block(_table_block([]))
+    footer = meta + block(_table_block(index))
+    out += footer + bytes(40 - len(footer)) + struct.pack("<Q", TABLE_MAGIC)
     with open(path, "wb") as f:
-        f.write(out.buf)
-    return len(out.buf)
+        f.write(out)
+    return len(out)
 
 
-def write_keras_h5(path: str, config: dict, weights: dict) -> int:
-    """A legacy Keras whole-model save as TF-Keras 2 writes it: the root's
-    ``model_config``, ``keras_version`` and ``backend``; ``model_weights``
-    with ``layer_names`` and a group a layer, its ``weight_names``
-    (``<layer>/kernel:0``, ``<layer>/bias:0``, a weightless layer's empty)
-    over ``<layer>/<layer>/kernel:0`` and ``bias:0``.  ``weights``:
-    ``{layer: [kernel, bias]}`` in Keras's layouts (as ``DictFetcher``
-    takes them).  Returns the file's size in bytes."""
-    meta = {"keras_version": b"2.15.0", "backend": b"tensorflow"}
-    names = [lc["config"]["name"] for lc in config["config"]["layers"]]
-    model_weights = {"@attrs": {**meta, "layer_names": [n.encode() for n in names]}}
-    for name in names:
-        arrays = weights.get(name, [])
-        wnames = [f"{name}/{w}:0" for w in ("kernel", "bias")[: len(arrays)]]
-        model_weights[name] = {"@attrs": {"weight_names": [w.encode() for w in wnames] if wnames else np.zeros((0,))}}
-        if arrays:
-            model_weights[name][name] = {w.split("/")[1]: np.ascontiguousarray(a, np.float32) for w, a in zip(wnames, arrays)}
-    root = {"@attrs": {**meta, "model_config": json.dumps(config).encode()}, "model_weights": model_weights}
-    return write_h5(path, root)
+def write_tf_bundle(prefix: str, tensors: dict, num_shards: int = 1, big_endian: bool = False,
+                    sliced=(), compression: int = 0) -> int:
+    """A V2 checkpoint as ``tf.compat.v1.train.Saver`` writes it: the
+    ``BundleHeaderProto`` under the key ``""`` and one ``BundleEntryProto``
+    a tensor (dtype, shape, shard, offset, size, masked crc32c), the
+    tensors' bytes spread over ``num_shards`` data files in key order.
+    ``tensors``: name -> numpy array (``TF_DTYPES``), bytes (a string
+    scalar) or a list of bytes (a string vector).  ``big_endian``, ``sliced`` (names whose entries get an
+    empty slice) and ``compression`` write what the reader must refuse.
+    Returns the bytes written."""
+    from ecseg_torch.core.tfbundle import crc32c, mask
+
+    shards = [bytearray() for _ in range(num_shards)]
+    entries = [(b"", _pb(1, num_shards) + (_pb(2, 1) if big_endian else b"") + _pb(3, _pb(1, 1)))]
+    for k, name in enumerate(sorted(tensors)):
+        value = tensors[name]
+        if isinstance(value, (bytes, list)):  # DT_STRING: varint lengths, their masked crc32c, the bytes
+            shape, value = ([], [value]) if isinstance(value, bytes) else ([len(value)], value)
+            crc = 0
+            for v in value:
+                crc = crc32c(len(v).to_bytes(4, "little"), crc)
+            check = struct.pack("<I", mask(crc))
+            data = b"".join(_pb_varint(len(v)) for v in value) + check + b"".join(value)
+            crc = crc32c(b"".join(value), crc32c(check, crc))
+            dtype = 7
+        else:
+            arr = np.asarray(value)  # ascontiguousarray would make a scalar 1-D
+            data, crc = arr.tobytes(), crc32c(arr)
+            dtype, shape = TF_DTYPES[arr.dtype.str], arr.shape
+        shard = k % num_shards
+        entry = (_pb(1, dtype) + _pb(2, b"".join(_pb(2, _pb(1, n)) for n in shape)) + _pb(3, shard)
+                 + _pb(4, len(shards[shard])) + _pb(5, len(data)) + _pb(6, mask(crc), fixed32=True)
+                 + (_pb(7, b"") if name in sliced else b""))
+        shards[shard] += data
+        entries.append((name.encode(), entry))
+    total = write_table(prefix + ".index", entries, compression)
+    for i, data in enumerate(shards):
+        with open(f"{prefix}.data-{i:05d}-of-{num_shards:05d}", "wb") as f:
+            f.write(data)
+        total += len(data)
+    return total
+
+
+NUSET_TF_DECONV = {"deconv4": "conv2d_transpose", "deconv3": "conv2d_transpose_1", "deconv2": "conv2d_transpose_2",
+                   "deconv1": "conv2d_transpose_3"}
+
+
+def nuset_tf1_checkpoints(tree):
+    """The NuSeT tree (``models/nuset.npz``'s) as the reference's two TF1
+    checkpoints hold it, under its graph's names: ``{"whole_norm.ckpt":
+    {name: array}, "foreground.ckpt": ...}``; transpose-conv kernels as TF
+    keeps them, (H, W, out, in); besides the weights, one Adam slot,
+    ``beta1_power`` and ``global_step``, which the converter drops."""
+    def unet(layers):
+        out = {}
+        for name, leaves in layers.items():
+            for leaf, value in leaves.items():
+                if name in NUSET_TF_DECONV and leaf == "kernel":
+                    value = np.transpose(value, (0, 1, 3, 2))
+                out[f"model_U-Net/{NUSET_TF_DECONV.get(name, name)}/{leaf}"] = value
+        return out
+
+    extra = {"model_U-Net/conv1-1/kernel/Adam": np.zeros_like(tree["whole"]["conv1-1"]["kernel"]),
+             "beta1_power": np.array(0.9, np.float32), "global_step": np.array(1, np.int64)}
+    rpn = {f"model_RPN/{'rpn_conv/3x3' if name == 'rpn_conv' else name}/{leaf}": value
+           for name, leaves in tree["fg"]["rpn"].items() for leaf, value in leaves.items()}
+    return {"whole_norm.ckpt": {**unet(tree["whole"]), **extra}, "foreground.ckpt": {**unet(tree["fg"]["unet"]), **rpn, **extra}}
+
+
+TUPLE_KEYS = ("kernel_size", "strides", "pool_size", "dilation_rate", "target_shape", "batch_input_shape", "size")
+
+
+def _keras_saved_encoding(value, ids):
+    """A config as Keras's SavedModel metadata encodes it: the tuple-valued
+    keys as ``{"class_name": "__tuple__", "items": [...]}`` and a
+    ``shared_object_id`` on every layer."""
+    if isinstance(value, dict):
+        out = {k: ({"class_name": "__tuple__", "items": v} if k in TUPLE_KEYS and isinstance(v, list) else _keras_saved_encoding(v, ids))
+               for k, v in value.items()}
+        if "class_name" in out and isinstance(out.get("config"), dict) and "name" in out["config"] and "layers" not in out["config"]:
+            out["shared_object_id"] = next(ids)
+        return out
+    if isinstance(value, list):
+        return [_keras_saved_encoding(v, ids) for v in value]
+    return value
+
+
+def write_keras_savedmodel(directory: str, config: dict, weights: dict, keras_version: str = "2.8.0") -> int:
+    """A TF-Keras SavedModel's two files that describe a Keras model:
+    ``keras_metadata.pb`` (a ``SavedMetadata``: the root's metadata JSON
+    with ``model_config`` in the SavedModel encoding, one node a layer of
+    ``model.layers`` under its path, ``root.layer_with_weights-M`` for a
+    layer with weights and ``root.layer-N`` for one without) and
+    ``variables/variables.*`` (the weights under their checkpoint keys and
+    a ``TrackableObjectGraph`` in ``_CHECKPOINTABLE_OBJECT_GRAPH``: the
+    root's ``layer-N`` and ``layer_with_weights-M`` children, each layer's
+    ``kernel``/``bias`` and its ``variables`` and ``trainable_variables``
+    lists).  ``weights``: ``{layer: [kernel, bias]}``.  No
+    ``saved_model.pb``: only TensorFlow's loader reads it.  Returns the
+    bytes written."""
+    import itertools
+
+    layers = [lc for lc in config["config"]["layers"] if config["class_name"] != "Sequential" or lc["class_name"] != "InputLayer"]
+    graph, tensors, meta, n_weighted = [None], {}, [], 0  # graph: [(children, attributes)], the root first
+
+    def add(children=(), attributes=()):
+        graph.append((list(children), list(attributes)))
+        return len(graph) - 1
+
+    root_children = []
+    for n, lc in enumerate(layers):
+        name, held = lc["config"]["name"], weights.get(lc["config"]["name"], [])
+        path = f"layer_with_weights-{n_weighted}" if held else f"layer-{n}"
+        variables = []
+        for leaf, value in zip(("kernel", "bias"), held):
+            key = f"{path}/{leaf}/.ATTRIBUTES/VARIABLE_VALUE"
+            tensors[key] = np.ascontiguousarray(value, np.float32)
+            variables.append((leaf, add(attributes=[("VARIABLE_VALUE", f"{name}/{leaf}", key)])))
+        listed = add([(str(i), v) for i, (_, v) in enumerate(variables)])
+        trainable = add([(str(i), v) for i, (_, v) in enumerate(variables)])
+        node = add(variables + [("variables", listed), ("trainable_variables", trainable)])
+        root_children.append((f"layer-{n}", node))
+        if held:
+            root_children.append((path, node))
+            n_weighted += 1
+        meta.append((f"root.{path}", "_tf_keras_layer", {"name": name, "class_name": lc["class_name"], "config": lc["config"]}))
+    graph[0] = (root_children, [])
+
+    def node_pb(children, attributes):
+        return (b"".join(_pb(1, _pb(1, i) + _pb(2, local)) for local, i in children)
+                + b"".join(_pb(2, _pb(1, a) + _pb(2, b) + _pb(3, c)) for a, b, c in attributes))
+
+    tensors["_CHECKPOINTABLE_OBJECT_GRAPH"] = b"".join(_pb(1, node_pb(*node)) for node in graph)
+    encoded = _keras_saved_encoding(config, itertools.count())
+    root_meta = {"name": config["config"]["name"], "class_name": config["class_name"], "model_config": encoded,
+                 "keras_version": keras_version, "backend": "tensorflow", "is_graph_network": True}
+    identifier = "_tf_keras_sequential" if config["class_name"] == "Sequential" else "_tf_keras_network"
+    version = _pb(6, _pb(1, 2) + _pb(2, 1))
+    nodes = [_pb(1, _pb(2, i) + _pb(3, path) + _pb(4, ident) + _pb(5, json.dumps(md)) + version)
+             for i, (path, ident, md) in enumerate([("root", identifier, root_meta)] + meta)]
+    os.makedirs(os.path.join(directory, "variables"), exist_ok=True)
+    with open(os.path.join(directory, "keras_metadata.pb"), "wb") as f:
+        f.write(b"".join(nodes))
+    return sum(len(n) for n in nodes) + write_tf_bundle(os.path.join(directory, "variables", "variables"), tensors)
 
 
 INTERSEG_PROB_ATOL = 1e-5  # tests/test_torch_classifiers.py's PROB_ATOL
@@ -2598,7 +2711,7 @@ def phase_keras_import(args, dev, results):
 def phase_keras_h5(args, dev, results):
     """The ``.h5`` entry points as a user runs them, through the port's own
     HDF5 reader (``core/hdf5.py``; the card's machine has no h5py).
-    metaseg: ``models/metaseg.h5`` written by ``write_keras_h5`` (the legacy
+    metaseg: ``models/metaseg.h5`` written by ``hdf5.write_keras_h5`` (the legacy
     layout TF-Keras 2 writes) from ``unet_keras_config`` at the default
     widths with the main path's demo weights, in a directory with a
     ``config.yaml`` whose folder holds the main path's four 2048^2 images
@@ -2641,7 +2754,7 @@ def phase_keras_h5(args, dev, results):
         os.makedirs(os.path.dirname(h5_path))
         tree = params_to_numpy(demo_metaseg_params(torch.Generator().manual_seed(args.seed)))
         t0 = time.perf_counter()
-        size = write_keras_h5(h5_path, unet_keras_config(ENC_WIDTHS, BOTTLENECK, NUM_CLASSES), unet_keras_weights(tree))
+        size = hdf5.write_keras_h5(h5_path, unet_keras_config(ENC_WIDTHS, BOTTLENECK, NUM_CLASSES), unet_keras_weights(tree))
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         with hdf5.File(h5_path) as f:
@@ -2698,8 +2811,8 @@ def phase_keras_h5(args, dev, results):
         models = os.path.join(iwork, "interseg_models")
         os.makedirs(models)
         sizes = {
-            "interseg.h5": write_keras_h5(os.path.join(models, "interseg.h5"), ecseg_i_keras_config(), classifier_keras_weights(demo_ecseg_i_tree())),
-            "ecseg_c.h5": write_keras_h5(os.path.join(models, "ecseg_c.h5"), ecseg_c_keras_config(), classifier_keras_weights(demo_ecseg_c_tree())),
+            "interseg.h5": hdf5.write_keras_h5(os.path.join(models, "interseg.h5"), ecseg_i_keras_config(), classifier_keras_weights(demo_ecseg_i_tree())),
+            "ecseg_c.h5": hdf5.write_keras_h5(os.path.join(models, "ecseg_c.h5"), ecseg_c_keras_config(), classifier_keras_weights(demo_ecseg_c_tree())),
         }
         out_csv = os.path.join(sf_folder, "interphase_prediction_red.csv")
         want = read_bytes(out_csv)
@@ -2721,9 +2834,151 @@ def phase_keras_h5(args, dev, results):
               f"{interseg_cli_s:.2f} s, {out['interseg']['csv_rows']} CSV rows byte-equal to the .npz run's ({c_rows} ecSeg-c rows); "
               f"phase_keras_h5: {out['phase_s']:.1f} s [{card}]", flush=True)
         results["keras_h5"] = out
+        results["tf_models_stat_fish"] = sf_folder  # stat_fish's command line's outputs and this interseg CSV
     finally:
         os.chdir(cwd)
-        for d in (work, os.path.dirname(npz_run), os.path.dirname(sf_folder)):
+        for d in (work, os.path.dirname(npz_run)) + (() if "tf_models_stat_fish" in results else (os.path.dirname(sf_folder),)):
+            shutil.rmtree(d, ignore_errors=True)
+
+
+TF_MODELS_TIMEOUT_S = 600  # each command line of phase_tf_models
+
+
+def _tree_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        yield from _tree_leaves(v, prefix + (k,)) if isinstance(v, dict) else [(prefix + (k,), v)]
+
+
+def phase_tf_models(args, dev, results):
+    """The reference's TensorFlow-format models on the card's machine, which
+    has no TensorFlow: the two converters as a user runs them, then the
+    tasks from what they wrote.  NuSeT: ``confident_nuset_tree`` (the demo
+    NuSeT at its published widths, 64-512 and a 1024 bottleneck, as
+    ``phase_stat_fish`` ran it) written by ``write_tf_bundle`` as the
+    reference's TF1 checkpoint pair ``models/nuset/{whole_norm,foreground}.ckpt``
+    under its graph's names (``nuset_tf1_checkpoints``: transpose-conv
+    kernels as TF keeps them, an Adam slot, ``beta1_power``,
+    ``global_step``); ``python3 -m ecseg_torch.convert_tf1_ckpt`` with its
+    defaults; ``models/nuset.npz`` must equal the tree array for array.
+    Then ``python3 -m ecseg_torch.pipelines.stat_fish`` from it on
+    ``phase_stat_fish``'s three 2048^2 images: every CSV, ``.npy`` and TIFF
+    byte-equal to that phase's command line run from the tree's
+    ``nuset.npz``; ``stat_fish.main`` in-process on a copy (launch counters
+    set to 0 just before, read just after): four B2 an image, one B3 a
+    watershed with markers, at least one, nothing else, and the same CSV.
+    interseg: the demo ecSeg-i and ecSeg-c (``ecseg_i_keras_config``,
+    ``ecseg_c_keras_config``) written by ``write_keras_savedmodel`` as
+    SavedModel directories (``keras_metadata.pb`` in Keras's SavedModel
+    encoding and the variables bundle with its object graph);
+    ``python3 -m ecseg_torch.convert_savedmodel`` for each into
+    ``interseg_models/{interseg,ecseg_c}.h5``; ``python3 -m
+    ecseg_torch.pipelines.interseg`` on the folder that stat_fish just
+    wrote: its CSV byte-equal to ``phase_keras_h5``'s interseg run.  Prints
+    the bytes written, each converter's and each command's wall seconds
+    (the converters run on the host only) and the phase's total beside the
+    card."""
+    from ecseg_torch.core.config import Config
+    from ecseg_torch.models.demo import demo_ecseg_c_tree, demo_ecseg_i_tree
+    from ecseg_torch.models.weights import load_npz
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.pipelines import stat_fish
+
+    card = results["card"]
+    phase_t0 = time.perf_counter()
+    ref = results.pop("tf_models_stat_fish")  # phase_stat_fish's command line's folder, interseg's CSV in it
+    work = tempfile.mkdtemp(prefix="ecseg_tf_models_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cwd = os.getcwd()
+    out = {}
+
+    def command(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], cwd=work, env=env, capture_output=True, text=True, timeout=TF_MODELS_TIMEOUT_S)
+        check(proc.returncode == 0, f"python -m {' '.join(argv)} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        return proc, time.perf_counter() - t0
+
+    try:
+        # NuSeT: the TF1 checkpoint pair -> models/nuset.npz
+        tree = confident_nuset_tree(args.seed)
+        ckpt_dir = os.path.join(work, "models", "nuset")
+        os.makedirs(ckpt_dir)
+        t0 = time.perf_counter()
+        ckpt_bytes = sum(write_tf_bundle(os.path.join(ckpt_dir, f), t) for f, t in nuset_tf1_checkpoints(tree).items())
+        write_s = time.perf_counter() - t0
+        proc, convert_s = command("ecseg_torch.convert_tf1_ckpt")
+        check(proc.stdout == f"wrote {os.path.join('models', 'nuset.npz')}\n", f"convert_tf1_ckpt printed {proc.stdout!r}")
+        want, got = dict(_tree_leaves(tree)), dict(_tree_leaves(load_npz(os.path.join(work, "models", "nuset.npz"))))
+        check(got.keys() == want.keys() and all(got[k].dtype == v.dtype and got[k].shape == v.shape and got[k].tobytes() == v.tobytes() for k, v in want.items()),
+              "convert_tf1_ckpt: models/nuset.npz != the tree written as checkpoints")
+        n_params = sum(v.size for v in want.values())
+        print(f"NuSeT as TF1 checkpoints ({ckpt_bytes} bytes, {n_params} parameters, written in {write_s:.2f} s): python -m "
+              f"ecseg_torch.convert_tf1_ckpt {convert_s:.2f} s (host only, process start included), nuset.npz equal to the tree [{card}]", flush=True)
+
+        # stat_fish from the converted npz on phase_stat_fish's images
+        names = sorted(n for n in os.listdir(ref) if n.endswith(".tif"))
+        for sub in ("imgs", "inproc"):
+            os.makedirs(os.path.join(work, sub))
+            for name in names:
+                shutil.copy(os.path.join(ref, name), os.path.join(work, sub))
+        with open(os.path.join(work, "config.yaml"), "w") as f:  # phase_stat_fish's bytes: stat_fish copies it into annotated/
+            f.write(f"stat_fish:\n  inpath: ./imgs\n  scale: 1\n  use_min_cut: True\n  nuclei_size_T: {STAT_FISH_T}\n")
+        proc, stat_fish_s = command("ecseg_torch.pipelines.stat_fish")
+        check(proc.stdout.count("Processing image:") == len(names), "tf models: the stat_fish command line did not process every image")
+        ann, ref_ann = os.path.join(work, "imgs", "annotated"), os.path.join(ref, "annotated")
+        files = sorted(os.path.relpath(os.path.join(d, f), ref_ann) for d, _, fs in os.walk(ref_ann) for f in fs)
+        check(files == sorted(os.path.relpath(os.path.join(d, f), ann) for d, _, fs in os.walk(ann) for f in fs) and len(files) > len(names),
+              f"tf models: stat_fish wrote other files than phase_stat_fish's command line: {files}")
+        for rel in files:
+            check(read_bytes(os.path.join(ann, rel)) == read_bytes(os.path.join(ref_ann, rel)), f"tf models: stat_fish's {rel} bytes != phase_stat_fish's")
+        os.chdir(work)  # models/nuset.npz
+        K.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": os.path.join(work, "inproc"), "scale": 1, "use_min_cut": True,
+                                                                 "nuclei_size_T": STAT_FISH_T}}), device="cuda")
+            inproc_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launches = dict(K.LAUNCHES)
+        check(rc == 0, f"tf models: in-process stat_fish.main returned {rc}")
+        check(launches["label"] == STAT_FISH_LABELS_PER_IMAGE * len(names), f"tf models: B2 launched {launches['label']} times")
+        check(1 <= launches["flood_border"] <= len(names), f"tf models: B3 launched {launches['flood_border']} times")
+        check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border")), f"tf models: stat_fish launched {launches}")
+        check(read_bytes(os.path.join(work, "inproc", "annotated", "stat_fish_lsq.csv")) == read_bytes(os.path.join(ref_ann, "stat_fish_lsq.csv")),
+              "tf models: the in-process stat_fish CSV != phase_stat_fish's")
+        print(f"stat_fish from the converted nuset.npz: python -m ecseg_torch.pipelines.stat_fish {stat_fish_s:.2f} s on {len(names)} "
+              f"images of {SIZE}x{SIZE}, {len(files)} files byte-equal to phase_stat_fish's command line; in-process {inproc_s:.3f} s, "
+              f"launches {({k: v for k, v in launches.items() if v})} [{card}]", flush=True)
+
+        # interseg: SavedModels -> interseg_models/*.h5
+        sm_bytes, convert_h5_s = {}, {}
+        for name, cfg, t in (("interseg", ecseg_i_keras_config(), demo_ecseg_i_tree()), ("ecseg_c", ecseg_c_keras_config(), demo_ecseg_c_tree())):
+            sm_bytes[name] = write_keras_savedmodel(os.path.join(work, "savedmodels", name), cfg, classifier_keras_weights(t))
+            os.makedirs(os.path.join(work, "interseg_models"), exist_ok=True)
+            h5 = os.path.join("interseg_models", f"{name}.h5")
+            proc, convert_h5_s[name] = command("ecseg_torch.convert_savedmodel", os.path.join("savedmodels", name), h5)
+            check(proc.stdout == f"wrote {h5}\n", f"convert_savedmodel printed {proc.stdout!r}")
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            f.write("interseg:\n  inpath: ./imgs\n  FISH_color: red\n  has_centromeric_probe: True\n")
+        proc, interseg_s = command("ecseg_torch.pipelines.interseg")
+        for name in ("interseg", "ecseg_c"):
+            check(f"[ecseg] loading model {os.path.join('interseg_models', name + '.h5')}" in proc.stderr,
+                  f"tf models: interseg did not load {name}.h5:\n{proc.stderr[-2000:]}")
+        csv = read_bytes(os.path.join(work, "imgs", "interphase_prediction_red.csv"))
+        check(csv == read_bytes(os.path.join(ref, "interphase_prediction_red.csv")), "tf models: interseg's CSV bytes != phase_keras_h5's")
+        out = {"nuset_ckpt_bytes": ckpt_bytes, "nuset_write_s": write_s, "convert_tf1_ckpt_s": convert_s, "stat_fish_cli_s": stat_fish_s,
+               "stat_fish_inproc_s": inproc_s, "files_compared": len(files), "launches": {k: v for k, v in launches.items() if v},
+               "savedmodel_bytes": sm_bytes, "convert_savedmodel_s": convert_h5_s, "interseg_cli_s": interseg_s,
+               "csv_rows": csv.decode().count("\n") - 1, "phase_s": time.perf_counter() - phase_t0}
+        print(f"interseg from SavedModels (interseg {sm_bytes['interseg']} bytes, ecseg_c {sm_bytes['ecseg_c']}): python -m "
+              f"ecseg_torch.convert_savedmodel {convert_h5_s['interseg']:.2f} s and {convert_h5_s['ecseg_c']:.2f} s (host only), python -m "
+              f"ecseg_torch.pipelines.interseg {interseg_s:.2f} s, {out['csv_rows']} CSV rows byte-equal to phase_keras_h5's; "
+              f"phase_tf_models: {out['phase_s']:.1f} s [{card}]", flush=True)
+        results["tf_models"] = out
+    finally:
+        os.chdir(cwd)
+        for d in (work, os.path.dirname(ref)):
             shutil.rmtree(d, ignore_errors=True)
 
 
@@ -3786,6 +4041,7 @@ def main() -> int:
     phase_quant(args, dev, results)  # its own generator
     phase_keras_import(args, dev, results)
     phase_keras_h5(args, dev, results)  # draws no numbers: the main path's and interseg's folders
+    phase_tf_models(args, dev, results)  # draws no numbers: stat_fish's folder and seeded trees
     phase_train(args, dev, results)
     torch.cuda.empty_cache()  # the demo's command lines share the card
     phase_demo(results)  # README's demo: command lines, and in-process on a copy
@@ -3794,6 +4050,7 @@ def main() -> int:
         key = {"label": "label", "flood_from_border": "flood_border"}.get(row["name"])
         if key:
             row["stat_fish"] = results["stat_fish_kernels"][key]
+            row["tf_models_launches"] = results["tf_models"]["launches"].get(key, 0)  # stat_fish from the converted checkpoints
         # the demo path's launches (its in-process run), beside the main path's
         row["demo_launches"] = sum(ln.get(wrapper_key.get(row["name"]), 0) for ln in results["demo"]["launches"].values())
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
@@ -3803,6 +4060,7 @@ def main() -> int:
     print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
     print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))
     print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "keras_h5": results["keras_h5"], "card": smi}))
+    print(json.dumps({"tf_models": results["tf_models"], "card": smi}))
     print(json.dumps({"train": results["train"], "card": smi}))
     print(json.dumps({"multidevice": results["multidevice"], "card": smi}))
     print(json.dumps({"bench": results["bench"], "card": smi}))

@@ -1,7 +1,9 @@
-"""Read-only HDF5 in plain Python and numpy (the port's stand-in for h5py,
-as ``config.py`` stands in for PyYAML): what the imported-Keras executor
-reads of a Keras ``.h5`` save or of a ``.keras`` archive's
-``model.weights.h5``, returned as h5py returns it.
+"""HDF5 in plain Python and numpy (the port's stand-in for h5py, as
+``config.py`` stands in for PyYAML): what the imported-Keras executor reads
+of a Keras ``.h5`` save or of a ``.keras`` archive's ``model.weights.h5``,
+returned as h5py returns it, and a minimal writer of the legacy Keras
+``.h5`` layout (:func:`write_keras_h5`, at the end), which
+``python -m ecseg_torch.convert_savedmodel`` writes.
 
 Reads the files that h5py writes under its default ``libver`` (and that
 Keras 2 and 3 write): superblock v0/v1 (any sizes of offsets and lengths, a
@@ -34,7 +36,9 @@ A file that is not HDF5, or is cut short or corrupt where it is read, raises
 from __future__ import annotations
 
 import io
+import json
 import os
+import struct
 import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -793,3 +797,141 @@ class File(Group):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# --- a minimal writer: the legacy Keras save as TF-Keras 2 writes it -------
+#
+# Superblock v0 (8-byte offsets and lengths), version 1 object headers,
+# groups as symbol tables (one B-tree leaf over SNODs of 8 entries, names in
+# a local heap), contiguous little-endian float datasets, and attributes of
+# fixed-length strings (scalar or array) and float arrays: files that h5py
+# and this module's reader read alike.
+
+_H5_UNDEF = b"\xff" * 8
+_H5_SNOD_ENTRIES = 8  # 2 x the group leaf node K (4)
+_H5_BTREE_CHILDREN = 32  # 2 x the group internal node K (16)
+_H5_FLOAT = {  # dtype -> the datatype message's bit fields and properties
+    "<f4": (b"\x20\x1f\x00", struct.pack("<HHBBBBI", 0, 32, 23, 8, 0, 23, 127)),
+    "<f8": (b"\x20\x3f\x00", struct.pack("<HHBBBBI", 0, 64, 52, 11, 0, 52, 1023)),
+}
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+class _H5Out:
+    """The file's bytes, each object 8-byte aligned."""
+
+    def __init__(self):
+        self.buf = bytearray(96)  # the superblock, written last
+
+    def put(self, data: bytes) -> int:
+        addr = len(self.buf)
+        self.buf += _pad8(data)
+        return addr
+
+    def header(self, messages) -> int:
+        """A version 1 object header of ``messages`` [(type, body)]."""
+        body = b"".join(struct.pack("<HHB3x", t, len(_pad8(m)), 0) + _pad8(m) for t, m in messages)
+        return self.put(struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body)
+
+
+def _h5_type_space(value):
+    """(datatype message, dataspace message, raw data) of an attribute or
+    dataset value: bytes (a fixed-length string scalar), a list of bytes (a
+    fixed-length string array) or a float32/float64 array."""
+    if isinstance(value, bytes) or (isinstance(value, list) and all(isinstance(v, bytes) for v in value)):
+        arr = np.array(value, dtype=f"S{max([len(v) for v in np.atleast_1d(value)] + [1])}")
+        dtype = b"\x13\x01\x00\x00" + struct.pack("<I", arr.dtype.itemsize)  # null-padded ASCII, as numpy's S
+    else:
+        arr = np.ascontiguousarray(value)
+        if arr.dtype.str not in _H5_FLOAT:
+            raise NotImplementedError(f"HDF5 writer: {arr.dtype} values (float32, float64 and strings are written)")
+        bits, props = _H5_FLOAT[arr.dtype.str]
+        dtype = b"\x11" + bits + struct.pack("<I", arr.dtype.itemsize) + props
+    space = struct.pack("<BBBB4x", 1, arr.ndim, 0, 0) + b"".join(struct.pack("<Q", n) for n in arr.shape)
+    return dtype, space, arr.tobytes()
+
+
+def _h5_attribute(name: str, value) -> bytes:
+    dtype, space, data = _h5_type_space(value)
+    key = name.encode() + b"\0"
+    return struct.pack("<BBHHH", 1, 0, len(key), len(dtype), len(space)) + _pad8(key) + _pad8(dtype) + _pad8(space) + data
+
+
+def _h5_object(out: _H5Out, node) -> tuple:
+    """Writes ``node`` (a numpy array: a dataset; a dict: a group, its
+    attributes under the key ``"@attrs"``) and returns (object header
+    address, symbol table entry's cache type and scratch-pad)."""
+    if isinstance(node, np.ndarray):
+        dtype, space, data = _h5_type_space(node)
+        layout = struct.pack("<BBQQ", 3, 1, out.put(data), len(data))  # contiguous
+        return out.header([(0x01, space), (0x03, dtype), (0x08, layout)]), 0, bytes(16)
+    attrs = node.get("@attrs", {})
+    members = sorted(((k.encode(), v) for k, v in node.items() if k != "@attrs"), key=lambda kv: kv[0])
+    if len(members) > _H5_SNOD_ENTRIES * _H5_BTREE_CHILDREN:
+        raise ValueError(f"a group of {len(members)} members needs a B-tree of two levels")
+    entries = [(name, _h5_object(out, v)) for name, v in members]
+    names, offsets = bytearray(8), []  # offset 0: the empty name
+    for name, _ in entries:
+        offsets.append(len(names))
+        names += _pad8(name + b"\0")
+    heap = out.put(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(names), 1, out.put(bytes(names))))  # free list: none (1)
+    keys, children = [0], []
+    for k in range(0, len(entries), _H5_SNOD_ENTRIES):
+        group = entries[k : k + _H5_SNOD_ENTRIES]
+        body = b"".join(struct.pack("<QQI4x", offsets[k + j], addr, cache) + scratch for j, (_, (addr, cache, scratch)) in enumerate(group))
+        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(group)) + body
+        children.append(out.put(snod + bytes(8 + _H5_SNOD_ENTRIES * 40 - len(snod))))
+        keys.append(offsets[k + len(group) - 1])
+    tree = b"TREE" + struct.pack("<BBH", 0, 0, len(children)) + _H5_UNDEF * 2 + struct.pack("<Q", keys[0])
+    tree += b"".join(struct.pack("<QQ", c, key) for c, key in zip(children, keys[1:]))
+    btree = out.put(tree + bytes(24 + 8 * (2 * _H5_BTREE_CHILDREN + 1) - len(tree)))
+    messages = [(0x11, struct.pack("<QQ", btree, heap))] + [(0x0C, _h5_attribute(k, v)) for k, v in attrs.items()]
+    return out.header(messages), 1, struct.pack("<QQ", btree, heap)
+
+
+def write_h5(path: str, root: dict) -> int:
+    """Writes the group tree ``root`` (see ``_h5_object``) as an HDF5 file;
+    returns its size in bytes."""
+    out = _H5Out()
+    addr, cache, scratch = _h5_object(out, root)
+    out.buf[:96] = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + struct.pack("<HHI", 4, 16, 0)
+                    + struct.pack("<Q", 0) + _H5_UNDEF + struct.pack("<Q", len(out.buf)) + _H5_UNDEF
+                    + struct.pack("<QQI4x", 0, addr, cache) + scratch)
+    with open(path, "wb") as f:
+        f.write(out.buf)
+    return len(out.buf)
+
+
+def write_keras_h5(path: str, config: dict, weights: dict, layer_names: Optional[List[str]] = None,
+                   keras_version: str = "2.15.0", backend: str = "tensorflow") -> int:
+    """A legacy Keras whole-model save as TF-Keras 2 writes it: the root's
+    ``model_config`` (``config``, JSON), ``keras_version`` and ``backend``;
+    ``model_weights`` with ``layer_names`` (``layer_names``, by default
+    every layer of ``config``) and a group a layer holding its
+    ``weight_names`` and its datasets at those names' paths.  ``weights``
+    maps a layer's name to its weights in Keras's order: a dict of Keras
+    weight names (``conv/kernel:0``; a nested model's are its layers',
+    ``subconv/kernel:0``) to arrays, kept as they are, or a list of
+    arrays, named ``<layer>/kernel:0`` and ``<layer>/bias:0`` and written
+    as float32.  A layer not in ``weights`` has none.  Returns the file's
+    size in bytes."""
+    meta = {"keras_version": keras_version.encode(), "backend": backend.encode()}
+    if layer_names is None:
+        layer_names = [lc["config"]["name"] for lc in config["config"]["layers"]]
+    model_weights = {"@attrs": {**meta, "layer_names": [n.encode() for n in layer_names]}}
+    for name in layer_names:
+        held = weights.get(name, [])
+        if isinstance(held, list):
+            held = {f"{name}/{w}:0": np.ascontiguousarray(a, np.float32) for w, a in zip(("kernel", "bias"), held)}
+        group = model_weights[name] = {"@attrs": {"weight_names": [w.encode() for w in held] if held else np.zeros((0,))}}
+        for wname, array in held.items():
+            *parents, leaf = wname.split("/")
+            node = group
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.ascontiguousarray(array)
+    root = {"@attrs": {**meta, "model_config": json.dumps(config).encode()}, "model_weights": model_weights}
+    return write_h5(path, root)

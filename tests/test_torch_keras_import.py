@@ -16,7 +16,7 @@ on the CPU).  The port reads every file with its own HDF5 reader
 configs of the metaseg U-Net, ecSeg-i and ecSeg-c, through its dict-backed
 fetcher, against ``MetasegUNet``, ``EcsegI`` and ``EcsegC`` at small
 widths; Keras 3.13's own saves (``tests/fixtures/keras3_small.*``) through
-both executors; files written by chip_smoke's HDF5 writer, read alike by
+both executors; files written by core/hdf5.py's writer, read alike by
 h5py and the port's reader and run alike by both executors; and
 ``metaseg.main`` from such a ``metaseg.h5`` against the same weights'
 ``metaseg.npz``, byte for byte."""
@@ -33,6 +33,7 @@ import torch
 
 import chip_smoke
 from ecseg_tpu.models import keras_import as jk
+from ecseg_torch.core.hdf5 import write_keras_h5
 from ecseg_torch.models import keras_import as tk
 
 from _torchutil import single_torch_thread  # noqa: F401 (autouse fixture)
@@ -459,7 +460,7 @@ def test_chip_smoke_ecseg_c_config_matches_ecseg_c():
     assert torch.equal(got > 0.5, want > 0.5)
 
 
-# --- files: Keras 3's own saves and chip_smoke's HDF5 writer ----------------
+# --- files: Keras 3's own saves and core/hdf5.py's writer ----------------
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
@@ -492,7 +493,7 @@ def _writer_cases():
 
 @pytest.mark.parametrize("case", ["unet", "ecseg_i"])
 def test_chip_smoke_h5_writer_files_read_alike(tmp_path, case):
-    """``chip_smoke.write_keras_h5`` (the legacy layout TF-Keras 2 writes):
+    """``hdf5.write_keras_h5`` (the legacy layout TF-Keras 2 writes):
     h5py and the port's reader give the same attributes and arrays, the
     arrays those written; the JAX executor on the file matches the
     port's."""
@@ -500,7 +501,7 @@ def test_chip_smoke_h5_writer_files_read_alike(tmp_path, case):
 
     cfg, weights, x = _writer_cases()[case]
     path = str(tmp_path / "m.h5")
-    size = chip_smoke.write_keras_h5(path, cfg, weights)
+    size = write_keras_h5(path, cfg, weights)
     assert size == os.path.getsize(path)
     with h5py.File(path, "r") as f, hdf5.File(path) as r:
         assert json.loads(f.attrs["model_config"]) == json.loads(r.attrs["model_config"]) == cfg
@@ -522,7 +523,7 @@ def test_chip_smoke_h5_writer_files_read_alike(tmp_path, case):
 
 def test_metaseg_main_from_h5_writes_the_npz_runs_bytes(tmp_path, monkeypatch):
     """``metaseg.main(device="cpu")`` on a folder, once with
-    ``models/metaseg.h5`` (chip_smoke's writer, the crafted (8, 16) U-Net)
+    ``models/metaseg.h5`` (core/hdf5.py's writer, the crafted (8, 16) U-Net)
     and once with ``models/metaseg.npz`` of the same weights: the same
     ``labels/*.npy``, ``labels/*.png`` and CSV bytes."""
     from ecseg_torch.core.config import Config
@@ -537,7 +538,7 @@ def test_metaseg_main_from_h5_writes_the_npz_runs_bytes(tmp_path, monkeypatch):
         work = tmp_path / kind
         os.makedirs(work / "models")
         if kind == "h5":
-            chip_smoke.write_keras_h5(str(work / "models" / "metaseg.h5"), chip_smoke.unet_keras_config((8, 16), 32, 4), chip_smoke.unet_keras_weights(tree))
+            write_keras_h5(str(work / "models" / "metaseg.h5"), chip_smoke.unet_keras_config((8, 16), 32, 4), chip_smoke.unet_keras_weights(tree))
         else:
             save_npz(str(work / "models" / "metaseg.npz"), tree)
         _make_folder(str(work / "imgs"))

@@ -4,6 +4,9 @@
   and no module imports cv2, pandas, yaml or h5py when it loads (h5py only
   inside the Keras readers); stat_fish and interseg run from their
   config.yaml with the first five unimportable;
+- the TensorFlow weight converters and the readers they stand on import
+  no tensorflow, tf_keras, keras, h5py or jax, and both converters run
+  with those unimportable;
 - an entry point given no device raises when there is no CUDA device;
 - a kernel wrapper given a tensor that is neither on the CPU nor on a CUDA
   device raises, and never falls back to its plain twin;
@@ -64,6 +67,49 @@ def test_no_jax_or_reference_import_in_source(path):
             continue
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "ecseg_tpu"), (path, name)
+
+
+CONVERTER_FILES = ["ecseg_torch/convert_tf1_ckpt.py", "ecseg_torch/convert_savedmodel.py", "ecseg_torch/core/tfbundle.py",
+                   "ecseg_torch/core/hdf5.py"]
+TF_STACK = ("tensorflow", "tf_keras", "keras", "h5py", "jax", "jaxlib", "ecseg_tpu")
+
+
+@pytest.mark.parametrize("rel", CONVERTER_FILES)
+def test_converters_import_no_tensorflow_keras_h5py_or_jax(rel):
+    tree = ast.parse((REPO / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in TF_STACK, (rel, name)
+
+
+@pytest.mark.parametrize("module, args, out", [
+    ("ecseg_torch.convert_tf1_ckpt", ["nuset", "{tmp}/nuset.npz"], "nuset.npz"),
+    ("ecseg_torch.convert_savedmodel", ["func", "{tmp}/func.h5"], "func.h5"),
+])
+def test_converters_run_without_tensorflow_keras_h5py_or_jax(tmp_path, module, args, out):
+    """``python -m`` each converter as the card's machine runs it, in a
+    process where TensorFlow, TF-Keras, Keras, h5py and JAX cannot be
+    imported, on the TensorFlow-written fixtures: exit code 0 and the
+    file written."""
+    fix = REPO / "tests" / "fixtures" / "tf"
+    code = f"""
+import runpy, sys
+for name in {TF_STACK!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+sys.argv = [{module!r}] + {[a.format(tmp=tmp_path) for a in args]!r}
+runpy.run_module({module!r}, run_name="__main__")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=fix, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout == f"wrote {tmp_path / out}\n" and (tmp_path / out).stat().st_size > 10000
 
 
 def test_main_without_device_raises_without_cuda(tmp_path):
