@@ -125,8 +125,9 @@ Phases (any failure raises; exit code 0 only when all pass):
    counts on 2 tiles equal to the same program through the kernels' plain
    twins on the card; ``python3 -m ecseg_torch.bench_stat_fish 3`` (exit
    code 0, one JSON line);
-6. after every profiler timing (once stat_fish has run, ``torch.profiler``
-   drops device records of short windows on the card): ``make stat_fish`` as a user runs
+6. after every profiler timing (once the card has idled through long host
+   work, as in stat_fish's tail, ``torch.profiler`` drops the device records
+   of short windows: ``runtime/devtime.py``): ``make stat_fish`` as a user runs
    it (``phase_stat_fish``): ``python3 -m ecseg_torch.pipelines.stat_fish``
    and ``stat_fish.main`` in-process (launch counters set to 0 just before,
    read just after: four B2 an image and one B3 a watershed with markers)
@@ -144,7 +145,11 @@ Phases (any failure raises; exit code 0 only when all pass):
    count, B3 launched once (``on``) or twice (``check``) a watershed with
    markers, and each mode's ms; ``stat_fish.main`` in-process under
    ``ECSEG_FAST_WATERSHED=host`` on a copy of the inputs: CSV and ``.npy``
-   bytes and TIFF pixels equal to the default run's, no B3 launch; the
+   bytes and TIFF pixels equal to the default run's, no B3 launch; and
+   under ``ECSEG_DEVICE_PIPELINE=0`` (the host watershed, cleanup and
+   matched filter: the branch pair whose artifacts the JAX repo's
+   ``scripts/parity_tpu.py`` compares) on another copy: the same bytes, no
+   kernel launched; the
    certified watershed with hand-placed proposals equals the host flood
    when clean.  Times: the
    stage table, images/s, the XLA-side ops, one profiler pass (device busy
@@ -209,7 +214,13 @@ Phases (any failure raises; exit code 0 only when all pass):
    ``python3 -m ecseg_torch.pipelines.metaseg`` (B1-B6 launches, labels
    equal to the host oracle); ms a step, TFLOP/s and peak memory in
    float32, bf16 and both with remat, and the host's crop and copy time.
-   Last, README's end-to-end demo through the port (``phase_demo``): in an
+   Then the on-chip studies (``phase_studies``): ``python3 -m
+   ecseg_torch.<study>`` for the six of ``STUDIES`` at once (and
+   ``profile_meta_post`` under ``ECSEG_MC_MERGE=1``), at small sizes: exit
+   codes 0, each JSON line naming this card with a timed row a
+   block, the kernels each must launch (``profile_layers`` none), and
+   ``quantify_watershed_divergence``'s lines on 2 cases equal to its run on
+   the CPU.  Last, README's end-to-end demo through the port (``phase_demo``): in an
    empty directory with the repository's ``config.yaml``, ``python3 -m
    ecseg_torch.make_demo_weights`` and the five task command lines in
    README's order (stat_fish under ``ECSEG_TRACE=1 ECSEG_TRACE_DIR``):
@@ -220,7 +231,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    copy (launch counters set to 0 just before each, read just after:
    ``DEMO_LAUNCHES``), byte-equal to the command lines; each command's
    wall;
-7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"tf_models": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``, ``{"demo": ...}``,
+7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"tf_models": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``, ``{"demo": ...}``, ``{"studies": ...}``,
    ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
@@ -242,6 +253,8 @@ import time
 
 import numpy as np
 import torch
+
+from ecseg_torch.runtime.devtime import card, cuda_ms, device_kernels, device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (the timed B10/B11 rows are bf16)
@@ -404,91 +417,6 @@ def bench_stage_launches(stage: str):
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError("chip_smoke check failed: " + msg)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def device_ms(fn, reps: int, tries: int = 5, kernel: str | None = None, event_ms: float | None = None):
-    """Mean device-only time of ``fn`` (the sum of its kernels and memsets)
-    from one ``torch.profiler`` pass over ``reps`` calls after one warm-up.
-    Each wrapper launches the same device operations on every call, so a
-    complete pass records every operation name ``reps`` times as often as
-    one profiled call does.  A pass that lost records is repeated, and
-    ``tries`` incomplete passes raise.  The pass traces the device only.
-
-    With ``kernel`` (a substring of the wrapper's own kernel's name) the
-    pass must have recorded that kernel, not only the wrapper's weight
-    casts and copies; returns (device ms, that kernel's device ms).  With
-    ``event_ms`` (the CUDA-event mean of the same calls) a pass whose
-    device sum differs from it by more than 25 % is repeated too, and the
-    last one is kept, with a line that gives both numbers."""
-    from collections import Counter
-
-    from torch.profiler import ProfilerActivity, profile
-
-    def names(calls):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # the trace often loses the first kernel of its window: let that
-            # be a spin kernel, which is left out of the sums
-            torch.cuda._sleep(1000)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        ops = [
-            e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name
-        ]
-        return ops, Counter(e.name for e in ops)
-
-    fn()
-    torch.cuda.synchronize()
-    done = None
-    for _ in range(tries):
-        per_call = names(1)[1]
-        ops, per_name = names(reps)
-        if not (per_call and per_name == Counter({k: reps * v for k, v in per_call.items()})):
-            print(f"torch.profiler pass incomplete ({dict(per_name)} over {reps} calls, {dict(per_call)} in one); profiling again", flush=True)
-            continue
-        total = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / reps
-        if kernel is None:
-            return total
-        own = [e for e in ops if kernel in e.name]
-        check(own, f"the profiler recorded no kernel named *{kernel}* among {sorted(per_name)}")
-        done = (total, sum(e.time_range.elapsed_us() for e in own) / 1e3 / reps)
-        if event_ms is None or abs(total - event_ms) <= 0.25 * event_ms:
-            return done
-        print(f"device sum {total:.4f} ms vs CUDA-event mean {event_ms:.4f} ms differ by more than 25 %; profiling again", flush=True)
-    if done is not None:
-        print(f"device sum {done[0]:.4f} ms (kernel {done[1]:.4f} ms) and CUDA-event mean {event_ms:.4f} ms still differ after {tries} passes", flush=True)
-        return done
-    raise RuntimeError(f"chip_smoke check failed: {tries} torch.profiler passes lost device records")
-
-
-def device_kernels(fn):
-    """Names of the device operations of one call of ``fn`` (one
-    ``torch.profiler`` pass after a warm-up; a spin kernel opens the window,
-    as in ``device_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        fn()
-        torch.cuda.synchronize()
-    return sorted(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name)
 
 
 @contextlib.contextmanager
@@ -1567,41 +1495,52 @@ def phase_stat_fish(args, rng, dev, errors, results):
 
         marks["in-process run and output checks"] = time.perf_counter() - phase_t0
 
-        # ECSEG_FAST_WATERSHED=host on a copy of the inputs: the default run's
-        # bytes, no B3 launch (only the watershed launches B3 in stat_fish)
-        host_ws = os.path.join(work, "host_ws")
-        os.makedirs(host_ws)
-        for name in names:
-            shutil.copy(os.path.join(inproc, name), host_ws)
-        os.chdir(work)
-        tracer.enabled = True
-        tracer.reset()
-        fallbacks.reset()
-        K.reset_launches()
-        try:
-            t0 = time.perf_counter()
-            with environ({"ECSEG_FAST_WATERSHED": "host"}):
-                rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": host_ws, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}), device="cuda")
-            host_wall = time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
-            tracer.enabled = False
-        host_launches = dict(K.LAUNCHES)
-        host_stages = tracer.times()
-        check(rc == 0 and fallbacks.counts() == {}, f"stat_fish under ECSEG_FAST_WATERSHED=host: rc {rc}, fallbacks {fallbacks.counts()}")
-        check(host_launches["flood_border"] == 0 and host_launches["label"] == launches["label"],
-              f"stat_fish under ECSEG_FAST_WATERSHED=host launched {host_launches}")
-        host_ann = os.path.join(host_ws, "annotated")
-        check(read_bytes(os.path.join(host_ann, "stat_fish_lsq.csv")) == csv[inproc], "ECSEG_FAST_WATERSHED=host: CSV bytes != the default run's")
-        for name in names:
-            stem = name[:-4]
-            for fname in sorted(os.listdir(os.path.join(ann[inproc], stem))):
-                a_, b_ = os.path.join(ann[inproc], stem, fname), os.path.join(host_ann, stem, fname)
-                if fname.endswith(".npy"):
-                    check(read_bytes(a_) == read_bytes(b_), f"ECSEG_FAST_WATERSHED=host: {fname} bytes != the default run's")
-                else:
-                    check(np.array_equal(imgio.imread_rgb(a_), imgio.imread_rgb(b_)), f"ECSEG_FAST_WATERSHED=host: {fname} pixels != the default run's")
-        print(f"stat_fish under ECSEG_FAST_WATERSHED=host: {host_wall:.3f} s, no B3 launch, CSV, .npy and TIFFs equal the default run's", flush=True)
+        # on copies of the inputs, the default run's bytes: ECSEG_FAST_WATERSHED=host
+        # (no B3 launch: only the watershed launches B3 in stat_fish), and
+        # ECSEG_DEVICE_PIPELINE=0 (the host watershed, cleanup and matched
+        # filter: no kernel launch), the branch pair the JAX repo's
+        # scripts/parity_tpu.py compares stat_fish's artifacts under
+        host_walls = {}
+        for tag, env in (("ECSEG_FAST_WATERSHED=host", {"ECSEG_FAST_WATERSHED": "host"}),
+                         ("ECSEG_DEVICE_PIPELINE=0", {"ECSEG_DEVICE_PIPELINE": "0", "ECSEG_FAST_WATERSHED": None})):
+            copy_dir = os.path.join(work, "host_" + tag.split("=")[0].lower())
+            os.makedirs(copy_dir)
+            for name in names:
+                shutil.copy(os.path.join(inproc, name), copy_dir)
+            os.chdir(work)
+            tracer.enabled = True
+            tracer.reset()
+            fallbacks.reset()
+            K.reset_launches()
+            try:
+                t0 = time.perf_counter()
+                with environ(env):
+                    rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": copy_dir, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}), device="cuda")
+                host_walls[tag] = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+                tracer.enabled = False
+            host_launches = dict(K.LAUNCHES)
+            check(rc == 0 and fallbacks.counts() == {}, f"stat_fish under {tag}: rc {rc}, fallbacks {fallbacks.counts()}")
+            if tag.startswith("ECSEG_FAST_WATERSHED"):
+                host_stages = tracer.times()
+                check(host_launches["flood_border"] == 0 and host_launches["label"] == launches["label"],
+                      f"stat_fish under {tag} launched {host_launches}")
+            else:
+                check(not any(host_launches.values()), f"stat_fish under {tag} launched {host_launches}")
+            host_ann = os.path.join(copy_dir, "annotated")
+            check(read_bytes(os.path.join(host_ann, "stat_fish_lsq.csv")) == csv[inproc], f"{tag}: CSV bytes != the default run's")
+            for name in names:
+                stem = name[:-4]
+                for fname in sorted(os.listdir(os.path.join(ann[inproc], stem))):
+                    a_, b_ = os.path.join(ann[inproc], stem, fname), os.path.join(host_ann, stem, fname)
+                    if fname.endswith(".npy"):
+                        check(read_bytes(a_) == read_bytes(b_), f"{tag}: {fname} bytes != the default run's")
+                    else:
+                        check(np.array_equal(imgio.imread_rgb(a_), imgio.imread_rgb(b_)), f"{tag}: {fname} pixels != the default run's")
+            print(f"stat_fish under {tag}: {host_walls[tag]:.3f} s, launches {({k: v for k, v in host_launches.items() if v})}, "
+                  "CSV, .npy and TIFFs equal the default run's", flush=True)
+        host_wall = host_walls["ECSEG_FAST_WATERSHED=host"]
         marks["host watershed run"] = time.perf_counter() - phase_t0
 
         # stage by stage on image 0 and a 900x700 crop of it
@@ -1761,6 +1700,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
             "csv_rows": len(rows) - 1, "files_compared": n_files, "stage_checks": stage_checks, "hand_placed_watershed": cert,
             "xla_side_ms": xla_side, "profile": profile_pass, "phase_marks_s": marks,
             "host_watershed": {"wall_s": host_wall, "images_per_s": len(names) / host_wall, "watershed_s": host_stages.get("stat_fish.watershed", [])},
+            "device_pipeline_0_wall_s": host_walls["ECSEG_DEVICE_PIPELINE=0"],
         }
         print(
             f"stat_fish: command line {cli_s:.2f} s for {len(names)} images ({len(names) / cli_s:.3f} images/s, process start included); "
@@ -3292,6 +3232,81 @@ def phase_train(args, dev, results):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+STUDIES = {  # run -> (module, its arguments here, its environment, the kernels it must have launched)
+    "profile_meta_post": ("profile_meta_post", ["2", "--size", "1024"], {},
+                          {"label", "flood_border", "flood_seeds", "label_mc", "flood_mc"}),
+    "profile_meta_post ECSEG_MC_MERGE=1": ("profile_meta_post", ["1", "--size", "1024"], {"ECSEG_MC_MERGE": "1"},
+                                           {"label", "flood_border", "label_flood", "label_mc", "flood_mc"}),
+    "profile_metaseg_2048": ("profile_metaseg_2048", ["--size", "1024", "--reps", "1"], {},
+                             {"stitch", "label", "flood_border", "flood_seeds", "label_mc", "flood_mc"}),
+    "profile_layers": ("profile_layers", ["--n", "2", "--reps", "10"], {}, set()),
+    "profile_nuclei_segment": ("profile_nuclei_segment", ["--size", "1024", "--reps", "1"], {}, {"label"}),
+    "profile_fast_watershed": ("profile_fast_watershed", ["--reps", "1"], {}, {"flood_border"}),
+    "quantify_watershed_divergence": ("quantify_watershed_divergence", ["2"], {}, {"flood_border"}),
+}
+STUDIES_TIMEOUT_S = 180  # each study's command line
+
+
+def phase_studies(results):
+    """The on-chip studies as a user runs them: ``python3 -m
+    ecseg_torch.<study>`` for each of ``STUDIES`` (the six, and
+    ``profile_meta_post`` again under ``ECSEG_MC_MERGE=1`` for B9), all at
+    once (one process each, as ``torch.profiler`` needs), at small sizes,
+    in an empty working directory.  Checks: exit code 0; the last line of each is its
+    JSON line, naming this card and holding a row a block with its times;
+    the kernels of ``STUDIES`` launched (``profile_layers`` none);
+    ``quantify_watershed_divergence`` on 2 cases prints the same lines and
+    numbers as its run on the CPU here (in-process, while the card runs)."""
+    import io
+
+    from ecseg_torch import quantify_watershed_divergence
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        procs = {
+            run: subprocess.Popen([sys.executable, "-m", f"ecseg_torch.{module}", *args], cwd=work, env={**env, **extra},
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for run, (module, args, extra, _) in STUDIES.items()
+        }
+        cpu_out = io.StringIO()
+        with contextlib.redirect_stdout(cpu_out):
+            check(quantify_watershed_divergence.main(STUDIES["quantify_watershed_divergence"][1], device="cpu") == 0,
+                  "quantify_watershed_divergence on the CPU")
+        outs, ended = {}, {}
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=STUDIES_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for p in procs.values():
+                    p.kill()
+                    p.communicate()
+                raise
+            check(proc.returncode == 0, f"python3 -m ecseg_torch.{name} exit code {proc.returncode}: {err[-3000:]}")
+            outs[name] = out
+            ended[name] = round(time.perf_counter() - t0, 1)  # an upper bound: the runs are read in turn
+    wall = time.perf_counter() - t0
+    summary = {"wall_s": round(wall, 1)}
+    for name, out in outs.items():
+        line = json.loads(out.strip().splitlines()[-1])
+        check(line["study"] == STUDIES[name][0] and line["card"] == results["card"], f"{name}'s JSON line names {line.get('card')}")
+        check(line["rows"] and all(r["wall_ms"] is not None for r in line["rows"] if not r["name"].startswith("case ")),
+              f"{name}: a row without its time")
+        want = STUDIES[name][3]
+        check(set(line["launches"]) >= want and (want or not line["launches"]),
+              f"{name} launched {line['launches']}, expected {sorted(want)}")
+        summary[name] = {"rows": len(line["rows"]), "launches": line["launches"], "ended_s": ended[name],
+                         "device_not_measured": [r["name"] for r in line["rows"] if "device_not_measured" in r]}
+    card_lines = [ln for ln in outs["quantify_watershed_divergence"].splitlines() if not ln.startswith("{") and ln != results["card"]]
+    cpu_lines = [ln for ln in cpu_out.getvalue().splitlines() if not ln.startswith("{")]
+    check(card_lines == cpu_lines, f"quantify_watershed_divergence: the card's lines {card_lines} differ from the CPU's {cpu_lines}")
+    summary["quantify_summary"] = json.loads(outs["quantify_watershed_divergence"].strip().splitlines()[-1])["summary"]
+    print(f"phase_studies: {wall:.1f} s, {len(STUDIES)} study runs at once; launches "
+          f"{ {name: summary[name]['launches'] for name in STUDIES} }; quantify_watershed_divergence equal on the card and the CPU", flush=True)
+    results["studies"] = summary
+
+
 DEMO_TASKS = ("metaseg", "meta_overlay", "stat_fish", "interseg", "fish_distance")  # README's demo, in its order
 DEMO_SWITCHES = {"ECSEG_STAT_FISH_TAIL_WORKERS": "3", "ECSEG_TIF_LZW": "1", "ECSEG_NO_NATIVE": "1"}
 # the kernel launches of each demo task on its one image; stat_fish's demo
@@ -4002,10 +4017,7 @@ def main() -> int:
     from ecseg_torch.ops import cc_kernels as K
     from ecseg_torch.ops import tiling
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
@@ -4032,9 +4044,9 @@ def main() -> int:
     per_tile = phase_tile_count(K, dev, results)
     rows += tile_rows(K, dev, errors, results)
     phase_bench(dev, results)
-    # after every profiler timing: once stat_fish has run, torch.profiler on
-    # the card drops device records of short windows (observed on an H100
-    # with torch 2.11), and device_ms then fails
+    # after every profiler timing: once the card has idled through long host
+    # work (stat_fish's tail), torch.profiler drops the device records of
+    # short windows and device_ms fails (runtime/devtime.py)
     phase_stat_fish(args, np.random.default_rng(args.seed + 7), dev, errors, results)
     phase_interseg(dev, results)  # draws no numbers: stat_fish's outputs and the demo trees
     phase_multidevice(args, dev, results)  # draws no numbers: the earlier phases' folders
@@ -4043,7 +4055,8 @@ def main() -> int:
     phase_keras_h5(args, dev, results)  # draws no numbers: the main path's and interseg's folders
     phase_tf_models(args, dev, results)  # draws no numbers: stat_fish's folder and seeded trees
     phase_train(args, dev, results)
-    torch.cuda.empty_cache()  # the demo's command lines share the card
+    torch.cuda.empty_cache()  # the studies' and the demo's command lines share the card
+    phase_studies(results)  # draws no numbers: each study seeds its own
     phase_demo(results)  # README's demo: command lines, and in-process on a copy
     wrapper_key = {names[1]: key for key, names in ALL_KERNELS.items()}
     for row in rows:  # stat_fish's launches and times beside B2's and B3's metaseg rows
@@ -4065,6 +4078,7 @@ def main() -> int:
     print(json.dumps({"multidevice": results["multidevice"], "card": smi}))
     print(json.dumps({"bench": results["bench"], "card": smi}))
     print(json.dumps({"demo": results["demo"], "card": smi}))
+    print(json.dumps({"studies": results["studies"], "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

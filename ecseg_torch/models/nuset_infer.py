@@ -177,10 +177,15 @@ def cleanup_pass(mask: np.ndarray, out_hw: Tuple[int, int], nuclei_size_t, devic
     m = clean_image_gpu(torch.from_numpy(np.asarray(mask) != 0).to(device)).float()
     if tuple(out_hw) != tuple(m.shape):
         m = resize_linear_matmul(m, out_hw)
-    lo, hi = m.min(), m.max()
-    supp = ((m - lo) / (hi - lo) * 255.0 >= 1.0) & (hi > lo)
-    keep = remove_small_objects_gpu(supp, nuclei_size_t, connectivity=1)
+    keep = remove_small_objects_gpu(binarize(m), nuclei_size_t, connectivity=1)
     return keep.cpu().numpy().astype(np.uint8) * np.uint8(255)
+
+
+def binarize(m: torch.Tensor) -> torch.Tensor:
+    """The cleanup's min-max binarize of the resized float mask:
+    ``(m - lo) / (hi - lo) * 255 >= 1``, empty when hi == lo."""
+    lo, hi = m.min(), m.max()
+    return ((m - lo) / (hi - lo) * 255.0 >= 1.0) & (hi > lo)
 
 
 def nuclei_segment_prepare(image: np.ndarray, resize_scale: float):

@@ -85,6 +85,17 @@ def lex_flood(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor):
     return cost, pcost, lab, False
 
 
+def flood_inputs(mask: torch.Tensor, markers: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lex_flood`'s (image, markers) for a bool mask and int32 point
+    markers: ``-EDT^2`` of the mask with its holes filled (B3), and the
+    markers grey-dilated by disk(3) within the mask."""
+    markers = markers.to(torch.int32)
+    m = markers
+    for dy, dx in _offsets(disk(3).astype(bool)):
+        m = torch.maximum(m, _shift(markers, dy, dx, 0))
+    return -edt_sq(binary_fill_holes(mask)), torch.where(mask, m, 0)
+
+
 def nuset_fast_pass(pred_mask: torch.Tensor, markers: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """(contour AND mask, certificate) for a (H, W) bool mask and int32
     point markers (``_nuset_fast_pass``).  The line rule and the
@@ -95,13 +106,7 @@ def nuset_fast_pass(pred_mask: torch.Tensor, markers: torch.Tensor) -> Tuple[tor
     different labels, or a second argmin predecessor of another label, is
     uncertain."""
     mask = pred_mask.bool()
-    markers = markers.to(torch.int32)
-    m = markers
-    for dy, dx in _offsets(disk(3).astype(bool)):
-        m = torch.maximum(m, _shift(markers, dy, dx, 0))
-    m = torch.where(mask, m, 0)
-
-    img = -edt_sq(binary_fill_holes(mask))
+    img, m = flood_inputs(mask, markers)
     cost, pcost, lab, converged = lex_flood(img, m, mask)
     ismark = m > 0
     line = torch.zeros_like(mask)

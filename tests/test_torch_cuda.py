@@ -674,3 +674,17 @@ def test_logical_mesh_metaseg_equals_the_single_card_run(cuda, tmp_path, monkeyp
         assert launches["mesh"] == launches["card"] and launches["mesh"]["stitch"] == 5
     else:
         assert not any(launches["mesh"].values()) and launches["card"]["stitch"] == 5
+
+
+@pytest.mark.cuda
+def test_split_on_b2_at_2048_agrees_with_cuda_events(cuda):
+    """``runtime/devtime.split`` of B2 on a random 2048^2 mask: its device
+    time within 25 % of the CUDA-event mean of the same calls, one device
+    operation or more, no host sync."""
+    from ecseg_torch.runtime import devtime
+
+    mask = torch.from_numpy(np.random.default_rng(0).random((2048, 2048)) < 0.5).to(cuda)
+    event = devtime.cuda_ms(lambda: K.label(mask), 50)
+    s = devtime.split(lambda: K.label(mask), 50)
+    assert abs(s["device_ms"] - event) <= 0.25 * event, (s, event)
+    assert s["ops"] >= 1 and s["syncs"] == 0 and s["wall_ms"] > 0

@@ -1,6 +1,7 @@
 """Rules of the port (ecseg_torch) and its host I/O helpers:
 
 - no module of the package, nor chip_smoke.py, imports jax or ecseg_tpu,
+  and the on-chip studies and their timer import no chip_smoke either,
   and no module imports cv2, pandas, yaml or h5py when it loads (h5py only
   inside the Keras readers); stat_fish and interseg run from their
   config.yaml with the first five unimportable;
@@ -67,6 +68,27 @@ def test_no_jax_or_reference_import_in_source(path):
             continue
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "ecseg_tpu"), (path, name)
+
+
+STUDY_FILES = [f"ecseg_torch/{name}.py" for name in (
+    "profile_meta_post", "profile_metaseg_2048", "profile_layers", "profile_nuclei_segment", "profile_fast_watershed",
+    "quantify_watershed_divergence", "runtime/devtime", "runtime/study")]
+
+
+@pytest.mark.parametrize("rel", STUDY_FILES)
+def test_studies_import_no_jax_reference_or_chip_smoke(rel):
+    """The on-chip studies and their timer stand alone: no JAX, no
+    ecseg_tpu, and no chip_smoke (which imports its timers from them)."""
+    tree = ast.parse((REPO / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "ecseg_tpu", "chip_smoke"), (rel, name)
 
 
 CONVERTER_FILES = ["ecseg_torch/convert_tf1_ckpt.py", "ecseg_torch/convert_savedmodel.py", "ecseg_torch/core/tfbundle.py",
