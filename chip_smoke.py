@@ -214,6 +214,15 @@ Phases (any failure raises; exit code 0 only when all pass):
    ``python3 -m ecseg_torch.pipelines.metaseg`` (B1-B6 launches, labels
    equal to the host oracle); ms a step, TFLOP/s and peak memory in
    float32, bf16 and both with remat, and the host's crop and copy time.
+   Then the JAX repo's two model scripts (``phase_compare_archs``):
+   ``python3 -m ecseg_torch.compare_archs --steps 30 --n-train 2
+   --n-eval 1`` (two JSON lines, default then XL, with the script's keys;
+   IoUs and accuracy in [0, 1]; finite losses, the last below the first;
+   XL's ms a step), ``python3 -m ecseg_torch.roofline_forward`` for both
+   widths (closing lines equal to the sums of ``layers()``), and
+   ``compare_archs.evaluate`` in-process on one 1024^2 field (one B1
+   launch and nothing else; labels equal with ``stitch_plain`` and with
+   the CPU forward).
    Then the on-chip studies (``phase_studies``): ``python3 -m
    ecseg_torch.<study>`` for the six of ``STUDIES`` at once (and
    ``profile_meta_post`` under ``ECSEG_MC_MERGE=1``), at small sizes: exit
@@ -231,7 +240,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    copy (launch counters set to 0 just before each, read just after:
    ``DEMO_LAUNCHES``), byte-equal to the command lines; each command's
    wall;
-7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"tf_models": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``, ``{"demo": ...}``, ``{"studies": ...}``,
+7. print ``{"grouped": ..., "host_post": ..., "quant": ...}``, ``{"tf_models": ...}``, ``{"train": ...}``, ``{"compare_archs": ...}``, ``{"multidevice": ...}``, ``{"bench": ...}``, ``{"demo": ...}``, ``{"studies": ...}``,
    ``{"kernels": [...]}`` (B2's and B3's rows with their stat_fish
    launches and times) and, last, ``{"ok": true, "device": ...}``.
 """
@@ -254,10 +263,11 @@ import time
 import numpy as np
 import torch
 
+from ecseg_torch.peaks import H100, PEAKS
 from ecseg_torch.runtime.devtime import card, cuda_ms, device_kernels, device_ms
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (the timed B10/B11 rows are bf16)
+HBM_BYTES_PER_S = PEAKS[H100]["hbm_bytes_per_s"]
+BF16_FLOPS = PEAKS[H100]["bfloat16"]  # dense tensor-core peak (the timed B10/B11 rows are bf16)
 SIZE = 2048  # the main path's image side, the reference's image size
 # post-processing form -> the environment that selects it (the JAX
 # package's variables) and the kernel launches of one image through ``main``
@@ -3232,6 +3242,115 @@ def phase_train(args, dev, results):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+COMPARE_ARGS = ["--steps", "30", "--n-train", "2", "--n-eval", "1"]  # compare_archs' command line here
+COMPARE_KEYS = ["arch", "steps", "batch", "train_s", "iou_bg", "iou_nucleus", "iou_chromosome", "iou_ec", "mean_iou", "pixel_acc"]
+COMPARE_TIMEOUT_S = 150
+COMPARE_FORWARD_TOL = 2e-5  # card vs CPU float32 probabilities (the main path's bound)
+
+
+def phase_compare_archs(args, dev, results):
+    """The JAX repo's two model scripts as the port runs them.  ``python3 -m
+    ecseg_torch.compare_archs`` with ``COMPARE_ARGS`` (30 steps at both
+    widths, two training fields, one held-out field) in an empty working
+    directory: exit code 0; two JSON lines, ``default`` then ``xl``, with
+    the script's keys in its order; every IoU and the accuracy in [0, 1];
+    each width's losses finite, the last step's below the first's; XL's ms a
+    step (its ``train_s`` over the steps, the first step included).
+    ``python3 -m ecseg_torch.roofline_forward`` for both architectures, at
+    the same time: exit code 0 and closing lines equal to the totals of
+    ``roofline_forward.layers``.  In-process, ``compare_archs.evaluate`` on
+    one 1024^2 field with the default-width demo weights (level 1 crafted,
+    so the labels are decided by a margin; the deep layers seeded and run
+    at full cost): the launch counters set to 0 just before and read just
+    after, one B1 launch a field and no other kernel; the labels equal with
+    ``stitch_plain`` on the card; the CPU forward's probabilities within
+    ``COMPARE_FORWARD_TOL`` of the card's, and the CPU's labels equal the
+    card's wherever the CPU's top two quantized bytes differ by more than 1
+    (the bound of the CPU tests' forward checks; the count of such
+    near-ties is printed)."""
+    from ecseg_torch import compare_archs, roofline_forward
+    from ecseg_torch.models.demo import demo_metaseg_params
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import tiling
+
+    card = results["card"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    phase_t0 = time.perf_counter()
+    out = {"args": COMPARE_ARGS}
+    with tempfile.TemporaryDirectory() as work:
+        roofs = {arch: subprocess.Popen([sys.executable, "-m", "ecseg_torch.roofline_forward", "--arch", arch], cwd=work, env=env,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for arch in compare_archs.ARCHS}
+        rc, lines = run_streams([sys.executable, "-m", "ecseg_torch.compare_archs", *COMPARE_ARGS], COMPARE_TIMEOUT_S, cwd=work, env=env)
+        out["command_s"] = time.perf_counter() - phase_t0
+        check(rc == 0, f"python -m ecseg_torch.compare_archs exited {rc}:\n" + "\n".join(ln for _, ln in lines[-40:]))
+        rows = [json.loads(ln) for tag, ln in lines if tag == "out"]
+        check([r.get("arch") for r in rows] == ["default", "xl"], f"compare_archs printed {rows}")
+        steps = int(COMPARE_ARGS[1])
+        for r in rows:
+            check(list(r) == COMPARE_KEYS, f"compare_archs keys {list(r)}")
+            check(all(0 <= r[k] <= 1 for k in COMPARE_KEYS[4:]) and r["steps"] == steps, f"compare_archs row {r}")
+            losses = {}
+            for tag, ln in lines:
+                if tag == "err" and ln.startswith(f"[{r['arch']}] step "):
+                    losses[int(ln.split()[2])] = float(ln.split()[-1])
+            check(set(losses) == {0, steps - 1} and all(np.isfinite(v) for v in losses.values()), f"{r['arch']} losses {losses}")
+            check(losses[steps - 1] < losses[0], f"{r['arch']}: loss at step {steps - 1} {losses[steps - 1]} not below step 0's {losses[0]}")
+            r["losses"] = losses
+            r["ms_a_step"] = 1e3 * r["train_s"] / steps
+        out["rows"] = rows
+        print(f"python -m ecseg_torch.compare_archs {' '.join(COMPARE_ARGS)}: rc 0 in {out['command_s']:.1f} s; "
+              + "; ".join(f"{r['arch']} mean IoU {r['mean_iou']} ec {r['iou_ec']} acc {r['pixel_acc']} loss {r['losses'][0]:.4f} -> "
+                          f"{r['losses'][steps - 1]:.4f}, {r['ms_a_step']:.1f} ms a step (train_s / steps)" for r in rows) + f" [{card}]", flush=True)
+
+        peak = PEAKS[H100]
+        roof_out = {}
+        for arch, proc in roofs.items():
+            stdout, stderr = proc.communicate(timeout=COMPARE_TIMEOUT_S)
+            check(proc.returncode == 0, f"python -m ecseg_torch.roofline_forward --arch {arch} exited {proc.returncode}: {stderr[-2000:]}")
+            layer_rows = roofline_forward.layers(*compare_archs.ARCHS[arch])
+            t = roofline_forward.totals(layer_rows, peak["bfloat16"], peak["hbm_bytes_per_s"])
+            want = roofline_forward.total_lines(t)
+            got = stdout.strip().splitlines()[-2:]
+            check(got == want, f"roofline {arch}: closing lines {got} != {want}")
+            roof_out[arch] = {k: round(v, 6) for k, v in t.items()}
+        out["roofline"] = roof_out
+        print(f"python -m ecseg_torch.roofline_forward: rc 0 for both; closing lines equal the sums of layers(): {roof_out}", flush=True)
+
+    img, lab = compare_archs.synth_pair(np.random.default_rng(args.seed + 9), 1024)
+    model = demo_metaseg_params(torch.Generator().manual_seed(args.seed)).to(dev)
+    K.reset_launches()
+    iou, acc = compare_archs.evaluate(model, [(img, lab)])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches == {k: int(k == "stitch") for k in launches}, f"compare_archs.evaluate on one field launched {launches}")
+    got = compare_archs.predict(model, img)
+    plain = compare_archs.predict(model, img, stitch=K.stitch_plain)
+    check(np.array_equal(got, plain), "compare_archs: B1's labels != stitch_plain's on the card")
+    _, patches, positions = tiling.im2patches_overlap(img[..., None])
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        p_card = model(torch.from_numpy(patches).to(dev), dtype=torch.float32).cpu()
+        p_cpu = cpu_model(torch.from_numpy(patches), dtype=torch.float32)
+    fwd_err = float((p_card - p_cpu).abs().max())
+    check(bool(torch.isfinite(p_card).all()) and fwd_err < COMPARE_FORWARD_TOL, f"compare_archs: card vs CPU forward max |diff| {fwd_err}")
+    q = tiling.quantize_u8(p_cpu).to(torch.int16)
+    top2 = q.sort(dim=-1).values[..., -2:]
+    close = K.stitch_plain(((top2[..., 1] - top2[..., 0]) <= 1).to(torch.uint8), positions).numpy().astype(bool)
+    cpu_labels = K.stitch_plain(tiling.patch_labels(p_cpu), positions).numpy()  # compare_archs.predict on the CPU
+    differ = cpu_labels != got
+    check(not (differ & ~close).any(), f"compare_archs: {int((differ & ~close).sum())} labels differ card vs CPU where the CPU's bytes decide them")
+    out["evaluate"] = {"iou": iou.tolist(), "pixel_acc": acc, "launches": launches, "forward_max_abs_card_vs_cpu": fwd_err,
+                       "labels_differ_card_vs_cpu": int(differ.sum()), "near_ties": int(close.sum())}
+    print(f"compare_archs.evaluate on one 1024^2 field: B1 launched {launches['stitch']}, nothing else; labels equal stitch_plain's; "
+          f"card vs CPU forward max |diff| {fwd_err:.3g}, {int(differ.sum())} labels differ (at {int(close.sum())} near-tie pixels); "
+          f"IoU {np.round(iou, 4).tolist()} acc {acc:.4f} [{card}]", flush=True)
+    del model, cpu_model, p_card, p_cpu
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"phase_compare_archs: {out['phase_s']:.1f} s", flush=True)
+    results["compare_archs"] = out
+
+
 STUDIES = {  # run -> (module, its arguments here, its environment, the kernels it must have launched)
     "profile_meta_post": ("profile_meta_post", ["2", "--size", "1024"], {},
                           {"label", "flood_border", "flood_seeds", "label_mc", "flood_mc"}),
@@ -4055,7 +4174,9 @@ def main() -> int:
     phase_keras_h5(args, dev, results)  # draws no numbers: the main path's and interseg's folders
     phase_tf_models(args, dev, results)  # draws no numbers: stat_fish's folder and seeded trees
     phase_train(args, dev, results)
-    torch.cuda.empty_cache()  # the studies' and the demo's command lines share the card
+    torch.cuda.empty_cache()  # this phase's, the studies' and the demo's command lines share the card
+    phase_compare_archs(args, dev, results)  # its own generator
+    torch.cuda.empty_cache()
     phase_studies(results)  # draws no numbers: each study seeds its own
     phase_demo(results)  # README's demo: command lines, and in-process on a copy
     wrapper_key = {names[1]: key for key, names in ALL_KERNELS.items()}
@@ -4066,6 +4187,8 @@ def main() -> int:
             row["tf_models_launches"] = results["tf_models"]["launches"].get(key, 0)  # stat_fish from the converted checkpoints
         # the demo path's launches (its in-process run), beside the main path's
         row["demo_launches"] = sum(ln.get(wrapper_key.get(row["name"]), 0) for ln in results["demo"]["launches"].values())
+        # compare_archs.evaluate's launches on one field (B1 only)
+        row["compare_archs_launches"] = results["compare_archs"]["evaluate"]["launches"].get(wrapper_key.get(row["name"]), 0)
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))
     print(json.dumps({"grouped": results["grouped"], "host_post": results["host_post"], "quant": results["quant"], "card": smi}))
@@ -4075,6 +4198,7 @@ def main() -> int:
     print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "keras_h5": results["keras_h5"], "card": smi}))
     print(json.dumps({"tf_models": results["tf_models"], "card": smi}))
     print(json.dumps({"train": results["train"], "card": smi}))
+    print(json.dumps({"compare_archs": results["compare_archs"], "card": smi}))
     print(json.dumps({"multidevice": results["multidevice"], "card": smi}))
     print(json.dumps({"bench": results["bench"], "card": smi}))
     print(json.dumps({"demo": results["demo"], "card": smi}))

@@ -50,6 +50,7 @@ from .models.metaseg_unet import BOTTLENECK_XL, ENC_WIDTHS_XL, MetasegUNet, flop
 from .ops import tiling
 from .ops.cc_kernels import stitch_labels
 from .ops.meta_post_gpu import count_roots_gpu, meta_inference_gpu
+from .peaks import PEAKS
 from .pipelines import tile_count
 
 BATCH_TILES = 32  # tiles per chunk (25 patches each -> 800-patch convs)
@@ -58,8 +59,8 @@ PASSES = 2  # passes over the chunks per timed call
 REPS = 3  # timed calls
 STAGES = ("fwd", "stitch", "meta", "full")  # --itemize-full's prefixes of the full program
 PATCHES_PER_TILE = 25  # 1024x1024 at stride 206
-# card name (torch.cuda.get_device_name) -> dense bf16 FLOP/s, NVIDIA's data sheet
-PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}  # H100 SXM
+# card name (torch.cuda.get_device_name) -> dense bf16 FLOP/s (peaks.PEAKS)
+PEAK_BF16 = {name: peak["bfloat16"] for name, peak in PEAKS.items()}
 
 
 def _sizes(arch: str):

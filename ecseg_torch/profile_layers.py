@@ -48,12 +48,13 @@ from .device import DeviceLike, resolve_device
 from .models.layers import conv_same, max_pool_same, parity_flags
 from .models import metaseg_unet
 from .models.metaseg_unet import BOTTLENECK, ENC_WIDTHS, NUM_CLASSES, PATCH, MetasegUNet
+from .peaks import H100, PEAKS
 from .profile_metaseg_2048 import DTYPES
 from .runtime.study import Study, no_card, opt
 
 N = 100  # patches per measured batch (the bench's chunk is 800: x8)
 CHUNK = 800
-PEAK = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense, NVIDIA's data sheet
+PEAK = {dtype: PEAKS[H100][dtype] for dtype in ("bfloat16", "float32")}  # dense, per dtype
 RECORD_PATCHES = 2
 MAX_REPS = 200  # calls a layer's split takes at most (--reps)
 
@@ -213,7 +214,7 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int
                 w = (k.permute(2, 3, 0, 1) if kind == "convt" else k.permute(3, 2, 0, 1)).contiguous()
                 b = torch.zeros(cout, dtype=dtype, device=dev)
                 fl = flops(kind, h, cin, cout, n)
-                est_s = max(fl / PEAK[name], n * h * h * cin * x.element_size() / 3.35e12)
+                est_s = max(fl / PEAK[name], n * h * h * cin * x.element_size() / PEAKS[H100]["hbm_bytes_per_s"])
                 reps = int(min(max_reps, max(10, 0.2 / est_s)))
                 study.device_row(layer, layer_op(kind, x, w, b), reps, dtype=name, kind=kind, h=h, cin=cin, cout=cout,
                                  flops=fl, layout_in=fmt, layout_out=formats[name].get(layer, {}).get("output"))

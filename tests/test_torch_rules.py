@@ -1,7 +1,9 @@
 """Rules of the port (ecseg_torch) and its host I/O helpers:
 
 - no module of the package, nor chip_smoke.py, imports jax or ecseg_tpu,
-  and the on-chip studies and their timer import no chip_smoke either,
+  and the on-chip studies, their timer and the two model scripts
+  (compare_archs, roofline_forward and the peak table) import no
+  chip_smoke either,
   and no module imports cv2, pandas, yaml or h5py when it loads (h5py only
   inside the Keras readers); stat_fish and interseg run from their
   config.yaml with the first five unimportable;
@@ -72,7 +74,7 @@ def test_no_jax_or_reference_import_in_source(path):
 
 STUDY_FILES = [f"ecseg_torch/{name}.py" for name in (
     "profile_meta_post", "profile_metaseg_2048", "profile_layers", "profile_nuclei_segment", "profile_fast_watershed",
-    "quantify_watershed_divergence", "runtime/devtime", "runtime/study")]
+    "quantify_watershed_divergence", "runtime/devtime", "runtime/study", "compare_archs", "roofline_forward", "peaks")]
 
 
 @pytest.mark.parametrize("rel", STUDY_FILES)
