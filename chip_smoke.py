@@ -52,7 +52,11 @@ Phases (any failure raises; exit code 0 only when all pass):
    more than 512 nuclei went through the counted host redo; every image's
    labels equal the host oracle on the same raw canvas; a rerun gives
    byte-identical labels; the card's forward agrees with the CPU forward
-   (TF32 off).  ``main`` groups the images of a geometry by default (2 + 2
+   (TF32 off); the labels crossed to the host as one 2-bit blob a canvas
+   (``metaseg.post_blob``), the crowded image's raw map besides, counted in
+   ``ops/packing.FETCHED`` (bytes an image, copies, copy ms), and image 0's
+   blob copy + decode is timed beside the copy of its int64 canvas; every
+   ``main`` run of metaseg checks those bytes.  ``main`` groups the images of a geometry by default (2 + 2
    at 2048^2, 100 patches an image, the crowded image in the second group:
    the forwards one an image, B1 and the post per canvas); ``main`` again per
    image (``ECSEG_METASEG_GROUP=1``) and as 3 + 1
@@ -136,7 +140,10 @@ Phases (any failure raises; exit code 0 only when all pass):
    NuSeT at its published widths (RPN scores raised so that markers are
    placed).
    Checks: CSV and ``.npy`` bytes and TIFF pixels equal across the two
-   runs; on image 0 and a 900x700 crop of it the device watershed (where
+   runs; the in-process run's device->host bytes (``ops/packing.FETCHED``)
+   equal its packed layouts: both NuSeT masks, the cleanup's mask and the
+   matched filter's two center maps 1 bit a pixel an image, and a watershed
+   contour with its certificate per B3 launch; on image 0 and a 900x700 crop of it the device watershed (where
    its certificate is clean), cleanup and matched filter equal the host
    chains on the same NuSeT outputs, and B2 and B3 equal their twins on
    those masks (608^2, 256x208, 2027^2); on both, the ungated watershed
@@ -745,6 +752,7 @@ def run_main(folder, form, n_images, env=None, per_image=None, redos=1, tag=None
     (launches, stages, wall s)."""
     from ecseg_torch.core.config import Config
     from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import packing
     from ecseg_torch.pipelines import metaseg
     from ecseg_torch.runtime import fallbacks, trace
 
@@ -755,20 +763,35 @@ def run_main(folder, form, n_images, env=None, per_image=None, redos=1, tag=None
         fallbacks.reset()
         tracer.reset()
         K.reset_launches()
+        packing.reset_fetched()
         t0 = time.perf_counter()
         where = {"devices": devices} if devices is not None else {"device": "cuda"}
         check(metaseg.main(config=Config(raw={"metaseg": {"inpath": folder}}), **where) == 0, f"metaseg.main ({tag}) did not return 0")
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         stages = tracer.times()
+        fetched = dict(packing.FETCHED)
     print(f"main path, {tag}: {n_images} images of {SIZE}x{SIZE} in {wall:.3f} s; launches {launches}", flush=True)
     for key, n in per_image.items():
         check(launches[key] == n * n_images, f"{tag}: {key} launched {launches[key]} times, expected {n * n_images}")
     want = {fallbacks.META_POST_OK: redos} if redos else {}
     check(fallbacks.counts() == want, f"{tag}: fallbacks {fallbacks.counts()} != {want}")
+    # the labels cross as one 2-bit blob a canvas, the raw int32 map only
+    # for a host redo; the host-post path fetches no packed result
+    device_post = (env or {}).get("ECSEG_DEVICE_PIPELINE") != "0"
+    want_bytes = n_images * metaseg_blob_bytes(SIZE, SIZE) + redos * SIZE * SIZE * 4 if device_post else 0
+    check(fetched["bytes"] == want_bytes, f"{tag}: {fetched['bytes']} bytes fetched, expected {want_bytes}")
+    print(f"main path, {tag}: device->host {fetched['bytes'] / n_images:.0f} B an image in {fetched['copies']} copies, "
+          f"copy {1e3 * fetched['seconds'] / n_images:.3f} ms an image", flush=True)
     for name, ts in sorted(stages.items()):
         print(f"  stage {name:22s} n={len(ts)} total {sum(ts):.4f} s; per run ms: " + " ".join(f"{1e3 * t:.2f}" for t in ts), flush=True)
     return launches, stages, wall
+
+
+def metaseg_blob_bytes(h, w):
+    """One canvas's packed result: a header row and the labels 2 bits a
+    pixel, (h + 1) * ceil(w / 4) bytes."""
+    return (h + 1) * -(-w // 4)
 
 
 def read_bytes(path):
@@ -793,6 +816,46 @@ def check_same_outputs(sub, ref, names, counts, tag):
     check(rows == want, f"{tag}: CSV rows {rows} != {want}")
 
 
+FETCH_REPS = 10  # host-clock repetitions of a timed copy (the median is kept)
+
+
+def host_median_ms(fn, reps=FETCH_REPS):
+    """The median host ms of ``fn()`` over ``reps`` calls, each started on
+    an idle card."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def metaseg_transfers(model, folder, name, fetched, n_images):
+    """The main path's device->host bytes and copies an image (``fetched``:
+    the default run's ``packing.FETCHED``), and on ``name``'s canvas the
+    median ms of the blob's copy + host decode (the path's fetch) beside the
+    copy of the same labels as the int64 canvas (the unpacked form)."""
+    from ecseg_torch.ops import meta_post_gpu as mpg
+    from ecseg_torch.ops import packing
+    from ecseg_torch.pipelines import metaseg
+
+    patches, pos = metaseg._prepare_image(os.path.join(folder, name), save_dapi=False)
+    raw = metaseg.segment_raw(model, patches, pos)
+    blob = metaseg.post_blob(raw)
+    labels = mpg.meta_inference_gpu(raw)[0].long()
+    ok, packed_labels, _ = metaseg.decode_post_blob(packing.fetch(blob), raw.shape[1])
+    check(ok and np.array_equal(packed_labels, labels.cpu().numpy()), f"{name}: the blob's labels != the int64 canvas")
+    out = {"images": n_images, "bytes_per_image": fetched["bytes"] / n_images, "copies": fetched["copies"],
+           "copy_ms_per_image": 1e3 * fetched["seconds"] / n_images, "blob_bytes": blob.numel(),
+           "fetch_ms": host_median_ms(lambda: metaseg.decode_post_blob(packing.fetch(blob), raw.shape[1])),
+           "int64_bytes": labels.numel() * 8, "int64_fetch_ms": host_median_ms(lambda: labels.cpu())}
+    print(f"metaseg transfers: {out['bytes_per_image']:.0f} B an image device->host in {out['copies']} copies for {n_images} images "
+          f"(one {out['blob_bytes']} B blob a canvas, the crowded image's raw map for its redo); blob copy + decode "
+          f"{out['fetch_ms']:.3f} ms against {out['int64_fetch_ms']:.3f} ms for the int64 canvas ({out['int64_bytes']} B)", flush=True)
+    return out
+
+
 def phase_main_path(args, rng, dev, errors, results):
     from ecseg_torch.core import imgio
     from ecseg_torch.core.config import Config
@@ -800,7 +863,7 @@ def phase_main_path(args, rng, dev, errors, results):
     from ecseg_torch.models.weights import params_to_numpy, save_npz
     from ecseg_torch.ops import cc_kernels as K
     from ecseg_torch.ops import meta_post_gpu as mpg
-    from ecseg_torch.ops import tiling
+    from ecseg_torch.ops import packing, tiling
     from ecseg_torch.ops.cc import count_cc
     from ecseg_torch.ops.meta_post import meta_inference
     from ecseg_torch.pipelines import metaseg
@@ -821,6 +884,7 @@ def phase_main_path(args, rng, dev, errors, results):
             imgio.write_tiff(os.path.join(folder, name), synthetic_dapi(rng, SIZE, SIZE, crowded=k == 2))
 
         launches, stages, wall = run_main(folder, "default", len(names))
+        fetched = dict(packing.FETCHED)  # run_main's counts of this run
         results["launches"] = {"default": launches}
         results["stages"] = {"default": stages}
         results["main_wall_s"] = {"default": wall}
@@ -846,6 +910,7 @@ def phase_main_path(args, rng, dev, errors, results):
                 check(np.array_equal(out, want), f"{name}: labels != host oracle on the raw canvas")
                 check(counts[name] == count_cc(want == 3)[0], f"{name}: ec count")
         check(oks == {n: n != "img2.tif" for n in names}, f"device ok flags {oks}")
+        results["transfers"] = {"metaseg": metaseg_transfers(model, folder, names[0], fetched, len(names))}
         # the images and the labels metaseg wrote for them: phase_train's data
         keep = tempfile.mkdtemp(prefix="ecseg_train_data_")
         os.makedirs(os.path.join(keep, "labels"))
@@ -1391,6 +1456,27 @@ def touching_nuclei_case(rng, h, w, n):
     return mask.astype(np.float32), np.full(n, 0.97, np.float32), np.array(props, np.float32)
 
 
+def stat_fish_transfers(fetched, n_images, fast_passes):
+    """stat_fish's device->host bytes and copies an image in the default
+    (``auto``) run, checked against its packed layouts: per image the two
+    NuSeT passes' masks and the cleanup's mask 1 bit a pixel, the matched
+    filter's two center maps 1 bit a pixel, and per certified watershed
+    with markers (one B3 launch each) its contour and 4-byte certificate."""
+    from ecseg_torch.models import nuset_infer as ni
+
+    side = int(round(SIZE * 0.3)) // 16 * 16  # NuSeT's side at scale_ratio 0.3
+    out_h, out_w = ni.output_shape((side, side), 0.3)
+    nuset_mask, full_mask = side * -(-side // 8), out_h * -(-out_w // 8)
+    want = n_images * (2 * nuset_mask + 3 * full_mask) + fast_passes * (nuset_mask + 4)
+    check(fetched["bytes"] == want and fetched["copies"] == 4 * n_images + fast_passes,
+          f"stat_fish: {fetched} fetched, expected {want} bytes in {4 * n_images + fast_passes} copies")
+    out = {"images": n_images, "bytes_per_image": fetched["bytes"] / n_images, "copies": fetched["copies"],
+           "copy_ms_per_image": 1e3 * fetched["seconds"] / n_images, "nuset_mask_bytes": nuset_mask, "full_mask_bytes": full_mask}
+    print(f"stat_fish transfers: {out['bytes_per_image']:.0f} B an image device->host in {out['copies']} copies for {n_images} images, "
+          f"copy {out['copy_ms_per_image']:.3f} ms an image", flush=True)
+    return out
+
+
 def phase_stat_fish(args, rng, dev, errors, results):
     """``make stat_fish`` as a user runs it, then its stages against the
     port's host chains.  In a directory with a ``config.yaml`` (stat_fish:
@@ -1423,6 +1509,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
     from ecseg_torch.ops import matched_filter as mf
     from ecseg_torch.ops.edt_gpu import edt_sq
     from ecseg_torch.ops.morphology_gpu import binary_fill_holes, clean_image
+    from ecseg_torch.ops import packing
     from ecseg_torch.ops.normalization import foreground_norm
     from ecseg_torch.ops.resize import resize_linear_matmul
     from ecseg_torch.ops.watershed import nuset_marker_watershed, nuset_place_markers
@@ -1466,6 +1553,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         tracer.reset()
         fallbacks.reset()
         K.reset_launches()
+        packing.reset_fetched()
         try:
             t0 = time.perf_counter()
             rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": inproc, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}), device="cuda")
@@ -1473,6 +1561,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         finally:
             os.chdir(cwd)
         launches = dict(K.LAUNCHES)
+        fetched = dict(packing.FETCHED)
         stages = tracer.times()
         tracer.enabled = False
         falls = fallbacks.counts()
@@ -1480,6 +1569,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         check(launches["label"] == STAT_FISH_LABELS_PER_IMAGE * len(names), f"stat_fish: B2 launched {launches['label']} times, expected {STAT_FISH_LABELS_PER_IMAGE * len(names)}")
         check(1 <= launches["flood_border"] <= len(names), f"stat_fish: B3 launched {launches['flood_border']} times (one per watershed with markers)")
         check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border")), f"stat_fish launched other kernels: {launches}")
+        results["transfers"]["stat_fish"] = stat_fish_transfers(fetched, len(names), launches["flood_border"])
 
         ann = {d: os.path.join(d, "annotated") for d in (imgs, inproc)}
         csv = {d: read_bytes(os.path.join(a, "stat_fish_lsq.csv")) for d, a in ann.items()}
@@ -1576,7 +1666,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
             h, w = seg.shape
             Ic = I[:h, :w]
             mf_args = (Ic, seg, params.gaussian_sigma, params.normal_threshold, list(params.color_sensitivity), list(params.kernel_size))
-            thr = mf.get_thresholded_device(*mf_args, dev)
+            thr = mf.get_thresholded_device_packed(*mf_args, dev)
             check(np.array_equal(thr, mf.get_thresholded(*mf_args)), f"{tag}: the device matched filter != the host one")
             markers = nuset_place_markers(scores, props, mask, params.min_score)
             stage_checks[tag] = {"nuset_hw": list(mask.shape), "proposals": int(len(props)), "markers": int(markers.max()) if markers is not None else 0,
@@ -1665,7 +1755,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
                 "fast pass incl. B3 (wall)": wall_ms(lambda: nuset_fast_pass(m, mk)),
                 f"resize matmul {tuple(mask.shape)} -> {SIZE}^2 (cuda events)": cuda_ms(lambda: resize_linear_matmul(m.float(), (SIZE, SIZE)), 10),
                 "cleanup_pass incl. B2 (wall)": wall_ms(lambda: ni.cleanup_pass(mask, (SIZE, SIZE), STAT_FISH_T, dev)),
-                "matched filter incl. transfers (wall)": wall_ms(lambda: mf.get_thresholded_device(I0, np.full((SIZE, SIZE), 255, np.uint8), 3.0, 15, [70, 70], [7, 7], dev)),
+                "matched filter incl. transfers (wall)": wall_ms(lambda: mf.get_thresholded_device_packed(I0, np.full((SIZE, SIZE), 255, np.uint8), 3.0, 15, [70, 70], [7, 7], dev)),
             }
         print(f"stat_fish XLA-side ops on image 0: {xla_side}", flush=True)
 
@@ -4057,9 +4147,15 @@ def phase_bench(dev, results):
         rc, lines = run_streams([sys.executable, "-m", "ecseg_torch.bench"], BENCH_TIMEOUT_S, cwd=work, env=env)
         out["command_s"] = time.perf_counter() - t0
         check(rc == 0, f"python -m ecseg_torch.bench exited {rc}:\n" + "\n".join(ln for _, ln in lines[-40:]))
+        # the two pipes are read by two threads, so the order of lines across
+        # them is not observable here: each stream's order is checked (the
+        # merged order is tests/test_torch_bench.py's)
         js = [(tag, json.loads(ln)) for tag, ln in lines if ln.startswith("{")]
         check(len(js) == 3, f"python -m ecseg_torch.bench printed {len(js)} JSON lines, not 3: {js}")
-        check([tag for tag, _ in js] == ["err", "err", "out"], f"the scored line is not the last and only stdout JSON line: {js}")
+        js = [j for j in js if j[0] == "err"] + [j for j in js if j[0] == "out"]
+        stdout = [ln for tag, ln in lines if tag == "out" and ln.strip()]
+        check([tag for tag, _ in js] == ["err", "err", "out"] and stdout[-1].startswith("{"),
+              f"the scored line is not the last and only stdout JSON line: {js}")
         scored_metric = "1024x1024 DAPI tiles/sec/chip (U-Net seg + CC labeling)"
         want_metrics = [scored_metric + " [full-pipeline: + device meta_inference]", scored_metric + " [arch=xl]", scored_metric]
         check([r["metric"] for _, r in js] == want_metrics, f"metrics {[r['metric'] for _, r in js]}")
@@ -4195,6 +4291,7 @@ def main() -> int:
     print(json.dumps({"command_line": results["command_line"], "card": smi}))
     print(json.dumps({"meta_overlay": results["overlay"], "fish_distance": results["fish_distance"], "card": smi}))
     print(json.dumps({"stat_fish": results["stat_fish"], "card": smi}))
+    print(json.dumps({"transfers": results["transfers"], "card": smi}))
     print(json.dumps({"interseg": results["interseg"], "keras_import": results["keras_import"], "keras_h5": results["keras_h5"], "card": smi}))
     print(json.dumps({"tf_models": results["tf_models"], "card": smi}))
     print(json.dumps({"train": results["train"], "card": smi}))

@@ -52,6 +52,7 @@ from .ops.cc_kernels import stitch_labels
 from .ops.meta_post_gpu import count_roots_gpu, meta_inference_gpu
 from .peaks import PEAKS
 from .pipelines import tile_count
+from .runtime.hostmem import tune_host_allocator
 
 BATCH_TILES = 32  # tiles per chunk (25 patches each -> 800-patch convs)
 NCHUNKS = 6  # device-resident chunks
@@ -211,6 +212,7 @@ def _emit(line: dict, out) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and not torch.cuda.is_available():
         print("bench: no CUDA device is available; aborting without a result", file=sys.stderr, flush=True)

@@ -34,6 +34,7 @@ import torch
 from .core import imgio
 from .core.config import Config
 from .device import DeviceLike, resolve_device
+from .runtime.hostmem import tune_host_allocator
 
 
 def make_images(d: str, n: int, hw: int = 2048, seed: int = 0) -> None:
@@ -84,6 +85,7 @@ def run_once(inpath: str, device: DeviceLike = None) -> float:
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and not torch.cuda.is_available():
         print("bench_stat_fish: no CUDA device is available; aborting without a result", file=sys.stderr, flush=True)

@@ -34,8 +34,6 @@ each budget and, with ``--sweep``, the markdown table.
   ``cc_kernels.stitch_labels`` (kernel B1 on the card, its twin on the
   CPU), then the per-class intersections and unions and the pixel accuracy
   on the host, counted as the script counts them.
-- The script's ``runtime/hostmem.tune_host_allocator`` call is left out:
-  ``runtime/hostmem.py`` has no counterpart in the port (ROADMAP §A).
 
 Without a card ``python -m`` exits 1; ``main(device="cpu")`` runs on the
 CPU (the tests).
@@ -57,6 +55,7 @@ from .models.metaseg_unet import BOTTLENECK, BOTTLENECK_XL, ENC_WIDTHS, ENC_WIDT
 from .ops import cc_kernels, tiling
 from .parallel.mesh import Mesh, make_mesh
 from .runtime.data import crop_batches, pad_to_multiple
+from .runtime.hostmem import tune_host_allocator
 from .runtime.study import no_card
 from .runtime.train import train_step_on_mesh
 
@@ -261,6 +260,7 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int
     ap.add_argument("--sweep", help="comma-separated step budgets; trains both archs at each and "
                     "prints the IoU-vs-budget markdown table")
     args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
+    tune_host_allocator()
     if device is None and no_card("compare_archs"):
         return 1
     mesh = make_mesh(None if device is None else [device])

@@ -23,9 +23,9 @@ crop to multiples of 16 and normalize the whole image
    is False (by default under ``ECSEG_DEVICE_PIPELINE=0``) or
    ``resize_scale > 1``.
 
-Returns uint8 {0, 255}.  The JAX package's geometry bucketing and 1-bit
-transfers exist for XLA's compile cache and a slow host link; they change no
-value and are not ported.
+Returns uint8 {0, 255}.  Both passes' masks and the cleanup's come back to
+the host packed 1 bit a pixel (``ops/packing``), as in the JAX package.  Its
+geometry bucketing serves XLA's compile cache and is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ..ops.morphology import remove_small_objects
 from ..ops.morphology_gpu import clean_image as clean_image_gpu
 from ..ops.morphology_gpu import remove_small_objects as remove_small_objects_gpu
 from ..ops.normalization import clean_image, foreground_norm, whole_image_norm
+from ..ops.packing import fetch, pack_mask_1bit, unpack_mask_1bit
 from ..ops.resize import rescale, resize_linear_matmul
 from ..ops.watershed import anchor_size_from_mask, nuset_marker_watershed
 from ..ops.watershed_gpu import nuset_marker_watershed_auto, nuset_marker_watershed_fast
@@ -98,13 +99,20 @@ def proposal_pass(
     return out.cpu().numpy(), top_scores[sel].cpu().numpy()
 
 
+def fetch_mask(mask: torch.Tensor) -> np.ndarray:
+    """A (H, W) bool mask on the host as float32 {0, 1}: packed 1 bit a
+    pixel on its device, one copy, unpacked by the host table
+    (``_fetch_mask``, ``ecseg_tpu/models/nuset_infer.py:100-104``)."""
+    return unpack_mask_1bit(fetch(pack_mask_1bit(mask)), mask.shape[1]).astype(np.float32)
+
+
 def mask_and_proposals(model: NuSeTModel, image_norm: np.ndarray):
     """The mask+feature pass on a foreground-normalized (H, W) image: (the
     float32 {0, 1} mask, proposals (P, 4), scores (P,))."""
     x = torch.from_numpy(np.ascontiguousarray(image_norm, np.float32)).to(model.device)[None, None]
     with torch.no_grad():
         logits, feat = model.unet_fg(x)
-        mask = pred_mask(logits).cpu().numpy().astype(np.float32)
+        mask = fetch_mask(pred_mask(logits))
         proposals, scores = proposal_pass(model, feat, anchor_size_from_mask(mask), mask.shape)
     return mask, proposals, scores
 
@@ -143,7 +151,7 @@ def nuset_forward(model: NuSeTModel, image_norm: np.ndarray, pass_two: bool) -> 
     x = torch.from_numpy(np.ascontiguousarray(image_norm, np.float32)).to(model.device)[None, None]
     with torch.no_grad():
         logits, _ = model.unet_whole(x)
-    return pred_mask(logits).cpu().numpy().astype(np.float32)
+    return fetch_mask(pred_mask(logits))
 
 
 def output_shape(shape, resize_scale: float) -> Tuple[int, int]:
@@ -173,12 +181,13 @@ def cleanup_pass(mask: np.ndarray, out_hw: Tuple[int, int], nuclei_size_t, devic
     ``clean_image`` -> resize to ``out_hw`` -> min-max binarize -> remove
     small objects (4-connected).  The binarize keeps the host's uint8
     truncation, ``(m - lo) / (hi - lo) * 255 >= 1``, and its quirk that
-    hi == lo (0/0, NaN -> 0) gives an empty mask.  uint8 {0, 255}."""
+    hi == lo (0/0, NaN -> 0) gives an empty mask.  The result comes back
+    packed 1 bit a pixel and is unpacked on the host.  uint8 {0, 255}."""
     m = clean_image_gpu(torch.from_numpy(np.asarray(mask) != 0).to(device)).float()
     if tuple(out_hw) != tuple(m.shape):
         m = resize_linear_matmul(m, out_hw)
     keep = remove_small_objects_gpu(binarize(m), nuclei_size_t, connectivity=1)
-    return keep.cpu().numpy().astype(np.uint8) * np.uint8(255)
+    return unpack_mask_1bit(fetch(pack_mask_1bit(keep)), keep.shape[1]) * np.uint8(255)
 
 
 def binarize(m: torch.Tensor) -> torch.Tensor:

@@ -126,3 +126,47 @@ def nms_sorted(boxes: torch.Tensor, valid: torch.Tensor, max_output: int, iou_th
         removed |= np.unpackbits(packed[i], count=n, bitorder="little").astype(bool)
         removed[i] = True
     return np.asarray(selected, np.int64)
+
+
+def encode(bboxes, gt_boxes, variances=None) -> torch.Tensor:
+    """Anchor-relative box encoding (reference bbox_transform_tf.py:18-38),
+    the inverse of :func:`decode` up to its -1: (N, 4) float32 dx, dy, dw,
+    dh.  No pipeline calls it (the reference trains with it)."""
+    bboxes = torch.as_tensor(bboxes, dtype=torch.float32)
+    gt_boxes = torch.as_tensor(gt_boxes, dtype=torch.float32)
+    if variances is None:
+        variances = [1.0, 1.0]
+    bw, bh, bx, by = _width_upright(bboxes)
+    gw, gh, gx, gy = _width_upright(gt_boxes)
+    dx = (gx - bx) / (bw * variances[0])
+    dy = (gy - by) / (bh * variances[0])
+    dw = torch.log(gw / bw) / variances[1]
+    dh = torch.log(gh / bh) / variances[1]
+    return torch.stack([dx, dy, dw, dh], dim=1)
+
+
+def nms_numpy(boxes: np.ndarray, scores: np.ndarray, max_output: int, iou_threshold: float) -> np.ndarray:
+    """``tf.image.non_max_suppression`` on the host, one box at a time;
+    boxes (y1, x1, y2, x2).  The selected indices (into the input order),
+    int64."""
+    boxes = np.asarray(boxes, np.float32)
+    scores = np.asarray(scores, np.float32)
+    order = np.argsort(-scores, kind="stable")
+    areas = np.maximum(boxes[:, 2] - boxes[:, 0], 0) * np.maximum(boxes[:, 3] - boxes[:, 1], 0)
+    selected = []
+    suppressed = np.zeros(len(boxes), bool)
+    for i in order:
+        if suppressed[i]:
+            continue
+        selected.append(i)
+        if len(selected) >= max_output:
+            break
+        yy1 = np.maximum(boxes[i, 0], boxes[:, 0])
+        xx1 = np.maximum(boxes[i, 1], boxes[:, 1])
+        yy2 = np.minimum(boxes[i, 2], boxes[:, 2])
+        xx2 = np.minimum(boxes[i, 3], boxes[:, 3])
+        inter = np.maximum(yy2 - yy1, 0) * np.maximum(xx2 - xx1, 0)
+        union = areas[i] + areas - inter
+        iou = np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+        suppressed |= iou > iou_threshold
+    return np.asarray(selected, np.int64)

@@ -30,3 +30,18 @@ def conv2d_same_tf(x: np.ndarray, kernel: np.ndarray) -> np.ndarray:
             if kernel[a, b] != 0:
                 out += kernel[a, b] * xp[a : a + H, b : b + W]
     return out
+
+
+def conv2d_valid_tf(x: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """2-D correlation, 'VALID' padding, stride 1 (the min-cut center
+    detector's, reference max_flow_binary_mask.py:167-188)."""
+    x = np.asarray(x)
+    kernel = np.asarray(kernel)
+    kh, kw = kernel.shape
+    H, W = x.shape[0] - kh + 1, x.shape[1] - kw + 1
+    out = np.zeros((H, W), dtype=np.result_type(x, kernel))
+    for a in range(kh):
+        for b in range(kw):
+            if kernel[a, b] != 0:
+                out += kernel[a, b] * x[a : a + H, b : b + W]
+    return out

@@ -4,13 +4,14 @@ reference src/stat_fish.py:28-132).
 
 The matched-filter correlation has two twins: the host
 :func:`get_thresholded` (float64, TF-'SAME' alignment,
-``ops/conv_host.py``), and :func:`get_thresholded_device`, one float32
-``conv2d`` per FISH channel on the card with the same explicit asymmetric
-padding and the whole gate (coefficient above ``normal_threshold`` or the
-channel's maximum, intensity above ``color_sensitivity``, inside a nucleus)
-fused around it.  The JAX package pins ``Precision.HIGHEST`` on its conv
-because reduced precision flips ``coeffs > normal_threshold`` pixels; here
-cuDNN runs with TF32 off.
+``ops/conv_host.py``), and :func:`get_thresholded_device_packed`, one
+float32 ``conv2d`` per FISH channel on the card with the same explicit
+asymmetric padding and the whole gate (coefficient above
+``normal_threshold`` or the channel's maximum, intensity above
+``color_sensitivity``, inside a nucleus) around it, the nuclei mask up and
+the centers down 1 bit a pixel.  The JAX package pins ``Precision.HIGHEST``
+on its conv because reduced precision flips ``coeffs > normal_threshold``
+pixels; here cuDNN runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import parity_flags
-from .cc import regionprops
+from .cc import regionprops, scipy_label
 from .conv_host import conv2d_same_tf
+from .packing import fetch, pack_mask_1bit, pack_mask_1bit_host, unpack_mask_1bit, unpack_mask_1bit_device
 
 
 def scipy_sampled_gaussian_kernel(kernel_shape, sigma: float = 1) -> np.ndarray:
@@ -83,7 +85,7 @@ def get_thresholded(
     return thresholded
 
 
-def get_thresholded_device(
+def get_thresholded_device_packed(
     I: np.ndarray,
     segmented_cells: np.ndarray,
     gaussian_stdev: float,
@@ -92,21 +94,35 @@ def get_thresholded_device(
     gaussian_kernel_shape,
     device,
 ) -> np.ndarray:
-    """Device twin of :func:`get_thresholded` (the JAX package's
-    ``get_thresholded_jax``): the same values, as a writable int32
-    (H, W, C-1) array the caller may change in place."""
+    """Device twin of :func:`get_thresholded` with packed transfers (the JAX
+    package's ``get_thresholded_device_packed``,
+    ``ecseg_tpu/ops/matched_filter.py:161-238``): only the FISH channels go
+    up, as uint8, and the nuclei mask as a host-packed bitmap; the
+    per-channel centers come back packed 1 bit a pixel, (C-1, H, ceil(W/8)).
+    The host unpacks them and scales by the mask's foreground value (255 in
+    the pipeline: the reference multiplies by the 0/255 mask).  Returns a
+    writable int32 (H, W, C-1) array the caller may change in place."""
+    h, w = segmented_cells.shape
     kernel = torch.from_numpy(get_gaussian_proj_kernel(np.array(gaussian_kernel_shape), gaussian_stdev).astype(np.float32))
     kh, kw = kernel.shape
-    chans = torch.from_numpy(np.ascontiguousarray(np.moveaxis(I[..., 1:], -1, 0))).to(device).float()  # (C-1, H, W)
+    fish = torch.from_numpy(np.ascontiguousarray(I[..., 1:])).to(device)
+    cells_packed = torch.from_numpy(pack_mask_1bit_host(segmented_cells)).to(device)
+    chans = fish.permute(2, 0, 1).float()  # (C-1, H, W)
     pad = ((kw - 1) // 2, kw - 1 - (kw - 1) // 2, (kh - 1) // 2, kh - 1 - (kh - 1) // 2)
     with parity_flags():
         coeffs = F.conv2d(F.pad(chans[:, None], pad), kernel.to(device)[None, None])[:, 0]
     ch_max = chans.amax(dim=(1, 2), keepdim=True)
     centers = (coeffs > torch.tensor(normal_threshold, dtype=torch.float32)) | ((chans == ch_max) & (ch_max > 0))
     sens = torch.tensor(np.asarray(color_sensitivity, np.float32), device=device).view(-1, 1, 1)
-    cells = torch.from_numpy(np.asarray(segmented_cells).astype(np.int32)).to(device)
-    out = (centers & (chans > sens)).to(torch.int32) * cells
-    return np.ascontiguousarray(out.permute(1, 2, 0).cpu().numpy())
+    cells = unpack_mask_1bit_device(cells_packed, w) != 0
+    out = centers & (chans > sens) & cells
+    packed = fetch(torch.stack([pack_mask_1bit(c) for c in out]))
+    fg_value = int(segmented_cells.max()) if segmented_cells.any() else 0
+    result = np.empty((h, w, len(packed)), np.int32)
+    for c, bits in enumerate(packed):
+        result[..., c] = unpack_mask_1bit(bits, w)
+    result *= fg_value
+    return result
 
 
 def get_boundaries(s: np.ndarray, line_thickness: int = 1) -> np.ndarray:
@@ -166,8 +182,36 @@ def merge_channels(img: np.ndarray, aqua_rgb) -> np.ndarray:
     return np.minimum(img, 255).astype(np.uint8)
 
 
+def cell_splice_segmentation(i, thresh, s, region):
+    """Crop the image, the threshold map and the instance mask to a
+    region's bounding box (reference stat_fish.py:118-123): (image crop,
+    threshold crop, the region's int {0, 1} mask, (row slice, column
+    slice))."""
+    y_sl, x_sl = region.slice
+    img_splice = i[y_sl.start : y_sl.stop, x_sl.start : x_sl.stop, :]
+    thresh_splice = thresh[y_sl.start : y_sl.stop, x_sl.start : x_sl.stop, :]
+    seg_splice = (s[y_sl.start : y_sl.stop, x_sl.start : x_sl.stop] == region.label).astype(int)
+    return img_splice, thresh_splice, seg_splice, (y_sl, x_sl)
+
+
 def get_scale(labeled_segmented_cells, target_median_nuclei_size) -> float:
     """sqrt(target / median nucleus area) (reference stat_fish.py:127-132)."""
     areas = [r.area for r in regionprops(labeled_segmented_cells)]
     median = np.median(areas) if areas else np.nan
     return float(np.sqrt(target_median_nuclei_size / median))
+
+
+def count_blobs(fish_splice: np.ndarray, cell_seg: np.ndarray, min_cc_size) -> int:
+    """4-connected blob count of ``fish_splice * cell_seg``, with the blobs
+    under ``min_cc_size`` pixels taken out of ``fish_splice`` in place (the
+    reference mutates its input, stat_fish.py:134-142) and out of the
+    count.  The pipeline counts every cell at once
+    (``ops/region_stats.per_cell_blob_stats``)."""
+    labeled_array, blob_count = scipy_label(fish_splice * cell_seg)
+    for blob in regionprops(labeled_array):
+        if blob.area < min_cc_size:
+            y_sl, x_sl = blob.slice
+            component = (labeled_array[y_sl.start : y_sl.stop, x_sl.start : x_sl.stop] == blob.label).astype(int)
+            fish_splice[y_sl.start : y_sl.stop, x_sl.start : x_sl.stop] -= 255 * component
+            blob_count -= 1
+    return blob_count

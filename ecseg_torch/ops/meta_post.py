@@ -21,6 +21,8 @@ The device form is ``ops/meta_post_gpu.py``; this oracle is its fallback.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 from scipy import ndimage as ndi
 
@@ -185,3 +187,10 @@ def _count_overlapping_labels(labels: np.ndarray, other: np.ndarray) -> int:
     candidates = np.unique(labels)[1:]
     overlapped = np.unique(labels[other != 0])
     return int(np.isin(candidates, overlapped).sum())
+
+
+def intensity_metrics(I: np.ndarray) -> Tuple[float, float]:
+    """(mean of the nonzero pixels, max) (reference src/image_tools.py:121-124)."""
+    nz = I[I != 0]  # the raster-order selection of I[np.nonzero(I)]
+    avg = np.mean(nz) if nz.size else np.nan
+    return avg, np.max(I)

@@ -73,3 +73,8 @@ def remove_small_holes(mask: np.ndarray, area_threshold: float, connectivity: in
     too)."""
     mask = np.asarray(mask, bool)
     return ~remove_small_objects(~mask, area_threshold + 1, connectivity)
+
+
+def binary_opening(image: np.ndarray, footprint: np.ndarray) -> np.ndarray:
+    """Erosion then dilation by ``footprint`` (skimage's binary_opening)."""
+    return binary_dilation(binary_erosion(image, footprint), footprint)

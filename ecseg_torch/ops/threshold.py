@@ -5,11 +5,17 @@ The host path that the pipelines run is ``ops/meta_post.otsu_threshold_u8``
 (cv2's Otsu, transcribed); this one computes the same threshold from a
 256-bin histogram on the image's device, so a preprocess that stays on the
 card need not copy the image to the host.  Plain torch: no kernel.
+:func:`otsu_binarize` is the host binarize at that threshold.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
+
+from .meta_post import otsu_threshold_u8
 
 MAX_PIXELS = 1 << 23  # 255 * pixels must stay below 2^31 for the exact int32 sums
 
@@ -38,3 +44,12 @@ def otsu_threshold_gpu(img_u8: torch.Tensor) -> torch.Tensor:
     mu1 = torch.where(w1 > 0, (sum_all - sum0).float() / w1f.clamp(min=1), 0.0)
     between = torch.where((w0 > 0) & (w1 > 0), w0f * w1f * (mu0 - mu1) ** 2, 0.0)
     return torch.argmax(between).int()
+
+
+def otsu_binarize(img_u8: np.ndarray) -> Tuple[float, np.ndarray]:
+    """(threshold, binary {0, 1} uint8 image) as
+    ``cv2.threshold(img, 0, 1, THRESH_BINARY + THRESH_OTSU)`` returns them,
+    from cv2's Otsu transcribed (``ops/meta_post.otsu_threshold_u8``)."""
+    img = np.asarray(img_u8, dtype=np.uint8)
+    t = otsu_threshold_u8(img)
+    return float(t), (img > t).astype(np.uint8)

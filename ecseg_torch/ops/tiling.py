@@ -120,3 +120,32 @@ def patch_labels(probs: torch.Tensor) -> torch.Tensor:
     argmax then stitch equals the reference's stitch then argmax because the
     stitch only copies pixels."""
     return torch.argmax(quantize_u8(probs), dim=-1).to(torch.uint8)
+
+
+def patches2im_overlap(patches, positions, overlap_value: int = OVERLAP, scw: int = SCW) -> np.ndarray:
+    """The reference's float stitcher (src/image_tools.py:188-252), byte for
+    byte: (N, scw, scw, C) predictions -> a (h_l + scw, w_l + scw, C)
+    float64 canvas, by :func:`_stitch_plan`'s copies in its order."""
+    pos = np.asarray(positions)
+    copies, H, W = _stitch_plan([tuple(p) for p in pos.tolist()], overlap_value, scw, int(pos[:, 0].max()), int(pos[:, 1].max()))
+    canvas = np.zeros((H, W, patches[0].shape[-1]), dtype=np.float64)
+    for i, sy, sx, dy, dx, sh, sw in copies:
+        canvas[dy : dy + sh, dx : dx + sw] = patches[i][sy : sy + sh, sx : sx + sw]
+    return canvas
+
+
+def stitch_labels_host(label_patches: np.ndarray, positions, overlap_value: int = OVERLAP, scw: int = SCW) -> np.ndarray:
+    """(N, scw, scw) label patches -> their (H, W) canvas on the host, by
+    the copy plan B1 runs; the canvas keeps the patches' dtype."""
+    pos = np.asarray(positions)
+    copies, H, W = _stitch_plan([tuple(p) for p in pos.tolist()], overlap_value, scw, int(pos[:, 0].max()), int(pos[:, 1].max()))
+    canvas = np.zeros((H, W), dtype=label_patches.dtype)
+    for i, sy, sx, dy, dx, sh, sw in copies:
+        canvas[dy : dy + sh, dx : dx + sw] = label_patches[i][sy : sy + sh, sx : sx + sw]
+    return canvas
+
+
+def img_as_ubyte_float(x: np.ndarray) -> np.ndarray:
+    """skimage's ``img_as_ubyte`` of a float image in [0, 1]: times 255,
+    rounded half to even, clipped (reference src/utils.py:117)."""
+    return np.clip(np.rint(np.asarray(x, dtype=np.float64) * 255), 0, 255).astype(np.uint8)

@@ -34,6 +34,7 @@ import torch
 from .edt_gpu import edt_sq
 from .morphology import disk
 from .morphology_gpu import _offsets, _shift, binary_fill_holes
+from .packing import fetch, pack_mask_1bit, unpack_mask_1bit
 from .watershed import nuset_place_markers
 
 MAX_ITERS = 4096
@@ -96,15 +97,17 @@ def flood_inputs(mask: torch.Tensor, markers: torch.Tensor) -> Tuple[torch.Tenso
     return -edt_sq(binary_fill_holes(mask)), torch.where(mask, m, 0)
 
 
-def nuset_fast_pass(pred_mask: torch.Tensor, markers: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """(contour AND mask, certificate) for a (H, W) bool mask and int32
-    point markers (``_nuset_fast_pass``).  The line rule and the
-    certificate are the JAX package's: a pixel next to a different-label
-    marker pixel is a line pixel; otherwise the later-popped side of a
-    boundary is (lower cost first, a marker before a non-marker at equal
-    cost, then the lower label); an equal-cost pair of non-markers with
-    different labels, or a second argmin predecessor of another label, is
-    uncertain."""
+def nuset_fast_pass(pred_mask: torch.Tensor, markers: torch.Tensor) -> Tuple[np.ndarray, int]:
+    """(contour AND mask packed 1 bit a pixel, certificate) for a (H, W)
+    bool mask and int32 point markers (``_nuset_fast_pass``), on the host:
+    the packed contour and the certificate come back in one copy, as the JAX
+    package's ``device_get`` of both (``_run_fast_pass``).  The line rule
+    and the certificate are the JAX package's: a pixel next to a
+    different-label marker pixel is a line pixel; otherwise the later-popped
+    side of a boundary is (lower cost first, a marker before a non-marker at
+    equal cost, then the lower label); an equal-cost pair of non-markers
+    with different labels, or a second argmin predecessor of another label,
+    is uncertain."""
     mask = pred_mask.bool()
     img, m = flood_inputs(mask, markers)
     cost, pcost, lab, converged = lex_flood(img, m, mask)
@@ -123,8 +126,11 @@ def nuset_fast_pass(pred_mask: torch.Tensor, markers: torch.Tensor) -> Tuple[tor
         own_tie = (ncost == pcost) & other
         line_tie = (ncost == cost) & other & nonmark_pair
         unc |= both & ~ismark & (own_tie | line_tie)
-    n_unc = int(unc.sum()) + (0 if converged else UNCONVERGED)
-    return (lab > 0) & ~line & mask, n_unc
+    n_unc = unc.sum(dtype=torch.int64) + (0 if converged else UNCONVERGED)
+    packed = pack_mask_1bit((lab > 0) & ~line & mask)
+    count = ((n_unc >> torch.arange(0, 32, 8, device=packed.device)) & 0xFF).to(torch.uint8)
+    host = fetch(torch.cat([packed.reshape(-1), count]))
+    return host[:-4].reshape(packed.shape), int.from_bytes(host[-4:].tobytes(), "little")
 
 
 FAST_PAD = 128  # the JAX package's fast-pass geometry: each side up to a multiple of 128
@@ -140,8 +146,8 @@ def _run_fast_pass(pred_mask: np.ndarray, markers: np.ndarray, device) -> np.nda
     mask_p[:h, :w] = torch.from_numpy(pred_mask != 0)
     mark_p = torch.zeros((hp, wp), dtype=torch.int32, device=device)
     mark_p[:h, :w] = torch.from_numpy(markers.astype(np.int32))
-    contour, _ = nuset_fast_pass(mask_p, mark_p)
-    return contour[:h, :w].cpu().numpy()
+    packed, _ = nuset_fast_pass(mask_p, mark_p)
+    return unpack_mask_1bit(packed, wp)[:h, :w].astype(bool)
 
 
 def nuset_marker_watershed_fast(
@@ -179,9 +185,9 @@ def nuset_marker_watershed_auto(
     markers = nuset_place_markers(scores, proposals, pred_mask, min_score)
     if markers is None:
         return pred_mask.astype(np.int32), 0
-    contour, n_unc = nuset_fast_pass(
+    packed, n_unc = nuset_fast_pass(
         torch.from_numpy(pred_mask != 0).to(device), torch.from_numpy(markers.astype(np.int32)).to(device)
     )
     if n_unc:
         return None, n_unc
-    return (pred_mask * contour.cpu().numpy()).astype(np.int32), 0
+    return (pred_mask * unpack_mask_1bit(packed, pred_mask.shape[1])).astype(np.int32), 0

@@ -95,3 +95,12 @@ def split_batch(n: int, parts: int) -> Sequence[slice]:
         raise ValueError(f"a batch of {n} does not split over a data axis of {parts}; pad it (runtime/data.pad_to_multiple)")
     b = n // parts
     return [slice(r * b, (r + 1) * b) for r in range(parts)]
+
+
+def shard_patch_batch(mesh: Mesh, batch: torch.Tensor) -> List[torch.Tensor]:
+    """A (N, H, W, C) patch batch split along N over the data axis (the JAX
+    package's ``NamedSharding(mesh, P("data", None, None, None))``): one
+    shard per mesh entry, in :meth:`Mesh.flat` order, the row's shard on
+    each entry of its row (replicated over the model axis)."""
+    parts = split_batch(batch.shape[0], mesh.shape["data"])
+    return [batch[sl].to(dev) for sl, row in zip(parts, mesh.devices) for dev in row]

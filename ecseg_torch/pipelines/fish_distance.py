@@ -42,6 +42,7 @@ from ..core import imgio
 from ..core.config import Config, load_config
 from ..core.csvio import write_csv
 from ..ops.cc import count_cc
+from ..runtime.hostmem import tune_host_allocator
 
 
 def min_set_distance(fish_yx: np.ndarray, cent_yx: np.ndarray) -> float:
@@ -102,7 +103,20 @@ def folder_distances(root: str, centromere_idx: int, fish_idx: int, max_spots: i
     return out
 
 
+def get_distances_img(lsq, segmentation, presets) -> List[float]:
+    """:func:`image_distances` with ``presets`` = (centromere index, FISH
+    index, max spots), the JAX module's signature."""
+    centromere_idx, fish_idx, max_spots = presets
+    return image_distances(lsq, segmentation, centromere_idx, fish_idx, max_spots)
+
+
+def get_distances_path(root_directory: str, *presets) -> List[float]:
+    """:func:`folder_distances` of ``root_directory``."""
+    return folder_distances(root_directory, *presets)
+
+
 def main(argv=None, config: Optional[Config] = None) -> int:
+    tune_host_allocator()
     if config is None:
         config = load_config()
     var = config.fish_distance_calculation

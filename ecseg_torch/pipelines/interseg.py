@@ -50,6 +50,7 @@ from ..ops.resize import resize
 from ..runtime import fallbacks
 from ..runtime.batching import fan_out, prefetch_map
 from ..runtime.devicepath import shard_enabled
+from ..runtime.hostmem import tune_host_allocator
 from ..runtime.trace import stage
 
 ECSEG_I_MODEL = "interseg"
@@ -253,6 +254,7 @@ def classify(crops: Crops, i_model, c_model, quality_pass: bool):
 def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None, devices: DevicesLike = None) -> int:
     """``device``: one device; ``devices``: a device list to fan the images
     out over; neither: every card."""
+    tune_host_allocator()
     mesh = entry_devices(device, devices)
     dev = mesh[0]
     if config is None:

@@ -41,6 +41,7 @@ from ..ops.meta_post import count_colocalization, count_HSR
 from ..ops.overlay_gpu import HSR_SIZE_THRESHOLD, cc_pair_host_quirk, overlay_stats
 from ..runtime.batching import fan_out, prefetch_map
 from ..runtime.devicepath import shard_enabled, use_device_path
+from ..runtime.hostmem import tune_host_allocator
 from ..runtime.trace import stage
 
 FIRST_FISH, SECOND_FISH = "green", "red"
@@ -125,6 +126,7 @@ def image_row(name: str, stats: dict, hw: int) -> list:
 def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None, devices: DevicesLike = None) -> int:
     """``device``: one device; ``devices``: a device list to fan the images
     out over; neither: every card."""
+    tune_host_allocator()
     mesh = entry_devices(device, devices)
     if config is None:
         config = load_config()

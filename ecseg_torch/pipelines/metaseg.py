@@ -7,7 +7,9 @@ Per image: read -> meta_preprocess -> save inverted DAPI -> overlap-patchify
 -> stitch (kernel B1) -> meta_inference (``ops/meta_post_gpu``: by default
 on kernels B2-B6; ``ECSEG_MC_LABEL=0`` selects the per-class form on B2-B4
 and ``ECSEG_MC_MERGE=1`` the fused merge on B9, as in the JAX package) ->
-ecDNA count (B2) -> write ``labels/<name>.png``, ``labels/<name>.npy`` and
+ecDNA count (B2) -> the labels packed 2 bits a pixel under a header of
+``ok`` and the count, one uint8 blob a canvas (:func:`post_blob`, the JAX
+package's layout) -> write ``labels/<name>.png``, ``labels/<name>.npy`` and
 one row of ``ec_quantification.csv``.  When the device meta_inference
 reports ``ok`` False (a component budget overflowed) the image is redone on
 the host oracle and counted in ``runtime/fallbacks``.
@@ -15,7 +17,7 @@ the host oracle and counted in ``runtime/fallbacks``.
 Images of one geometry are grouped (``ECSEG_METASEG_GROUP``, default 8,
 capped by ``ECSEG_METASEG_PATCH_BUDGET`` patches): the group's forwards
 enqueued back to back, one an image, then B1 and the post per canvas, the
-group's ``ok`` flags and counts in one copy (:func:`segment_folder`).  ``ECSEG_DEVICE_PIPELINE=0``
+group's blobs in one copy (:func:`segment_folder`).  ``ECSEG_DEVICE_PIPELINE=0``
 runs the host oracle after the forward and B1.
 
 On more than one device (``main(devices=...)``; by default every card) the
@@ -26,8 +28,8 @@ cross-image patch batches split over the entries with the stitch and the
 oracle on the host.  The outputs are the single-device run's bytes.
 
 Not ported (ROADMAP): fast start and the program cache, the padding of
-partial groups, ``ECSEG_GROUP_POST=vmap`` and the 2-bit result packing
-(they serve XLA's compile cache and the TPU host link).
+partial groups and ``ECSEG_GROUP_POST=vmap`` (they serve XLA's compile
+cache).
 """
 
 from __future__ import annotations
@@ -53,9 +55,11 @@ from ..ops.cc import count_cc
 from ..ops.cc_kernels import stitch_labels
 from ..ops.meta_post import meta_inference, meta_preprocess
 from ..ops.meta_post_gpu import count_roots_gpu, meta_inference_gpu
+from ..ops.packing import fetch, pack_labels_2bit, unpack_labels_2bit
 from ..runtime import fallbacks
 from ..runtime.batching import prefetch_map
 from ..runtime.devicepath import use_device_path
+from ..runtime.hostmem import tune_host_allocator
 from ..runtime.trace import stage
 
 
@@ -122,6 +126,20 @@ def segment_raw(
     return segment_group(model, [patches], positions)[0]
 
 
+def load_params(model_dir: str = "models", device: DeviceLike = None) -> torch.nn.Module:
+    """:func:`load_model` (the JAX module's other name for it)."""
+    return load_model(model_dir, device)
+
+
+def meta_segment(model: torch.nn.Module, image_path: str, save_dapi: bool = True) -> np.ndarray:
+    """One image's int64 labels by the model's forward and B1 on its
+    device, then the host oracle (reference src/utils.py:109-120): the
+    reference's ``meta_segment``, which no pipeline calls."""
+    patches, pos = _prepare_image(image_path, save_dapi)
+    raw = segment_raw(model, patches, pos)
+    return meta_inference(fetch(raw).astype(np.int64))
+
+
 def host_post(raw: np.ndarray) -> Tuple[np.ndarray, int]:
     """The host oracle: (int64 labels, #ecDNA) of a raw label map."""
     I = meta_inference(raw.astype(np.int64))
@@ -134,29 +152,56 @@ def _host_post_traced(raw: np.ndarray) -> Tuple[np.ndarray, int]:
         return host_post(raw)
 
 
-def post_group(raws: Sequence[torch.Tensor]) -> List[Tuple[np.ndarray, int, bool]]:
-    """Device meta_inference + ecDNA count of each canvas; every canvas's
-    ``ok`` and count come back in one device-to-host copy, the labels of the
-    ``ok`` ones in one more.  A canvas whose ``ok`` is False is redone on the
-    host oracle and counted in ``runtime/fallbacks``.  Returns (int64 labels,
-    #ecDNA, ok) per canvas."""
-    with stage("metaseg.post"):
-        outs, flags = [], []
-        for raw in raws:
-            out, ok = meta_inference_gpu(raw)
-            outs.append(out)
-            flags.append(torch.stack([ok.long(), count_roots_gpu(out == 3).long()]))
-        flags = torch.stack(flags).cpu().numpy()
-        good = [k for k in range(len(raws)) if flags[k, 0]]
-        labels = dict(zip(good, torch.stack([outs[k] for k in good]).cpu().numpy())) if good else {}
-    results = []
-    for k, raw in enumerate(raws):
-        if k in labels:
-            results.append((labels[k], int(flags[k, 1]), True))
-            continue
+HEADER_SHIFTS = (0, 8, 16, 24)  # the count's little-endian bytes in the blob's header row
+
+
+def post_blob(labels: torch.Tensor) -> torch.Tensor:
+    """The device post of one stitched canvas as ONE uint8 blob, in the JAX
+    package's layout (``_post_blob``, ``ecseg_tpu/pipelines/metaseg.py:94-111``):
+    ``meta_inference_gpu`` and the ecDNA count, then a header row (the ``ok``
+    flag, the count as little-endian uint32, zeros) above the final labels
+    packed 2 bits a pixel: (H + 1, ceil(W/4)).  Needs W >= 17 (a header of
+    5 bytes)."""
+    out, ok = meta_inference_gpu(labels)
+    num_ec = count_roots_gpu(out == 3).to(torch.int64)
+    packed = pack_labels_2bit(out)
+    if packed.shape[1] < 1 + len(HEADER_SHIFTS):
+        raise ValueError(f"a {tuple(labels.shape)} canvas is too narrow for the blob's header")
+    shifts = torch.tensor(HEADER_SHIFTS, device=packed.device)
+    header = torch.zeros((1, packed.shape[1]), dtype=torch.uint8, device=packed.device)
+    header[0, 0] = ok.to(torch.uint8)
+    header[0, 1 : 1 + len(shifts)] = ((num_ec >> shifts) & 0xFF).to(torch.uint8)
+    return torch.cat([header, packed])
+
+
+def decode_post_blob(blob: np.ndarray, w: int) -> Tuple[bool, np.ndarray, int]:
+    """Host side of :func:`post_blob` (``_decode_post_blob``): (ok, final
+    int64 labels, #ecDNA).  A blob whose ``ok`` is False is counted in
+    ``runtime/fallbacks`` (its labels are not the answer: the caller redoes
+    the canvas on the host)."""
+    ok = bool(blob[0, 0])
+    if not ok:
         fallbacks.record(fallbacks.META_POST_OK)
+    num_ec = sum(int(blob[0, 1 + k]) << s for k, s in enumerate(HEADER_SHIFTS))
+    return ok, unpack_labels_2bit(blob[1:], w).astype(np.int64), num_ec
+
+
+def post_group(raws: Sequence[torch.Tensor]) -> List[Tuple[np.ndarray, int, bool]]:
+    """:func:`post_blob` of each canvas of a group (one geometry); the
+    group's blobs come back in ONE device-to-host copy and are decoded on
+    the host.  A canvas whose ``ok`` is False (counted in
+    ``runtime/fallbacks``) has its raw map fetched and is redone on the host
+    oracle.  Returns (int64 labels, #ecDNA, ok) per canvas."""
+    with stage("metaseg.post"):
+        blobs = fetch(torch.stack([post_blob(raw) for raw in raws]))
+        decoded = [decode_post_blob(blob, raw.shape[1]) for blob, raw in zip(blobs, raws)]
+    results = []
+    for raw, (ok, labels, num_ec) in zip(raws, decoded):
+        if ok:
+            results.append((labels, num_ec, True))
+            continue
         with stage("metaseg.host_redo"):
-            results.append(host_post(raw.cpu().numpy()) + (False,))
+            results.append(host_post(fetch(raw)) + (False,))
     return results
 
 
@@ -348,6 +393,7 @@ def main(argv=None, config: Optional[Config] = None, device: DeviceLike = None, 
     """``device``: one device (the single-card path); ``devices``: that
     mesh; neither: every card (``device.resolve_devices``).  More than one
     entry takes the sharded paths."""
+    tune_host_allocator()
     mesh = entry_devices(device, devices)
     dev = mesh[0]
     if config is None:

@@ -7,7 +7,7 @@ prep on two reader threads -> NuSeT nuclei segmentation on the card
 (``models/nuset_infer``: both U-Net passes, proposals, the certified
 watershed on kernel B3, the cleanup on kernel B2) -> on a pool of tail
 workers (two; ``ECSEG_STAT_FISH_TAIL_WORKERS``): min-cut splitting of touching nuclei (host C++), the matched-filter
-FISH detection (device conv), per-nucleus statistics, and the writes --
+FISH detection (device conv, packed transfers), per-nucleus statistics, and the writes --
 ``<name>__segmentation_min_cut.npy`` and five TIFFs per image in
 ``annotated/<name>/`` and one ``stat_fish_lsq.csv``.  Outputs go to a
 ``tmp_<MM-DD_HH:MM:SS>`` folder renamed to ``annotated/`` at the end (an
@@ -31,8 +31,9 @@ the CSV in input order; with ``scale: auto`` image 0 runs alone on entry 0
 before the fan-out starts.  ``ECSEG_STAT_FISH_SHARD=0`` keeps the
 single-card path (the main thread and ``tail_workers()`` tails).
 
-Not ported (ROADMAP): geometry bucketing and the 1-bit transfers (they
-serve XLA's compile cache and the TPU host link).
+NuSeT's masks and the matched filter's nuclei mask and centers cross the
+host link 1 bit a pixel (``ops/packing``), as in the JAX package.  Not
+ported (ROADMAP): geometry bucketing (it serves XLA's compile cache).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from ..ops.cc import label as cc_label
 from ..runtime import fallbacks
 from ..runtime.batching import fan_out, prefetch_map
 from ..runtime.devicepath import shard_enabled, use_device_path
+from ..runtime.hostmem import tune_host_allocator
 from ..runtime.trace import stage
 
 AQUA_RGB = [233, 137, 54]  # reference stat_fish.py:163
@@ -113,6 +115,7 @@ def main(
 ) -> int:
     """``device``: one device; ``devices``: a device list to fan the images
     out over; neither: every card."""
+    tune_host_allocator()
     mesh = entry_devices(device, devices)
     dev = mesh[0]
     if device_path is None:
@@ -193,7 +196,7 @@ def main(
             kernel_shape = [int(d // sf) if (d // sf % 2) else int(d // sf) + 1 for d in params.kernel_size]
             args = (I, segmented_cells, gaussian_stdev, params.normal_threshold, color_sensitivity, kernel_shape)
             with stage("stat_fish.matched_filter"):
-                thresholded = mf.get_thresholded_device(*args, tail_dev) if device_path else mf.get_thresholded(*args)
+                thresholded = mf.get_thresholded_device_packed(*args, tail_dev) if device_path else mf.get_thresholded(*args)
         else:
             thresholded = np.zeros_like(I)[..., 1:]
             gaussian_stdev = min_cc_size = np.nan

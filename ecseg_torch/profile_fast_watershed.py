@@ -36,6 +36,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .ops.watershed import nuset_marker_watershed, nuset_place_markers
 from .ops.watershed_gpu import flood_inputs, lex_flood, nuset_marker_watershed_auto, nuset_marker_watershed_fast
+from .runtime.hostmem import tune_host_allocator
 from .runtime.study import Study, no_card, opt
 
 MIN_SCORE = 0.95
@@ -60,6 +61,7 @@ def make_case(rng, H=614, W=614, n=40):
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and no_card("profile_fast_watershed"):
         return 1

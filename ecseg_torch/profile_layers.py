@@ -50,6 +50,7 @@ from .models import metaseg_unet
 from .models.metaseg_unet import BOTTLENECK, ENC_WIDTHS, NUM_CLASSES, PATCH, MetasegUNet
 from .peaks import H100, PEAKS
 from .profile_metaseg_2048 import DTYPES
+from .runtime.hostmem import tune_host_allocator
 from .runtime.study import Study, no_card, opt
 
 N = 100  # patches per measured batch (the bench's chunk is 800: x8)
@@ -183,6 +184,7 @@ def layer_op(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and no_card("profile_layers"):
         return 1

@@ -60,6 +60,7 @@ from .ops.meta_post_gpu import (
     use_multiclass,
 )
 from .ops.morphology_gpu import binary_fill_holes
+from .runtime.hostmem import tune_host_allocator
 from .runtime.study import Study, no_card, opt, positional
 
 SIZES = (1024, 2048)
@@ -111,6 +112,7 @@ def blocks(hw: int, w: int, mc: bool, fused: bool):
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and no_card("profile_meta_post"):
         return 1

@@ -8,13 +8,15 @@ The JAX script's image (uint8 noise below 60 and 300 squares of 200, seed
 -> ``pipelines/metaseg.segment_raw`` (forward, exact uint8 quantize and
 argmax, stitch on B1) -> ``post_process`` (``meta_inference_gpu`` on B2-B6
 in the form ``ECSEG_MC_LABEL``/``ECSEG_MC_MERGE`` select, the ecDNA count,
-the fetch), on the default-width U-Net with seeded random weights.  Per
+the 2-bit packed blob and its fetch), on the default-width U-Net with
+seeded random weights.  Per
 dtype (float32 under the parity flags, as metaseg runs it; bf16 weights,
 as the JAX script and the bench run it) it prints the first
 forward call's host seconds and ``runtime/devtime.split`` over ``--reps``
 (default 3) calls of the image's parts: ``forward`` (upload, forward,
-argmax), ``stitch`` (B1), ``post`` (meta_inference and the count) and
-``fetch`` (the flags and the labels to the host); then, per dtype, of
+argmax), ``stitch`` (B1), ``post`` (``metaseg.post_blob``: meta_inference,
+the count and the packing) and ``fetch`` (the blob's copy to the host and
+its decode, as the JAX script's packed fetch); then, per dtype, of
 steady-state images, with ``ok``, ``num_ec`` and the label classes, as the
 script prints them.  The parts come first: an image over the post's
 budgets is redone on the host, and that idle card spoils the profiler's
@@ -38,8 +40,9 @@ from .models import metaseg_unet
 from .models.metaseg_unet import MetasegUNet
 from .ops import tiling
 from .ops.cc_kernels import stitch_labels
-from .ops.meta_post_gpu import count_roots_gpu, meta_inference_gpu
-from .pipelines.metaseg import post_process, segment_raw
+from .ops.packing import fetch
+from .pipelines.metaseg import decode_post_blob, post_blob, post_process, segment_raw
+from .runtime.hostmem import tune_host_allocator
 from .runtime.study import Study, no_card, opt
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -58,6 +61,7 @@ def make_image(size: int = 2048, seed: int = 0) -> np.ndarray:
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and no_card("profile_metaseg_2048"):
         return 1
@@ -92,12 +96,8 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int
             lp = study.device_row("forward", forward, reps, dtype=name)
             raw = study.device_row("stitch", lambda lp=lp: stitch_labels(lp, pos), reps, dtype=name)
 
-            def post(raw=raw):
-                out, ok = meta_inference_gpu(raw)
-                return out, ok, count_roots_gpu(out == 3)
-
-            res, ok, n = study.device_row("post", post, reps, dtype=name)
-            study.device_row("fetch", lambda: (torch.stack([ok.long(), n.long()]).cpu(), res.cpu()), reps, dtype=name)
+            blob = study.device_row("post", lambda raw=raw: post_blob(raw), reps, dtype=name)
+            study.device_row("fetch", lambda blob=blob, w=raw.shape[1]: decode_post_blob(fetch(blob), w), reps, dtype=name)
         for name, model in models.items():
             print(f"-- {name}: the image", flush=True)
 

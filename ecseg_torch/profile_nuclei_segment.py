@@ -46,6 +46,7 @@ from .models.weights import load_nuset_model
 from .ops.morphology_gpu import clean_image, remove_small_objects
 from .ops.normalization import foreground_norm, whole_image_norm
 from .ops.resize import rescale, resize_linear_matmul
+from .runtime.hostmem import tune_host_allocator
 from .runtime.study import Study, no_card, opt
 
 SCALE = 0.3
@@ -71,6 +72,7 @@ def _sum(x) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and no_card("profile_nuclei_segment"):
         return 1

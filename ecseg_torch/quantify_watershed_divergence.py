@@ -29,6 +29,7 @@ from .device import DeviceLike, resolve_device
 from .ops.watershed import nuset_marker_watershed
 from .ops.watershed_gpu import nuset_marker_watershed_fast
 from .profile_fast_watershed import MIN_SCORE, make_case
+from .runtime.hostmem import tune_host_allocator
 from .runtime.study import Study, no_card, positional
 
 
@@ -42,6 +43,7 @@ def _timed(study: Study, fn):
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int:
+    tune_host_allocator()
     argv = sys.argv[1:] if argv is None else list(argv)
     if device is None and no_card("quantify_watershed_divergence"):
         return 1

@@ -508,7 +508,7 @@ def test_stat_fish_device_stages_on_the_card_match_the_cpu(cuda, seed, h, w, n):
     markers = torch.from_numpy(nuset_place_markers(scores, props, pred, 0.95).astype(np.int32))
     got, got_unc = nuset_fast_pass(m.to(cuda), markers.to(cuda))
     want, want_unc = nuset_fast_pass(m, markers)
-    assert torch.equal(got.cpu(), want) and got_unc == want_unc
+    assert np.array_equal(got, want) and got_unc == want_unc
     tf = boxes.change_order(torch.from_numpy(props))
     valid = torch.ones(len(tf), dtype=torch.bool)
     assert np.array_equal(boxes.nms_sorted(tf.to(cuda), valid.to(cuda), 800, 0.01), boxes.nms_sorted(tf, valid, 800, 0.01))
@@ -520,7 +520,7 @@ def test_stat_fish_device_stages_on_the_card_match_the_cpu(cuda, seed, h, w, n):
     I[..., 1][rng.random((h, w)) < 0.01] = 250
     cells = (pred > 0).astype(np.uint8) * 255
     args = (I, cells, 3.0, 15, [70, 70], [7, 7])
-    assert np.array_equal(mf.get_thresholded_device(*args, cuda), mf.get_thresholded(*args))
+    assert np.array_equal(mf.get_thresholded_device_packed(*args, cuda), mf.get_thresholded(*args))
 
 
 @pytest.mark.cuda

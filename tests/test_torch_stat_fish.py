@@ -314,11 +314,12 @@ def test_matched_filter_matches_jax_and_host(sf):
     I[..., 1] = np.maximum(I[..., 1], (rng.random((120, 110)) * 120).astype(np.uint8))
     shape = [int(d // sf) if (d // sf % 2) else int(d // sf) + 1 for d in (7, 7)]
     args = (I, cells, 3 / sf, 15, [70, 70], shape)
-    got = tmf.get_thresholded_device(*args, "cpu")
+    got = tmf.get_thresholded_device_packed(*args, "cpu")
     host = tmf.get_thresholded(*args)
     want = np.asarray(jmf.get_thresholded_jax(I, cells, 3 / sf, 15.0, (70, 70), tuple(shape)))
     assert got.dtype == np.int32 and got.flags.writeable
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jmf.get_thresholded_device_packed(*args))
     np.testing.assert_array_equal(got, host)
     np.testing.assert_array_equal(host, jmf.get_thresholded(*args))
     assert got.any()

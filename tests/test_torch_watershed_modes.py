@@ -18,6 +18,7 @@ from ecseg_tpu.ops import watershed_tpu as jwt
 from ecseg_torch.models import nuset_infer as tni
 from ecseg_torch.ops import watershed as tws
 from ecseg_torch.ops import watershed_gpu as twg
+from ecseg_torch.ops.packing import unpack_mask_1bit
 from ecseg_torch.runtime import fallbacks
 
 from _torchutil import single_torch_thread  # noqa: F401 (autouse fixture)
@@ -59,7 +60,7 @@ def test_padded_pass_differs_from_the_unpadded_one_at_the_edges():
         markers = tws.nuset_place_markers(scores, props, pred, MIN_SCORE)
         unpadded, _ = twg.nuset_fast_pass(torch.from_numpy(pred != 0), torch.from_numpy(markers.astype(np.int32)))
         padded = twg.nuset_marker_watershed_fast(scores, props, pred, MIN_SCORE, "cpu")
-        differs += not np.array_equal((pred * unpadded.numpy()).astype(np.int32), padded)
+        differs += not np.array_equal((pred * unpack_mask_1bit(unpadded, pred.shape[1])).astype(np.int32), padded)
     assert differs > 0
 
 
