@@ -26,6 +26,12 @@ dtype of the model's weights.
   halves, no concat), levels >= 2 through the concat unless
   ``ECSEG_SPLIT_CONCAT`` is on; the head's logits to float32 before the
   softmax.
+
+The forward names its parts for a device trace: the profiler ranges
+``metaseg.forward.encoder`` (the input's permute and scale, ``enc*`` and
+the pools), ``metaseg.forward.decoder`` (``bott_*``, ``up*`` and
+``dec4``-``dec2``) and ``metaseg.forward.head`` (``dec1_*``, ``head``, the
+softmax); ``runtime/trace.region``, nothing when no profiler records.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..runtime.trace import region
 from .layers import SameConv2d, TFConvTranspose2d, conv_same, glorot_uniform_, max_pool_same, parity_flags
 
 ENC_WIDTHS = (32, 64, 128, 256)
@@ -139,23 +146,25 @@ class MetasegUNet(nn.Module):
         """Encoder, bottleneck and decoder through ``up1``: (level-1 skip,
         upsampled level-1 feature), NCHW in ``dtype``."""
         split = dtype != torch.float32 and split_concat()
-        x = x.permute(0, 3, 1, 2).to(dtype) / 255.0
-        skips = []
-        for i in range(1, len(self.widths) + 1):
-            x = torch.relu(self._conv(f"enc{i}_1", x))
-            x = torch.relu(self._conv(f"enc{i}_2", x))
-            skips.append(x)
-            x = max_pool_same(x)
-        x = torch.relu(self._conv("bott_1", x))
-        x = torch.relu(self._conv("bott_2", x))
-        for i in range(len(self.widths), 1, -1):
-            x = torch.relu(self._conv(f"up{i}", x))
-            if split:
-                x = self._dec_first(skips[i - 1], x, f"dec{i}_1")
-            else:
-                x = torch.relu(self._conv(f"dec{i}_1", torch.cat([skips[i - 1], x], dim=1)))
-            x = torch.relu(self._conv(f"dec{i}_2", x))
-        return skips[0], torch.relu(self._conv("up1", x))
+        with region("metaseg.forward.encoder"):
+            x = x.permute(0, 3, 1, 2).to(dtype) / 255.0
+            skips = []
+            for i in range(1, len(self.widths) + 1):
+                x = torch.relu(self._conv(f"enc{i}_1", x))
+                x = torch.relu(self._conv(f"enc{i}_2", x))
+                skips.append(x)
+                x = max_pool_same(x)
+        with region("metaseg.forward.decoder"):
+            x = torch.relu(self._conv("bott_1", x))
+            x = torch.relu(self._conv("bott_2", x))
+            for i in range(len(self.widths), 1, -1):
+                x = torch.relu(self._conv(f"up{i}", x))
+                if split:
+                    x = self._dec_first(skips[i - 1], x, f"dec{i}_1")
+                else:
+                    x = torch.relu(self._conv(f"dec{i}_1", torch.cat([skips[i - 1], x], dim=1)))
+                x = torch.relu(self._conv(f"dec{i}_2", x))
+            return skips[0], torch.relu(self._conv("up1", x))
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """(N, H, W, C) patches -> (N, H, W, num_classes) float32
@@ -163,13 +172,14 @@ class MetasegUNet(nn.Module):
         dtype = self.dtype if dtype is None else dtype
         with parity_flags():
             s1, xu = self._trunk_to_level1(x, dtype)
-            if dtype == torch.float32:
-                x = torch.relu(self._conv("dec1_1", torch.cat([s1, xu], dim=1)))
-            else:
-                x = self._dec_first(s1, xu, "dec1_1")
-            x = torch.relu(self._conv("dec1_2", x))
-            logits = self._conv("head", x)
-            return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
+            with region("metaseg.forward.head"):
+                if dtype == torch.float32:
+                    x = torch.relu(self._conv("dec1_1", torch.cat([s1, xu], dim=1)))
+                else:
+                    x = self._dec_first(s1, xu, "dec1_1")
+                x = torch.relu(self._conv("dec1_2", x))
+                logits = self._conv("head", x)
+                return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
 
     def forward_cat1(self, x: torch.Tensor) -> torch.Tensor:
         """Everything up to the level-1 skip concat: the (N, H, W, 2 * width1)

@@ -60,7 +60,7 @@ from ..runtime import fallbacks
 from ..runtime.batching import prefetch_map
 from ..runtime.devicepath import use_device_path
 from ..runtime.hostmem import tune_host_allocator
-from ..runtime.trace import stage
+from ..runtime.trace import region, stage
 
 
 def load_model(model_dir: str = "models", device: DeviceLike = None) -> torch.nn.Module:
@@ -98,6 +98,19 @@ def _prepare_image(image_path: str, save_dapi: bool = True):
         imgio.save_gray_inverted(os.path.join(head, "dapi", tail), I)
     _, patches, pos = tiling.im2patches_overlap(I[..., None])
     return patches, tuple(map(tuple, pos))
+
+
+def _prepared(image_paths: Sequence[str]):
+    """(path, (patches, positions)) of each image, in order, from the
+    reader threads (:func:`_prepare_image`); the caller's wait on them is
+    the stage ``metaseg.decode_wait``."""
+    it = iter(prefetch_map(_prepare_image, image_paths))
+    while True:
+        with stage("metaseg.decode_wait"):
+            nxt = next(it, None)
+        if nxt is None:
+            return
+        yield nxt
 
 
 def segment_group(
@@ -193,8 +206,11 @@ def post_group(raws: Sequence[torch.Tensor]) -> List[Tuple[np.ndarray, int, bool
     ``runtime/fallbacks``) has its raw map fetched and is redone on the host
     oracle.  Returns (int64 labels, #ecDNA, ok) per canvas."""
     with stage("metaseg.post"):
-        blobs = fetch(torch.stack([post_blob(raw) for raw in raws]))
-        decoded = [decode_post_blob(blob, raw.shape[1]) for blob, raw in zip(blobs, raws)]
+        with region("metaseg.post.device"):
+            stacked = torch.stack([post_blob(raw) for raw in raws])
+        blobs = fetch(stacked)
+        with region("metaseg.post.decode"):
+            decoded = [decode_post_blob(blob, raw.shape[1]) for blob, raw in zip(blobs, raws)]
     results = []
     for raw, (ok, labels, num_ec) in zip(raws, decoded):
         if ok:
@@ -256,7 +272,7 @@ def segment_folder(model: torch.nn.Module, image_paths: Sequence[str], device_po
             yield results.pop(cursor)
             cursor += 1
 
-    for idx, (path, (patches, pos)) in enumerate(prefetch_map(_prepare_image, image_paths)):
+    for idx, (path, (patches, pos)) in enumerate(_prepared(image_paths)):
         items = buckets.setdefault(pos, [])
         items.append((idx, path, patches))
         if len(items) == geo_group(pos, group):
@@ -310,7 +326,7 @@ def segment_folder_sharded_device(model: torch.nn.Module, image_paths: Sequence[
             cursor += 1
 
     with cf.ThreadPoolExecutor(max_workers=len(devices)) as pool:
-        for idx, (path, (patches, pos)) in enumerate(prefetch_map(_prepare_image, image_paths)):
+        for idx, (path, (patches, pos)) in enumerate(_prepared(image_paths)):
             items = buckets.setdefault(pos, [])
             items.append((idx, path, patches))
             if len(items) == len(devices):
@@ -377,7 +393,7 @@ def segment_folder_sharded(model: torch.nn.Module, image_paths: Sequence[str], d
         out.clear()
 
     with cf.ThreadPoolExecutor(max_workers=n) as pool:
-        for path, (patches, pos) in prefetch_map(_prepare_image, image_paths):
+        for path, (patches, pos) in _prepared(image_paths):
             pending.append((path, pos, len(patches)))
             buf = np.concatenate([buf, patches])
             while len(buf) >= batch_patches:

@@ -6,8 +6,8 @@ the innermost stage: a stage records its self time, its elapsed wall time
 less that of the stages nested inside it on the same thread, so the
 report's columns sum to real wall time.  CUDA work is asynchronous, so
 while tracing is on a stage synchronises the card when it ends and its
-time includes the device work it enqueued.  When tracing is off
-``stage()`` costs one attribute test.
+time includes the device work it enqueued.  When tracing is off and no
+profiler records, ``stage()`` costs two flag tests.
 
 Stages may run on several threads at once (stat_fish's tail pool, the
 fan-outs over a device list): each thread keeps its own nesting stack, so
@@ -22,6 +22,18 @@ use of :func:`tracer` to the exit of the process and is written to
 ``<dir>/ecseg_trace_<pid>.json`` as a Chrome trace (the directory is made
 if missing; the pid keeps concurrent processes apart).  Without
 ``ECSEG_TRACE`` the directory does nothing.
+
+Whenever a ``torch.profiler`` records (that capture, or any other in the
+process), each stage also opens a ``record_function`` range named
+``stage:<name>`` around its body, whether or not ``ECSEG_TRACE`` is set,
+and :func:`region` opens such a range alone: a part of a stage (the
+forward's encoder, the post's device half) that is named in a device
+trace but takes no self time, makes no sync and is never in
+:meth:`Tracer.times`.  One prefix marks every range the program opens, so
+that a reader of the trace tells the program's ranges from its device
+operations (the trace copies each range onto the device's line as well)
+and gives a device's idle gap to the innermost range open on the host.
+When no profiler records, a region costs one flag test.
 """
 
 from __future__ import annotations
@@ -35,6 +47,18 @@ from collections import defaultdict
 from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+PREFIX = "stage:"  # of every profiler range the program opens
+_NO_RANGE = contextlib.nullcontext()
+
+
+def region(name: str):
+    """``with trace.region("metaseg.forward.encoder"): ...``: a profiler
+    range ``stage:<name>`` while a profiler records, else nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(PREFIX + name)
+    return _NO_RANGE
 
 
 class Tracer:
@@ -58,22 +82,23 @@ class Tracer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        if not self.enabled:
-            yield
-            return
-        stack = self._stack()
-        stack.append(0.0)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t0
-            inner = stack.pop()
-            stack[-1] += elapsed
-            with self._lock:
-                self._times[name].append(elapsed - inner)
+        with region(name):
+            if not self.enabled:
+                yield
+                return
+            stack = self._stack()
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+                inner = stack.pop()
+                stack[-1] += elapsed
+                with self._lock:
+                    self._times[name].append(elapsed - inner)
 
     def times(self) -> Dict[str, List[float]]:
         """stage -> the self seconds of each of its runs."""

@@ -1,0 +1,10 @@
+"""The device's idle time in the profiled stretch while the host was in the program's ``metaseg.forward`` stage or one of its ``metaseg.forward.*`` ranges (the encoder, decoder and head), ms an image of the stretch."""
+
+NAME = "metaseg.forward"
+
+
+def read(ctx):
+    p = ctx["profile"]
+    if not p:
+        return None
+    return 1e3 * sum(s for name, s in p["idle_gaps"] if name == NAME or name.startswith(NAME + ".")) / p["images"]

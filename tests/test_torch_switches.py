@@ -139,6 +139,8 @@ def test_trace_dir_writes_one_chrome_trace(tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("cumsum" in e.get("name", "") for e in events)  # a CPU op of the traced run
+    # the program's own ranges, one a stage run
+    assert sorted(e["name"] for e in events if e.get("name", "").startswith("stage:")) == ["stage:inner", "stage:outer"]
 
 
 def test_trace_dir_without_trace_writes_nothing(tmp_path):
