@@ -48,11 +48,16 @@ Phases (any failure raises; exit code 0 only when all pass):
    default-width weights (``models/demo.py``, seeded) read through the
    ``metaseg.npz`` bridge, in the default post-processing form.  Checks:
    outputs well-formed; each kernel's launch counter rose during ``main``
-   exactly as the form predicts (``PER_IMAGE_LAUNCHES``); the image with
+   exactly as the form predicts (``PER_IMAGE_LAUNCHES``: the post's
+   kernels and the forward's H1, ``FORWARD_LAUNCHES``); the image with
    more than 512 nuclei went through the counted host redo; every image's
    labels equal the host oracle on the same raw canvas; a rerun gives
    byte-identical labels; the card's forward agrees with the CPU forward
-   (TF32 off); the labels crossed to the host as one 2-bit blob a canvas
+   (TF32 off); the forward's 3x3 convs ran on H1, the hand-written float32
+   conv (18 launches a 100-patch model call, no fallback; ``segment_folder`` on the
+   four images again with them on cuDNN: at most ``CONV3X3_LABEL_PX``
+   label pixels differ, ecDNA counts equal, a second H1 run byte-equal);
+   the labels crossed to the host as one 2-bit blob a canvas
    (``metaseg.post_blob``), the crowded image's raw map besides, counted in
    ``ops/packing.FETCHED`` (bytes an image, copies, copy ms), and image 0's
    blob copy + decode is timed beside the copy of its int64 canvas; every
@@ -65,7 +70,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    rows byte-equal to the default run's, ms per image of each.  Then
    ``main`` under ``ECSEG_DEVICE_PIPELINE=0`` on an ordinary image and the
    crowded one (forward and B1 on the card, the host oracle after: only B1
-   launched, no redo counted, the same bytes).  Then ``main`` again under
+   and the forward's H1 launched, no redo counted, the same bytes).  Then ``main`` again under
    ``ECSEG_MC_LABEL=0`` and under
    ``ECSEG_MC_MERGE=1`` on an ordinary image and the crowded one: the same
    launch-count and host-redo checks, and labels and CSV rows byte-equal to
@@ -116,7 +121,13 @@ Phases (any failure raises; exit code 0 only when all pass):
    wrapper's own kernel by name, and a pass whose device sum differs from
    the CUDA-event mean by more than 25 % is repeated; B8a, B8b and B10
    bit-equal to their twins on the timed inputs, B10 on the whole level-1
-   concat of both widths' paths (800 and 200 patches); then ``make
+   concat of both widths' paths (800 and 200 patches); H1 at three XL
+   layers of 100 patches (``CONV3X3_SHAPES``: enc1_2, dec2_1 with its two
+   halves, bott_2) beside its twin, its FMA bound and cuDNN under
+   ``parity_flags`` (NCHW, as the forward ran before it), bit-equal to the
+   twin on integer inputs, within 1e-5 of cuDNN's largest output on normal
+   ones, byte-equal on a second call and over 50 + 50 patches, its
+   ``launches`` those of the default form's ``main`` run; then ``make
    bench`` as the port runs it (``phase_bench``): ``python3 -m
    ecseg_torch.bench`` with its default flags as a subprocess (three JSON
    lines, the scored tiles/s line last and the only one on stdout, every
@@ -174,7 +185,9 @@ Phases (any failure raises; exit code 0 only when all pass):
    images in the default form and under ``ECSEG_DEVICE_PIPELINE=0``,
    ``meta_overlay``, ``stat_fish`` and ``interseg`` ``main(devices=...)``,
    each byte-equal to its single-card run with the same launches (``=0``:
-   none) and one host redo (the default form); every fan-out under
+   none but H1's, ``FORWARD_LAUNCHES`` per entry per batch of
+   ``METASEG_SHARDED_BATCH`` patches) and one host redo (the default
+   form); every fan-out under
    PyTorch's default cuDNN flags, which read the same after it, with
    ``allow_tf32`` False at each float32 convolution in the workers; then
    ``train_step_on_mesh`` on a (data 2, model 2) mesh of four entries at
@@ -228,7 +241,7 @@ Phases (any failure raises; exit code 0 only when all pass):
    XL's ms a step), ``python3 -m ecseg_torch.roofline_forward`` for both
    widths (closing lines equal to the sums of ``layers()``), and
    ``compare_archs.evaluate`` in-process on one 1024^2 field (one B1
-   launch and nothing else; labels equal with ``stitch_plain`` and with
+   launch and the forward's H1, nothing else; labels equal with ``stitch_plain`` and with
    the CPU forward).
    Then the on-chip studies (``phase_studies``): ``python3 -m
    ecseg_torch.<study>`` for the six of ``STUDIES`` at once (and
@@ -286,13 +299,16 @@ FORM_ENV = {
 }
 # the tile-count path's kernels (and B11) never run on the metaseg path
 _NOT_ON_METASEG = {"count": 0, "count_patches": 0, "fused_tail": 0, "convt": 0}
+# an image's float32 forward on the card (one model call of its patches):
+# H1 at each 3x3 conv, 18 at four levels; the CPU forward launches none
+FORWARD_LAUNCHES = {"conv3x3": 18}
 PER_IMAGE_LAUNCHES = {
-    "default": {"stitch": 1, "label": 3, "flood_border": 2, "flood_seeds": 2, "label_mc": 2, "flood_mc": 1, "label_flood": 0, **_NOT_ON_METASEG},
-    "per_class": {"stitch": 1, "label": 8, "flood_border": 2, "flood_seeds": 5, "label_mc": 0, "flood_mc": 0, "label_flood": 0, **_NOT_ON_METASEG},
-    "fused_merge": {"stitch": 1, "label": 1, "flood_border": 2, "flood_seeds": 0, "label_mc": 2, "flood_mc": 1, "label_flood": 2, **_NOT_ON_METASEG},
+    "default": {"stitch": 1, "label": 3, "flood_border": 2, "flood_seeds": 2, "label_mc": 2, "flood_mc": 1, "label_flood": 0, **_NOT_ON_METASEG, **FORWARD_LAUNCHES},
+    "per_class": {"stitch": 1, "label": 8, "flood_border": 2, "flood_seeds": 5, "label_mc": 0, "flood_mc": 0, "label_flood": 0, **_NOT_ON_METASEG, **FORWARD_LAUNCHES},
+    "fused_merge": {"stitch": 1, "label": 1, "flood_border": 2, "flood_seeds": 0, "label_mc": 2, "flood_mc": 1, "label_flood": 2, **_NOT_ON_METASEG, **FORWARD_LAUNCHES},
 }
 # ECSEG_DEVICE_PIPELINE=0: the forward and B1 on the card, the host oracle after
-HOST_POST_LAUNCHES = {key: int(key == "stitch") for key in PER_IMAGE_LAUNCHES["default"]}
+HOST_POST_LAUNCHES = {key: int(key == "stitch") for key in PER_IMAGE_LAUNCHES["default"]} | FORWARD_LAUNCHES
 # main's grouping runs beside the default (2 + 2 at 2048^2): (name, environment, forwards of 4 images)
 # (the first default run pays cuDNN's set-up, so "2 + 2" times the default again)
 GROUP_RUNS = (
@@ -318,7 +334,10 @@ TILE_KERNELS = {  # the tile-count path's kernels and B11, as KERNELS
     "fused_tail": ("B10", "fused_dec1_head", "ecseg_torch/csrc/fused_tail.cu", "ecseg_tpu/ops/fused_tail.py:195", "fused_dec1_head"),
     "convt": ("B11", "conv2d_transpose_packed", "ecseg_torch/csrc/convt.cu", "ecseg_tpu/ops/convt_pallas.py:157", "conv2d_transpose_packed"),
 }
-ALL_KERNELS = {**KERNELS, **TILE_KERNELS}
+FORWARD_KERNELS = {  # the float32 forward's hand kernel, as KERNELS (it replaces cuDNN: no Pallas kernel)
+    "conv3x3": ("H1", "conv3x3_relu", "ecseg_torch/csrc/conv3x3_f32.cu", None, None),
+}
+ALL_KERNELS = {**KERNELS, **TILE_KERNELS, **FORWARD_KERNELS}
 # the kernel launches of one RGB image through ``meta_overlay.main``: B2 on
 # ec, fish_nc and chrom (8-connected) and in the two HSR size filters
 # (4-connected), B8a on ec, fish_nc and fish2_nc
@@ -338,6 +357,13 @@ CONVT_SHAPES = {  # B11 at the decoder's transpose convs, 100 patches
     "xl up1": (100, 128, 128, 128, 64),
 }
 CONVT_TIMED = "xl up1"  # the shape of B11's timing row
+F32_FLOPS = PEAKS[H100]["float32"]  # CUDA-core float32 peak (the H1 rows)
+CONV3X3_SHAPES = {  # H1 at three of the XL forward's 3x3 convs, 100 patches: (n, h, w, skip cin, upsampled cin, cout)
+    "xl enc1_2": (100, 256, 256, 64, 0, 64),
+    "xl dec2_1": (100, 128, 128, 128, 128, 128),
+    "xl bott_2": (100, 16, 16, 1024, 0, 1024),
+}
+CONV3X3_LABEL_PX = 12  # label pixels a whole forward may differ from the cuDNN forward's (the benchmark's check limit)
 COUNT_SIZES = ((2048, 2048), (2048, 3072))  # B8a's stress masks
 BANDED_SHAPE = (2048, 3072)  # B7's timing map: over the JAX package's fast-memory limit, so it labels it in bands
 TILE_SIZES = ((2048, 2048), (2047, 2049), (33, 4097), (1, 2048), (2048, 1))  # B2-B6, B9 on the tile-edge maps
@@ -420,10 +446,11 @@ PLAIN_TWINS = {"stitch_labels": "stitch_plain"}  # wrapper -> its twin in cc_ker
 
 def bench_stage_launches(stage: str):
     """Kernel launches of one canvas through ``ecseg_torch.bench``'s full
-    program cut after ``stage`` (one of ``bench.STAGES``): none through the forward, B1 through the
-    stitch, one metaseg image's post (``PER_IMAGE_LAUNCHES["default"]``)
-    without the count's B2 through ``meta``, all of it at ``full``."""
-    per = dict(PER_IMAGE_LAUNCHES["default"])
+    program cut after ``stage`` (one of ``bench.STAGES``): none through the
+    forward (bf16: no H1), B1 through the stitch, one metaseg image's post
+    (``PER_IMAGE_LAUNCHES["default"]``) without the count's B2 through
+    ``meta``, all of it at ``full``."""
+    per = PER_IMAGE_LAUNCHES["default"] | dict.fromkeys(FORWARD_LAUNCHES, 0)
     if stage in ("fwd", "stitch"):
         return {key: int(stage == "stitch" and key == "stitch") for key in per}
     if stage == "meta":
@@ -977,7 +1004,7 @@ def phase_main_path(args, rng, dev, errors, results):
                                        redos=0, tag="ECSEG_DEVICE_PIPELINE=0")
         check_same_outputs(sub, folder, pair, counts, "ECSEG_DEVICE_PIPELINE=0")
         results["host_post"] = {"images": pair, "wall_s": wall_h, "stages": stages_h}
-        print(f"ECSEG_DEVICE_PIPELINE=0: only B1 launched; labels, PNGs and CSV rows byte-equal to the device run's on {pair}", flush=True)
+        print(f"ECSEG_DEVICE_PIPELINE=0: only B1 and the forward's H1 launched; labels, PNGs and CSV rows byte-equal to the device run's on {pair}", flush=True)
 
         # the other two forms on an ordinary image and the crowded one: the
         # same labels and CSV rows as the default form, byte for byte
@@ -1010,6 +1037,7 @@ def phase_main_path(args, rng, dev, errors, results):
         model.to(dev)
         fwd_err = float((p_gpu - p_cpu).abs().max())
         check(torch.isfinite(p_gpu).all() and fwd_err < 2e-5, f"card vs CPU forward max |diff| {fwd_err}")
+        results["conv3x3_forward"] = conv3x3_forward_check(model, [os.path.join(folder, n) for n in names])
         print(f"forward card vs CPU on 2 patches: max |diff| {fwd_err:.3g} (< 2e-5)", flush=True)
 
         # the main path's own inputs for the kernel timings (image 0)
@@ -2416,6 +2444,7 @@ def phase_multidevice(args, dev, results):
     from ecseg_torch.models.metaseg_unet import MetasegUNet
     from ecseg_torch.models.weights import save_npz
     from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import tiling
     from ecseg_torch.parallel.mesh import make_mesh
     from ecseg_torch.pipelines import interseg, meta_overlay, stat_fish
     from ecseg_torch.runtime import fallbacks, trace
@@ -2454,6 +2483,10 @@ def phase_multidevice(args, dev, results):
             if form == "default":
                 check(launches == results["launches"]["default"], f"metaseg mesh: launches {launches} != the single-card run's {results['launches']['default']}")
                 check(len({t for t, _ in probes}) >= 2, f"metaseg mesh: forwards on {len({t for t, _ in probes})} threads")
+            else:  # segment_folder_sharded: a forward per entry per batch of METASEG_SHARDED_BATCH patches
+                batches = -(-len(names) * len(tiling.patch_positions(SIZE, SIZE)) // METASEG_SHARDED_BATCH)
+                want = {key: n * len(mesh) * batches for key, n in FORWARD_LAUNCHES.items()}
+                check({k: launches[k] for k in want} == want, f"metaseg mesh, {form}: forward launches {launches}, expected {want}")
             check_same_outputs(sub, ref, names, counts, f"metaseg mesh, {form}")
             out[f"metaseg {form}"] = {"wall_s": wall, "ms_per_image": 1e3 * wall / len(names), "launches": {k: v for k, v in launches.items() if v},
                                       "stages_s": stages}
@@ -2758,7 +2791,8 @@ def phase_keras_h5(args, dev, results):
     (the crowded ``img2`` among them); ``python3 -m
     ecseg_torch.pipelines.metaseg`` as a subprocess on the default device,
     then ``main`` in-process on a copy (``run_main``: B1-B6 launched
-    ``PER_IMAGE_LAUNCHES`` x 4 times, one host redo).  Checks: exit code 0,
+    ``PER_IMAGE_LAUNCHES`` x 4 times, no H1: the executor's convs stay on
+    cuDNN; one host redo).  Checks: exit code 0,
     the ``.h5`` named on stderr, every ``labels/*.npy`` and the CSV
     byte-equal between the two runs and to the main path's run of the same
     weights from ``metaseg.npz``, and each image's labels equal to the host
@@ -2822,7 +2856,9 @@ def phase_keras_h5(args, dev, results):
         check(f"[ecseg] loading model {os.path.join('models', 'metaseg.h5')}" in proc.stderr, f"metaseg.h5: the command line did not load the .h5:\n{proc.stderr[-2000:]}")
         check(proc.stdout.count("Processing image:") == len(names), "metaseg.h5: the command line did not process every image")
         os.chdir(mwork)  # load_model reads models/metaseg.h5 from here
-        launches, _, inproc_s = run_main(os.path.join(mwork, "inproc"), "default", len(names), tag="metaseg.h5 in-process")
+        # the .h5 executor keeps cuDNN: the post's launches, no H1
+        launches, _, inproc_s = run_main(os.path.join(mwork, "inproc"), "default", len(names), tag="metaseg.h5 in-process",
+                                         per_image=PER_IMAGE_LAUNCHES["default"] | dict.fromkeys(FORWARD_LAUNCHES, 0))
         model = metaseg.load_model(device=dev)
         check(isinstance(model, KerasModel) and all(b.is_cuda for b in model.buffers()), "metaseg.h5: load_model did not give the executor on the card")
         for name in names + ["ec_quantification.csv"]:
@@ -3352,7 +3388,8 @@ def phase_compare_archs(args, dev, results):
     one 1024^2 field with the default-width demo weights (level 1 crafted,
     so the labels are decided by a margin; the deep layers seeded and run
     at full cost): the launch counters set to 0 just before and read just
-    after, one B1 launch a field and no other kernel; the labels equal with
+    after, one B1 launch a field and the forward's ``FORWARD_LAUNCHES``, no
+    other kernel; the labels equal with
     ``stitch_plain`` on the card; the CPU forward's probabilities within
     ``COMPARE_FORWARD_TOL`` of the card's, and the CPU's labels equal the
     card's wherever the CPU's top two quantized bytes differ by more than 1
@@ -3413,7 +3450,7 @@ def phase_compare_archs(args, dev, results):
     iou, acc = compare_archs.evaluate(model, [(img, lab)])
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    check(launches == {k: int(k == "stitch") for k in launches}, f"compare_archs.evaluate on one field launched {launches}")
+    check(launches == {k: int(k == "stitch") + FORWARD_LAUNCHES.get(k, 0) for k in launches}, f"compare_archs.evaluate on one field launched {launches}")
     got = compare_archs.predict(model, img)
     plain = compare_archs.predict(model, img, stitch=K.stitch_plain)
     check(np.array_equal(got, plain), "compare_archs: B1's labels != stitch_plain's on the card")
@@ -3432,7 +3469,7 @@ def phase_compare_archs(args, dev, results):
     check(not (differ & ~close).any(), f"compare_archs: {int((differ & ~close).sum())} labels differ card vs CPU where the CPU's bytes decide them")
     out["evaluate"] = {"iou": iou.tolist(), "pixel_acc": acc, "launches": launches, "forward_max_abs_card_vs_cpu": fwd_err,
                        "labels_differ_card_vs_cpu": int(differ.sum()), "near_ties": int(close.sum())}
-    print(f"compare_archs.evaluate on one 1024^2 field: B1 launched {launches['stitch']}, nothing else; labels equal stitch_plain's; "
+    print(f"compare_archs.evaluate on one 1024^2 field: B1 launched {launches['stitch']}, H1 {launches['conv3x3']}, nothing else; labels equal stitch_plain's; "
           f"card vs CPU forward max |diff| {fwd_err:.3g}, {int(differ.sum())} labels differ (at {int(close.sum())} near-tie pixels); "
           f"IoU {np.round(iou, 4).tolist()} acc {acc:.4f} [{card}]", flush=True)
     del model, cpu_model, p_card, p_cpu
@@ -3448,7 +3485,7 @@ STUDIES = {  # run -> (module, its arguments here, its environment, the kernels 
                                            {"label", "flood_border", "label_flood", "label_mc", "flood_mc"}),
     "profile_metaseg_2048": ("profile_metaseg_2048", ["--size", "1024", "--reps", "1"], {},
                              {"stitch", "label", "flood_border", "flood_seeds", "label_mc", "flood_mc"}),
-    "profile_layers": ("profile_layers", ["--n", "2", "--reps", "10"], {}, set()),
+    "profile_layers": ("profile_layers", ["--n", "2", "--reps", "10"], {}, {"conv3x3"}),
     "profile_nuclei_segment": ("profile_nuclei_segment", ["--size", "1024", "--reps", "1"], {}, {"label"}),
     "profile_fast_watershed": ("profile_fast_watershed", ["--reps", "1"], {}, {"flood_border"}),
     "quantify_watershed_divergence": ("quantify_watershed_divergence", ["2"], {}, {"flood_border"}),
@@ -3463,7 +3500,7 @@ def phase_studies(results):
     once (one process each, as ``torch.profiler`` needs), at small sizes,
     in an empty working directory.  Checks: exit code 0; the last line of each is its
     JSON line, naming this card and holding a row a block with its times;
-    the kernels of ``STUDIES`` launched (``profile_layers`` none);
+    the kernels of ``STUDIES`` launched (``profile_layers`` H1 alone);
     ``quantify_watershed_divergence`` on 2 cases prints the same lines and
     numbers as its run on the CPU here (in-process, while the card runs)."""
     import io
@@ -4063,6 +4100,124 @@ def tile_rows(K, dev, errors, results):
     return rows
 
 
+def conv3x3_forward_check(model, paths):
+    """H1 on the main path: ``segment_folder`` over the main path's images
+    with the forward's 3x3 convs on the kernel (the default) and on cuDNN
+    (``MetasegUNet._kernel_route`` off): a launch per 3x3 conv a forward
+    (18 at four levels), no fallback, label pixels within ``CONV3X3_LABEL_PX`` of cuDNN's and
+    ecDNA counts equal; the same bytes on a second kernel run."""
+    from ecseg_torch.models.metaseg_unet import MetasegUNet
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.pipelines import metaseg
+    from ecseg_torch.runtime import fallbacks
+
+    def run():
+        K.reset_launches()
+        with torch.no_grad():
+            out = {os.path.basename(p): (np.asarray(lab), num) for p, lab, num in metaseg.segment_folder(model, paths)}
+        return out, K.LAUNCHES["conv3x3"]
+
+    fallbacks.reset()
+    kern, launches = run()
+    again, _ = run()
+    check(fallbacks.counts().get(fallbacks.CONV3X3_CUDNN, 0) == 0, f"H1: 3x3 convs left to cuDNN on the main path: {fallbacks.summary()}")
+    route = MetasegUNet._kernel_route
+    MetasegUNet._kernel_route = lambda self, x, dtype: False
+    try:
+        cudnn, cudnn_launches = run()
+    finally:
+        MetasegUNet._kernel_route = route
+    per = sum(1 for layer in model.layers.values() if layer.kernel_size == (3, 3) and layer.stride == (1, 1))  # 18 at 4 levels
+    check(launches == per * len(paths) and cudnn_launches == 0, f"H1: {launches} launches over {len(paths)} forwards of {per} 3x3 convs (cuDNN run {cudnn_launches})")
+    px = sum(int((kern[n][0] != cudnn[n][0]).sum()) for n in kern)
+    counts = {n: (kern[n][1], cudnn[n][1]) for n in kern}
+    check(px <= CONV3X3_LABEL_PX, f"H1: {px} label pixels differ from the cuDNN forward's")
+    check(all(a == b for a, b in counts.values()), f"H1: ecDNA counts {counts}")
+    check(all(np.array_equal(kern[n][0], again[n][0]) for n in kern), "H1: a second run's labels differ")
+    out = {"images": len(paths), "launches": launches, "label_px_differ": px, "ec_counts": counts}
+    print(f"H1 on the main path: {out}", flush=True)
+    return out
+
+
+def conv3x3_rows(dev, results):
+    """H1's timing rows at ``CONV3X3_SHAPES``: bit-equal to its twin on
+    integer-valued inputs (every sum exact; cuDNN's FFT tiling is not), the
+    max relative error against cuDNN (``parity_flags``) on normal inputs, the same bytes
+    on a second call and over 50 + 50 patches, then ms, device ms, bound,
+    the twin's ms and cuDNN's (``library_ms``)."""
+    from ecseg_torch.models.layers import parity_flags
+    from ecseg_torch.ops import conv3x3
+
+    rows = []
+    for level, (n, h, w, ca, cb, cout) in CONV3X3_SHAPES.items():
+        cin = ca + cb
+        g = torch.Generator(device=dev).manual_seed(n * h + cin)
+        xi = torch.randint(-2, 3, (n, cin, h, w), device=dev, generator=g).float().contiguous(memory_format=torch.channels_last)
+        ki = torch.randint(-2, 3, (cout, cin, 3, 3), device=dev, generator=g).float()
+        b = torch.randint(-20, 21, (cout,), device=dev, generator=g).float()
+
+        def halves(x):
+            return (x[:, :ca].contiguous(memory_format=torch.channels_last),
+                    x[:, ca:].contiguous(memory_format=torch.channels_last) if cb else None)
+
+        def kern(x, k):
+            xa, xb = halves(x)
+            return conv3x3.conv3x3_relu(xa, k, b, xb)
+
+        def library(x, k):  # as the forward ran before H1: NCHW, cuDNN's fused bias, then the ReLU
+            with parity_flags():
+                return torch.relu(torch.nn.functional.conv2d(x.contiguous(), k, b, padding=1))
+
+        def plain(x, k):
+            xa, xb = halves(x)
+            return conv3x3.conv3x3_relu_plain(xa, k, b, xb)
+
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = plain(xi, ki)  # the twin's one call: its ms (each costs seconds)
+        z.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(z)
+        check(torch.equal(kern(xi, ki), want), f"H1 {level}: != its twin on integer inputs")
+        del want
+        x = torch.randn((n, cin, h, w), device=dev, generator=g).contiguous(memory_format=torch.channels_last)
+        k = torch.randn((cout, cin, 3, 3), device=dev, generator=g) / (3 * cin**0.5)
+        xa, xb = halves(x)
+        got, want = kern(x, k), library(x, k)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel < 1e-5, f"H1 {level}: max relative error {rel:.3g} against cuDNN")
+        check(torch.equal(kern(x, k), got), f"H1 {level}: a second call's bytes differ")
+        split = torch.cat([conv3x3.conv3x3_relu(xa[:50], k, b, None if xb is None else xb[:50]),
+                           conv3x3.conv3x3_relu(xa[50:], k, b, None if xb is None else xb[50:])])
+        check(torch.equal(split, got), f"H1 {level}: 50 + 50 patches differ from 100")
+        del got, want, split
+        ms = cuda_ms(lambda: conv3x3.conv3x3_relu(xa, k, b, xb), 5)
+        dev_ms, kernel_ms = device_ms(lambda: conv3x3.conv3x3_relu(xa, k, b, xb), 5, kernel="conv3x3_f32", event_ms=ms)
+        xn = x.contiguous()
+        library_ms = cuda_ms(lambda: library(xn, k), 3)
+        flops = 2 * 9 * n * h * w * cin * cout
+        nbytes = 4 * (n * h * w * (cin + cout) + 9 * cin * cout + cout)
+        by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+        row = {
+            "name": "conv3x3_relu", "b": "H1", "route": "cuda", "source": "ecseg_torch/csrc/conv3x3_f32.cu",
+            "replaces": None, "pallas_function": None, "path": "metaseg float32 forward (18 launches a 100-patch model call)",
+            "input": f"{level} {(n, h, w, ca, cb, cout)} float32, channels-last",
+            "launches": results["launches"]["default"]["conv3x3"], "launches_form": "default",
+            "max_rel_err_cudnn": rel, "ms": ms, "device_ms": dev_ms, "kernel_device_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms, "tflops": flops / ms / 1e9,
+        }
+        row["bound_share"] = row["bound_ms"] / ms
+        rows.append(row)
+        print(f"H1 conv3x3_relu {level}: kernel {ms:.3f} ms (device {dev_ms}), {row['tflops']:.1f} TFLOP/s, "
+              f"bound {row['bound_ms']:.3f} ms ({100 * row['bound_share']:.1f} %), plain {plain_ms:.1f} ms, "
+              f"cuDNN (parity flags) {library_ms:.3f} ms, max rel err {rel:.3g}", flush=True)
+        del x, xn, k, xa, xb, xi, ki
+        torch.cuda.empty_cache()
+    rows[0]["main_path"] = results.get("conv3x3_forward")
+    return rows
+
+
 @contextlib.contextmanager
 def plain_twins():
     """Run the bench's full program and the post it calls through the
@@ -4258,6 +4413,7 @@ def main() -> int:
     xl_ms = phase_xl_forward(rng, dev)
     per_tile = phase_tile_count(K, dev, results)
     rows += tile_rows(K, dev, errors, results)
+    rows += conv3x3_rows(dev, results)
     phase_bench(dev, results)
     # after every profiler timing: once the card has idled through long host
     # work (stat_fish's tail), torch.profiler drops the device records of
@@ -4283,7 +4439,7 @@ def main() -> int:
             row["tf_models_launches"] = results["tf_models"]["launches"].get(key, 0)  # stat_fish from the converted checkpoints
         # the demo path's launches (its in-process run), beside the main path's
         row["demo_launches"] = sum(ln.get(wrapper_key.get(row["name"]), 0) for ln in results["demo"]["launches"].values())
-        # compare_archs.evaluate's launches on one field (B1 only)
+        # compare_archs.evaluate's launches on one field (B1 and H1 only)
         row["compare_archs_launches"] = results["compare_archs"]["evaluate"]["launches"].get(wrapper_key.get(row["name"]), 0)
     print(json.dumps({"tile_count_ms_per_tile": per_tile, "card": smi}))
     print(json.dumps({"stages_s": results["stages"], "main_wall_s": results["main_wall_s"], "xl_forward_100_ms": xl_ms, "card": smi}))

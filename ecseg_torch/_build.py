@@ -27,7 +27,7 @@ from typing import Dict
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
 HOST_BUILD_ROOT = os.path.join(os.path.dirname(BUILD_ROOT), "host")
-SOURCES = ("stitch.cu", "cc_label.cu", "cc_flood.cu", "cc_count.cu", "fused_tail.cu", "convt.cu")
+SOURCES = ("stitch.cu", "cc_label.cu", "cc_flood.cu", "cc_count.cu", "fused_tail.cu", "convt.cu", "conv3x3_f32.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -27,6 +27,17 @@ dtype of the model's weights.
   ``ECSEG_SPLIT_CONCAT`` is on; the head's logits to float32 before the
   softmax.
 
+On the card, a float32 forward that builds no autograd graph sends its
+3x3 convs to the hand-written kernel ``ops/conv3x3.conv3x3_relu`` (float32
+FMAs in a fixed order, bias and ReLU fused, ``dec*_1``'s two halves read
+in place): ``_kernel_route`` decides per forward, from the input's device
+and dtype and whether autograd records.  Its activations are then
+channels-last (NHWC in memory) through the trunk; the pools, transpose
+convs and the head stay on cuDNN in that layout.  A shape the kernel
+refuses goes to cuDNN and is counted in ``runtime/fallbacks``
+(``conv3x3_cudnn``).  Every other forward (the CPU, autograd's, bf16,
+``forward_cat1``) is the cuDNN path as described above.
+
 The forward names its parts for a device trace: the profiler ranges
 ``metaseg.forward.encoder`` (the input's permute and scale, ``enc*`` and
 the pools), ``metaseg.forward.decoder`` (``bott_*``, ``up*`` and
@@ -42,6 +53,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops import conv3x3
+from ..runtime import fallbacks
 from ..runtime.trace import region
 from .layers import SameConv2d, TFConvTranspose2d, conv_same, glorot_uniform_, max_pool_same, parity_flags
 
@@ -132,6 +145,30 @@ class MetasegUNet(nn.Module):
         layer = self.layers[name]
         return layer(x) if x.dtype == torch.float32 else layer.forward_bias_after(x)
 
+    def _kernel_route(self, x: torch.Tensor, dtype: torch.dtype) -> bool:
+        """Whether this forward's 3x3 convs go to ``conv3x3_relu``: a
+        float32 forward of float32 weights on the card that builds no
+        autograd graph."""
+        if not (x.is_cuda and dtype == torch.float32 and self.dtype == torch.float32):
+            return False
+        return not torch.is_grad_enabled() or not (x.requires_grad or any(p.requires_grad for p in self.parameters()))
+
+    def _conv_relu(self, name: str, x: torch.Tensor, x2: Optional[torch.Tensor] = None, route: bool = False) -> torch.Tensor:
+        """``relu(layer(cat([x, x2])))``: through the kernel on ``route``
+        when it takes the layer's shapes, else ``_conv`` on the concat."""
+        layer = self.layers[name]
+        if route and isinstance(layer, SameConv2d) and layer.kernel_size == (3, 3):
+            if conv3x3.refusal(x, layer.weight, x2) is None:
+                cl = torch.channels_last
+                return conv3x3.conv3x3_relu(
+                    x.contiguous(memory_format=cl), layer.weight, layer.bias,
+                    None if x2 is None else x2.contiguous(memory_format=cl),
+                )
+            fallbacks.record(fallbacks.CONV3X3_CUDNN)
+        if x2 is not None:
+            x = torch.cat([x, x2], dim=1)
+        return torch.relu(self._conv(name, x))
+
     def _dec_first(self, skip: torch.Tensor, x: torch.Tensor, name: str) -> torch.Tensor:
         """``relu(conv(concat([skip, x]), K))`` as two convs over the halves
         of K's input channels, each rounded (``metaseg_unet.py:113-127``)."""
@@ -142,42 +179,44 @@ class MetasegUNet(nn.Module):
         yb = conv_same(x, w[:, cs:], layer.bias)
         return torch.relu(ya + yb)
 
-    def _trunk_to_level1(self, x: torch.Tensor, dtype: torch.dtype):
+    def _trunk_to_level1(self, x: torch.Tensor, dtype: torch.dtype, route: bool = False):
         """Encoder, bottleneck and decoder through ``up1``: (level-1 skip,
-        upsampled level-1 feature), NCHW in ``dtype``."""
+        upsampled level-1 feature), NCHW-shaped in ``dtype`` (channels-last
+        on ``route``)."""
         split = dtype != torch.float32 and split_concat()
         with region("metaseg.forward.encoder"):
             x = x.permute(0, 3, 1, 2).to(dtype) / 255.0
             skips = []
             for i in range(1, len(self.widths) + 1):
-                x = torch.relu(self._conv(f"enc{i}_1", x))
-                x = torch.relu(self._conv(f"enc{i}_2", x))
+                x = self._conv_relu(f"enc{i}_1", x, route=route)
+                x = self._conv_relu(f"enc{i}_2", x, route=route)
                 skips.append(x)
                 x = max_pool_same(x)
         with region("metaseg.forward.decoder"):
-            x = torch.relu(self._conv("bott_1", x))
-            x = torch.relu(self._conv("bott_2", x))
+            x = self._conv_relu("bott_1", x, route=route)
+            x = self._conv_relu("bott_2", x, route=route)
             for i in range(len(self.widths), 1, -1):
                 x = torch.relu(self._conv(f"up{i}", x))
                 if split:
                     x = self._dec_first(skips[i - 1], x, f"dec{i}_1")
                 else:
-                    x = torch.relu(self._conv(f"dec{i}_1", torch.cat([skips[i - 1], x], dim=1)))
-                x = torch.relu(self._conv(f"dec{i}_2", x))
+                    x = self._conv_relu(f"dec{i}_1", skips[i - 1], x, route=route)
+                x = self._conv_relu(f"dec{i}_2", x, route=route)
             return skips[0], torch.relu(self._conv("up1", x))
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """(N, H, W, C) patches -> (N, H, W, num_classes) float32
         probabilities, computed in ``dtype`` (None: the weights' dtype)."""
         dtype = self.dtype if dtype is None else dtype
+        route = self._kernel_route(x, dtype)
         with parity_flags():
-            s1, xu = self._trunk_to_level1(x, dtype)
+            s1, xu = self._trunk_to_level1(x, dtype, route)
             with region("metaseg.forward.head"):
                 if dtype == torch.float32:
-                    x = torch.relu(self._conv("dec1_1", torch.cat([s1, xu], dim=1)))
+                    x = self._conv_relu("dec1_1", s1, xu, route=route)
                 else:
                     x = self._dec_first(s1, xu, "dec1_1")
-                x = torch.relu(self._conv("dec1_2", x))
+                x = self._conv_relu("dec1_2", x, route=route)
                 logits = self._conv("head", x)
                 return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
 

@@ -29,7 +29,7 @@ Dispatch is by where the input lies: a CPU tensor goes to the plain twin
 no fallback from a failing kernel to its twin.  ``LAUNCHES`` counts kernel
 launches per wrapper (never twin calls), so a run can show that it went
 through the kernels; it and the ctypes bindings (``_launch``) also serve
-B10 (``ops/fused_tail.py``) and B11 (``ops/convt.py``).  The twins are plain torch on any device and are the
+B10 (``ops/fused_tail.py``), B11 (``ops/convt.py``) and H1 (``ops/conv3x3.py``).  The twins are plain torch on any device and are the
 reference the kernels are held against on the card.  Class maps (B5, B6)
 enter the kernels as contiguous uint8; masks and seeds as bool.  B8b takes
 the patch labels as uint8 (``tiling.patch_labels``) or int32 (kernel B10's
@@ -61,6 +61,7 @@ LAUNCHES: Dict[str, int] = {
     "count_patches": 0,
     "fused_tail": 0,  # B10, ops/fused_tail.py
     "convt": 0,  # B11, ops/convt.py
+    "conv3x3": 0,  # H1, ops/conv3x3.py
 }
 
 
@@ -271,6 +272,7 @@ _SIGNATURES = {
     "ecseg_fused_tail_mma": ("fused_tail.cu", [_P, _P, _P, _P, _P, _P, _P] + [_I] * 13 + [_P]),
     "ecseg_convt": ("convt.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "ecseg_convt_mma": ("convt.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "ecseg_conv3x3": ("conv3x3_f32.cu", [_P, _P, _P, _P, _P] + [_I] * 9 + [_P]),
 }
 _cfuncs: Dict[str, ctypes._CFuncPtr] = {}
 

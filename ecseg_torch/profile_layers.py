@@ -16,13 +16,18 @@ TFLOP/s float32 outside the tensor cores: the float32 path runs with TF32
 off; NVIDIA's data sheet, H100 SXM at 700 W; the card's power limit is
 printed beside it).
 
-Each layer runs in the memory format and dtype in which ``MetasegUNet``'s
-forward hands it to cuDNN (:func:`record_formats`: one forward on two
-patches with each convolution's and the pool's input recorded; the forward
-feeds its first conv a permuted, channels-last view of its one-channel
-input, so no layout is assumed), with the bias as the forward adds it, and
-under ``layers.parity_flags`` as the forward runs (both dtypes, bf16 first).
-``bf16`` is the tile-count and bench path, ``float32`` metaseg's.
+Each layer runs through the op, memory format and dtype through which
+``MetasegUNet``'s forward runs it (:func:`record_formats`: one forward on
+two patches with each convolution's and the pool's input recorded; the
+forward feeds its first conv a permuted, channels-last view of its
+one-channel input, so no layout is assumed), with the bias as the forward
+adds it, and under ``layers.parity_flags`` as the forward runs (both
+dtypes, bf16 first).  ``bf16`` is the tile-count and bench path,
+``float32`` metaseg's.  A row's ``op`` names what it times: ``H1`` where
+the forward hands the layer to the hand-written 3x3 conv
+(``ops/conv3x3.py``: the float32 forward on the card, channels-last, its
+ReLU fused and ``dec*_1``'s two halves read apart), else ``library``
+(cuDNN's conv or transpose conv, ATen's pool).
 
 FLOPs are what the work needs: a 3x3 conv 2*9*h^2*cin*cout*N, the 1x1 head
 2*h^2*cin*cout*N, a stride-2 transpose conv 2*9*h^2*cin*cout*N at its input
@@ -48,6 +53,7 @@ from .device import DeviceLike, resolve_device
 from .models.layers import conv_same, max_pool_same, parity_flags
 from .models import metaseg_unet
 from .models.metaseg_unet import BOTTLENECK, ENC_WIDTHS, NUM_CLASSES, PATCH, MetasegUNet
+from .ops import conv3x3
 from .peaks import H100, PEAKS
 from .profile_metaseg_2048 import DTYPES
 from .runtime.hostmem import tune_host_allocator
@@ -107,7 +113,8 @@ def layout(t: torch.Tensor) -> str:
 class _Recorder(TorchFunctionMode):
     """Records each conv's, transpose conv's and max pool's input dtype and
     layout, and its output's, under the layer name the model's ``_conv`` /
-    ``_dec_first`` is running (the pools as ``pool1``, ``pool2``, ...)."""
+    ``_dec_first`` / ``_conv_relu`` is running (the pools as ``pool1``,
+    ``pool2``, ...); :meth:`h1` records a call of the hand-written conv."""
 
     FNS = {F.conv2d: "conv", F.conv_transpose2d: "convt", F.max_pool2d: "pool"}
 
@@ -116,6 +123,7 @@ class _Recorder(TorchFunctionMode):
         self.current: Optional[str] = None
         self.pools = 0
         self.seen: Dict[str, Dict] = {}
+        self.kernel = conv3x3.conv3x3_relu
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -129,16 +137,23 @@ class _Recorder(TorchFunctionMode):
             x = args[0]
             y = out[0] if isinstance(out, tuple) else out
             self.seen.setdefault(name, {"dtype": str(x.dtype).replace("torch.", ""), "input": layout(x),
-                                        "output": layout(y), "shape": list(x.shape)})
+                                        "output": layout(y), "shape": list(x.shape), "op": "library"})
         return out
+
+    def h1(self, x, weight, bias, x2=None):
+        y = self.kernel(x, weight, bias, x2)
+        self.seen.setdefault(self.current, {"dtype": str(x.dtype).replace("torch.", ""), "input": layout(x), "output": layout(y),
+                                            "shape": list(x.shape), "op": "H1", "split": 0 if x2 is None else x2.shape[1]})
+        return y
 
 
 def record_formats(model: MetasegUNet, x: torch.Tensor, dtype: torch.dtype) -> Dict[str, Dict]:
-    """Layer name -> the dtype and layout of the input the forward hands
-    its (first) convolution, and of that call's output, from one forward of
-    ``x`` in ``dtype``."""
+    """Layer name -> the op (``library`` or ``H1``; with H1 the channels of
+    the second input half, ``split``), dtype and layout of the input the
+    forward hands its (first) convolution, and of that call's output, from
+    one forward of ``x`` in ``dtype``."""
     rec = _Recorder()
-    conv, dec_first = model._conv, model._dec_first
+    conv, dec_first, conv_relu = model._conv, model._dec_first, model._conv_relu
 
     def named_conv(name, x):
         rec.current = name
@@ -148,12 +163,18 @@ def record_formats(model: MetasegUNet, x: torch.Tensor, dtype: torch.dtype) -> D
         rec.current = name
         return dec_first(skip, x, name)
 
-    model._conv, model._dec_first = named_conv, named_dec_first
+    def named_conv_relu(name, *args, **kw):
+        rec.current = name
+        return conv_relu(name, *args, **kw)
+
+    model._conv, model._dec_first, model._conv_relu = named_conv, named_dec_first, named_conv_relu
+    conv3x3.conv3x3_relu = rec.h1
     try:
         with torch.no_grad(), rec:
             model(x, dtype)
     finally:
-        del model._conv, model._dec_first
+        conv3x3.conv3x3_relu = rec.kernel
+        del model._conv, model._dec_first, model._conv_relu
     return rec.seen
 
 
@@ -166,10 +187,17 @@ def _in_layout(x_nhwc: torch.Tensor, fmt: str) -> torch.Tensor:
     return x.contiguous() if fmt == "contiguous" else x.contiguous(memory_format=torch.channels_last)
 
 
-def layer_op(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """The layer as the forward calls it: float32 with cuDNN's fused bias
+def layer_op(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, h1_split: Optional[int] = None):
+    """The layer as the forward calls it: with ``h1_split`` (the second
+    half's channels) the hand-written conv on the channels-last halves,
+    else float32 with cuDNN's fused bias
     (``nn.Conv2d``/``TFConvTranspose2d.forward``), bf16 with the bias added
     after the rounding (``forward_bias_after``)."""
+    if h1_split is not None:
+        ca = x.shape[1] - h1_split
+        cl = torch.channels_last
+        xa, xb = x[:, :ca].contiguous(memory_format=cl), x[:, ca:].contiguous(memory_format=cl) if h1_split else None
+        return lambda: conv3x3.conv3x3_relu(xa, w, b, xb)
     if kind == "pool":
         return lambda: max_pool_same(x)
     fused = x.dtype == torch.float32
@@ -210,7 +238,9 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int
         total = 0.0
         with torch.no_grad(), parity_flags():
             for (layer, kind, h, cin, cout), (x_np, ks) in zip(table, draws):
-                fmt = formats[name].get(layer, {}).get("input", "contiguous")
+                seen = formats[name].get(layer, {})
+                fmt = seen.get("input", "contiguous")
+                h1_split = seen.get("split") if seen.get("op") == "H1" else None
                 x = _in_layout(torch.from_numpy(x_np).to(dev, dtype), fmt)
                 k = torch.from_numpy(ks[0]).to(dev, dtype)
                 w = (k.permute(2, 3, 0, 1) if kind == "convt" else k.permute(3, 2, 0, 1)).contiguous()
@@ -218,15 +248,15 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int
                 fl = flops(kind, h, cin, cout, n)
                 est_s = max(fl / PEAK[name], n * h * h * cin * x.element_size() / PEAKS[H100]["hbm_bytes_per_s"])
                 reps = int(min(max_reps, max(10, 0.2 / est_s)))
-                study.device_row(layer, layer_op(kind, x, w, b), reps, dtype=name, kind=kind, h=h, cin=cin, cout=cout,
-                                 flops=fl, layout_in=fmt, layout_out=formats[name].get(layer, {}).get("output"))
+                study.device_row(layer, layer_op(kind, x, w, b, h1_split), reps, dtype=name, kind=kind, h=h, cin=cin, cout=cout,
+                                 flops=fl, layout_in=fmt, layout_out=seen.get("output"), op=seen.get("op", "library"))
                 row = study.rows[-1]
                 if row["device_ms"] is not None:
                     row["chunk_ms"] = row["device_ms"] * CHUNK / n
                     row["tflops"] = fl / row["device_ms"] / 1e9
                     row["peak_share"] = row["tflops"] * 1e12 / PEAK[name]
                     total += row["chunk_ms"]
-                    print(f"{layer:8s} {kind:5s} {h:3d}² {cin:4d}->{cout:4d} {fmt:13s} {row['chunk_ms']:8.2f} ms/chunk "
+                    print(f"{layer:8s} {kind:5s} {row['op']:7s} {h:3d}² {cin:4d}->{cout:4d} {fmt:13s} {row['chunk_ms']:8.2f} ms/chunk "
                           f"{row['tflops']:7.1f} TFLOP/s ({100 * row['peak_share']:5.1f}% peak) reps={reps}", flush=True)
                 del x
         with torch.no_grad():

@@ -10,8 +10,8 @@ twins themselves are held against the JAX package on the CPU by
 tests/test_torch_cc.py, tests/test_torch_cc_tiles.py,
 tests/test_torch_cc_multiclass.py,
 tests/test_torch_cc_count.py, tests/test_torch_fused_tail.py,
-tests/test_torch_convt.py and tests/test_torch_tiling.py.  The kernels'
-equality at 2048^2 and 2048x3072, and at the tile-count path's shapes, is
+tests/test_torch_convt.py, tests/test_torch_conv3x3.py and
+tests/test_torch_tiling.py.  The kernels' equality at 2048^2 and 2048x3072, and at the tile-count path's shapes, is
 checked by chip_smoke.py.  meta_overlay's statistics (B2 and B8a) are held
 against their own CPU run (the twins), which tests/test_torch_overlay.py
 holds against the JAX package; so are stat_fish's device stages (the EDT,
@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from ecseg_torch.ops import cc_kernels as K
-from ecseg_torch.ops import tiling
+from ecseg_torch.ops import conv3x3, tiling
 from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
 from ecseg_torch.ops.fused_tail import fused_dec1_head, fused_dec1_head_plain
 
@@ -225,7 +225,7 @@ def test_wrappers_check_inputs_and_count_launches(cuda):
     assert K.LAUNCHES == {
         "stitch": 0, "label": 1, "flood_border": 1, "flood_seeds": 1,
         "label_mc": 1, "flood_mc": 1, "label_flood": 1, "count": 1,
-        "count_patches": 0, "fused_tail": 0, "convt": 0,
+        "count_patches": 0, "fused_tail": 0, "convt": 0, "conv3x3": 0,
     }
 
 
@@ -429,6 +429,90 @@ def test_new_wrappers_check_inputs_and_count_launches(cuda):
     fused_dec1_head(x, w1, b, w2, b, wh, bh)
     conv2d_transpose_packed(xt, torch.zeros((3, 3, 8, 8), device=cuda))
     assert {k: v for k, v in K.LAUNCHES.items() if v} == {"count_patches": 1, "fused_tail": 1, "convt": 1}
+
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,h,w,ca,cb,cout",
+    [(2, 16, 16, 1, 0, 64), (1, 256, 256, 64, 0, 64), (2, 16, 16, 1024, 0, 128), (2, 32, 32, 128, 128, 128),
+     (2, 20, 18, 8, 8, 4), (1, 9, 7, 3, 5, 8), (2, 37, 23, 24, 0, 200), (3, 17, 40, 64, 64, 64)],
+)
+def test_conv3x3_kernel_matches_twin_and_cudnn(cuda, n, h, w, ca, cb, cout):
+    """The float32 3x3 conv: bit-equal to its twin on integer inputs (every
+    sum exact; cuDNN's FFT tiling is not), also off the 8 x 16 tile, the
+    64/128-channel block and the 16-channel chunk, with a split input;
+    within float32 sum-order noise of cuDNN (TF32 off) on integer and
+    normal inputs; the same bytes on a second call and per image."""
+    from ecseg_torch.models.layers import parity_flags
+
+    rng = np.random.default_rng(n * h + ca + cb)
+    x = torch.from_numpy(rng.integers(-4, 5, (n, ca + cb, h, w)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rng.integers(-4, 5, (cout, ca + cb, 3, 3)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.integers(-40, 41, (cout,)).astype(np.float32)).to(cuda)
+
+    def run(x, k, b):
+        return conv3x3.conv3x3_relu(_cl(x[:, :ca]), k, b, _cl(x[:, ca:]) if cb else None)
+
+    got = run(x, k, b)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, conv3x3.conv3x3_relu_plain(x[:, :ca].cpu(), k.cpu(), b.cpu(), x[:, ca:].cpu() if cb else None).to(cuda))
+    xr, kr = torch.randn_like(x), torch.randn_like(k) / (3 * (ca + cb) ** 0.5)
+    for xs, ks in ((x, k), (xr, kr)):
+        got = run(xs, ks, b)
+        with parity_flags():
+            want = torch.relu(torch.nn.functional.conv2d(xs, ks, b, padding=1))
+        assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert torch.equal(run(xr, kr, b), got)
+    assert torch.equal(torch.cat([run(xr[i : i + 1], kr, b) for i in range(n)]), got)
+
+
+@pytest.mark.cuda
+def test_conv3x3_refuses_and_counts_launches(cuda):
+    K.reset_launches()
+    x = torch.zeros((1, 8, 16, 16), device=cuda)
+    k, b = torch.zeros((8, 8, 3, 3), device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        conv3x3.conv3x3_relu(torch.zeros((1, 8, 16, 16), device=cuda), k, b)  # NCHW memory
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_relu(_cl(x).half(), k, b)
+    with pytest.raises(ValueError, match="not 3x3"):
+        conv3x3.conv3x3_relu(_cl(x), torch.zeros((8, 8, 1, 1), device=cuda), b)
+    with pytest.raises(ValueError, match="is on cpu"):
+        conv3x3.conv3x3_relu(_cl(x), k.cpu(), b)
+    assert set(K.LAUNCHES.values()) == {0}
+    conv3x3.conv3x3_relu(_cl(x), k, b)
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"conv3x3": 1}
+
+
+@pytest.mark.cuda
+def test_metaseg_forward_routes_its_3x3_convs_to_the_kernel(cuda):
+    """A no-grad float32 forward on the card: 18 kernel launches and the
+    labels of the cuDNN forward; a forward that builds a graph and a bf16
+    forward launch none."""
+    from ecseg_torch.models.metaseg_unet import MetasegUNet
+    from ecseg_torch.runtime import fallbacks
+
+    model = MetasegUNet((8, 16, 32, 64), 128, generator=torch.Generator().manual_seed(3)).to(cuda).eval()
+    x = torch.from_numpy((np.random.default_rng(3).random((4, 256, 256, 1)) * 255).astype(np.uint8)).to(cuda)
+    K.reset_launches()
+    fallbacks.reset()
+    with torch.no_grad():
+        probs = model(x)
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"conv3x3": 18} and fallbacks.counts() == {}
+    cpu = model.to("cpu")
+    with torch.no_grad():
+        want = cpu(x.cpu())
+    assert float((probs.cpu() - want).abs().max()) <= 1e-5
+    model.to(cuda)
+    K.reset_launches()
+    model(x)  # autograd records
+    with torch.no_grad():
+        model(x, dtype=torch.bfloat16)
+    assert set(K.LAUNCHES.values()) == {0}
 
 
 def _overlay_masks(rng, shape):
@@ -642,7 +726,8 @@ def test_logical_mesh_metaseg_equals_the_single_card_run(cuda, tmp_path, monkeyp
     default form (each image's chain on one entry, B1-B6 launched as often
     as on one card) and under ``ECSEG_DEVICE_PIPELINE=0`` (patch batches
     split over the entries, the stitch and the oracle on the host: no
-    launch): labels, PNGs and CSV bytes equal to the single-card run's."""
+    launch but the forwards' H1, one a 3x3 conv of each entry's forward):
+    labels, PNGs and CSV bytes equal to the single-card run's."""
     import shutil
 
     import chip_smoke as cs
@@ -659,7 +744,8 @@ def test_logical_mesh_metaseg_equals_the_single_card_run(cuda, tmp_path, monkeyp
     src = tmp_path / "src"
     src.mkdir()
     rng = np.random.default_rng(1)
-    for k, (h, w) in enumerate([(320, 352), (320, 310), (320, 352), (320, 352), (320, 352)]):
+    sizes = [(320, 352), (320, 310), (320, 352), (320, 352), (320, 352)]
+    for k, (h, w) in enumerate(sizes):
         imgio.write_tiff(str(src / f"img{k}.tif"), cs.synthetic_dapi(rng, h, w, crowded=k == 2))
     outs, launches = {}, {}
     for run, kw in (("card", {"device": "cuda"}), ("mesh", {"devices": ["cuda:0"] * 2})):
@@ -673,7 +759,11 @@ def test_logical_mesh_metaseg_equals_the_single_card_run(cuda, tmp_path, monkeyp
     if device_post == "1":
         assert launches["mesh"] == launches["card"] and launches["mesh"]["stitch"] == 5
     else:
-        assert not any(launches["mesh"].values()) and launches["card"]["stitch"] == 5
+        # segment_folder_sharded: batches of 256 patches, each split over the 2 entries
+        n_patches = sum(len(tiling.patch_positions(h, w)) for h, w in sizes)
+        convs = sum(1 for layer in model.layers.values() if layer.kernel_size == (3, 3) and layer.stride == (1, 1))
+        assert {k: v for k, v in launches["mesh"].items() if v} == {"conv3x3": 2 * -(-n_patches // 256) * convs}
+        assert launches["card"]["stitch"] == 5
 
 
 @pytest.mark.cuda

@@ -31,7 +31,7 @@ import torch
 
 from ecseg_torch.core import imgio
 from ecseg_torch.ops import cc_kernels as K
-from ecseg_torch.ops import convt, fused_tail, overlay_gpu
+from ecseg_torch.ops import conv3x3, convt, fused_tail, overlay_gpu
 from ecseg_torch.ops.meta_post import meta_preprocess, otsu_threshold_u8
 
 from _torchutil import single_torch_thread  # noqa: F401 (autouse fixture)
@@ -169,10 +169,11 @@ def _meta(shape, dtype=torch.bool):
         ),
         lambda: convt.conv2d_transpose_packed(_meta((1, 8, 8, 4), torch.bfloat16), _meta((3, 3, 4, 64), torch.bfloat16)),
         lambda: overlay_gpu.overlay_stats(*[np.zeros((8, 8), bool)] * 5, device="meta"),
+        lambda: conv3x3.conv3x3_relu(_meta((1, 4, 8, 8), torch.float32), _meta((8, 4, 3, 3), torch.float32), _meta((8,), torch.float32)),
     ],
     ids=[
         "stitch", "label", "flood_border", "flood_seeds", "label_mc", "flood_mc", "label_flood",
-        "count", "count_patches", "fused_tail", "convt", "overlay",
+        "count", "count_patches", "fused_tail", "convt", "overlay", "conv3x3",
     ],
 )
 def test_wrappers_raise_off_cpu_and_never_call_twins(monkeypatch, call):
@@ -187,6 +188,7 @@ def test_wrappers_raise_off_cpu_and_never_call_twins(monkeypatch, call):
         monkeypatch.setattr(K, name, forbidden)
     monkeypatch.setattr(fused_tail, "fused_dec1_head_plain", forbidden)
     monkeypatch.setattr(convt, "conv2d_transpose_packed_plain", forbidden)
+    monkeypatch.setattr(conv3x3, "conv3x3_relu_plain", forbidden)
     before = dict(K.LAUNCHES)
     with pytest.raises(ValueError, match="expected a CPU or CUDA tensor"):
         call()

@@ -205,6 +205,29 @@ def test_recorded_layouts_match_a_forward_hook():
     assert {r["dtype"] for r in bf16.values()} == {"bfloat16"} and set(bf16) == set(recorded)
 
 
+def test_recorded_formats_name_the_hand_kernel_where_the_forward_routes(monkeypatch):
+    """Where the forward hands its 3x3 convs to ``conv3x3_relu`` (the
+    float32 forward on the card; forced here on the CPU, where the twin
+    serves it), ``record_formats`` names them ``H1`` with the second
+    half's channels, and ``layer_op`` times that call on the halves."""
+    model = MetasegUNet((4, 8), 16, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 256, 256, 1), dtype=np.uint8))
+    monkeypatch.setattr(MetasegUNet, "_kernel_route", lambda self, x, dtype: True)
+    recorded = profile_layers.record_formats(model, x, torch.float32)
+    h1 = {name for name, r in recorded.items() if r["op"] == "H1"}
+    assert h1 == {name for name, layer in model.layers.items() if layer.kernel_size == (3, 3) and layer.stride == (1, 1)}
+    assert {name: r["split"] for name, r in recorded.items() if r["op"] == "H1" and r["split"]} == {"dec2_1": 8, "dec1_1": 4}
+    assert {r["op"] for name, r in recorded.items() if name not in h1} == {"library"}  # pools, transpose convs, head
+    assert recorded["dec1_1"]["input"] == "channels_last"
+    xi = torch.from_numpy(np.random.default_rng(2).integers(-3, 4, (1, 8, 16, 16)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(3).integers(-3, 4, (4, 8, 3, 3)).astype(np.float32))
+    b = torch.arange(4, dtype=torch.float32)
+    for split in (0, 4):
+        got = profile_layers.layer_op("conv", xi, w, b, h1_split=split)()
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, torch.relu(torch.nn.functional.conv2d(xi, w, b, padding=1)))
+
+
 # --- each study on the CPU -----------------------------------------------------
 
 
