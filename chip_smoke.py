@@ -425,8 +425,9 @@ STAT_FISH_IMAGES = 3  # 2048^2 RGB uint16 LZW TIFFs
 STAT_FISH_T = 5000  # nuclei_size_T of the repository's config.yaml
 STAT_FISH_LABELS_PER_IMAGE = 4  # B2: clean_image's three labelings and remove_small_objects' one
 STAT_FISH_SMALL = (900, 700)  # an input whose NuSeT width (208) is not a multiple of 32
-STAT_FISH_STAGES = ("nuclei_segment", "watershed", "cleanup", "min_cut", "matched_filter", "region_stats",
+STAT_FISH_STAGES = ("nuclei_segment", "back_wait", "watershed", "cleanup", "min_cut", "matched_filter", "region_stats",
                     "tail_visuals", "tail_writes", "decode_wait", "tail_wait")
+NUSET_STAGES = ("prep", "forward", "fg_norm", "proposals")  # models/nuset_infer's stages
 
 
 def tile_path_launches(fused_tail: bool):
@@ -1484,20 +1485,29 @@ def touching_nuclei_case(rng, h, w, n):
     return mask.astype(np.float32), np.full(n, 0.97, np.float32), np.array(props, np.float32)
 
 
-def stat_fish_transfers(fetched, n_images, fast_passes):
+def stat_fish_transfers(fetched, n_images, fast_passes, nms_kept, redone):
     """stat_fish's device->host bytes and copies an image in the default
     (``auto``) run, checked against its packed layouts: per image the two
     NuSeT passes' masks and the cleanup's mask 1 bit a pixel, the matched
-    filter's two center maps 1 bit a pixel, and per certified watershed
-    with markers (one B3 launch each) its contour and 4-byte certificate."""
+    filter's two center maps 1 bit a pixel, the NMS's suppression matrix
+    with its row of candidate flags 1 bit a pair, and the kept proposals
+    with their scores (``nms_kept`` over the run, 5 float32 each); per
+    certified watershed with markers (one B3 launch each) its contour and
+    4-byte certificate, and per watershed ``redone`` on the host its two
+    int32 flood inputs."""
     from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.ops import boxes
 
     side = int(round(SIZE * 0.3)) // 16 * 16  # NuSeT's side at scale_ratio 0.3
     out_h, out_w = ni.output_shape((side, side), 0.3)
     nuset_mask, full_mask = side * -(-side // 8), out_h * -(-out_w // 8)
-    want = n_images * (2 * nuset_mask + 3 * full_mask) + fast_passes * (nuset_mask + 4)
-    check(fetched["bytes"] == want and fetched["copies"] == 4 * n_images + fast_passes,
-          f"stat_fish: {fetched} fetched, expected {want} bytes in {4 * n_images + fast_passes} copies")
+    n = min(boxes.PRE_NMS_TOP_N, (side // ni.STRIDE) ** 2 * len(ni.SCALES) * len(ni.RATIOS))
+    nms = (n + 1) * -(-n // 8)
+    want = (n_images * (2 * nuset_mask + 3 * full_mask + nms) + 20 * nms_kept + fast_passes * (nuset_mask + 4)
+            + redone * 2 * side * side * 4)
+    copies = 6 * n_images + fast_passes + redone
+    check(fetched["bytes"] == want and fetched["copies"] == copies,
+          f"stat_fish: {fetched} fetched, expected {want} bytes in {copies} copies")
     out = {"images": n_images, "bytes_per_image": fetched["bytes"] / n_images, "copies": fetched["copies"],
            "copy_ms_per_image": 1e3 * fetched["seconds"] / n_images, "nuset_mask_bytes": nuset_mask, "full_mask_bytes": full_mask}
     print(f"stat_fish transfers: {out['bytes_per_image']:.0f} B an image device->host in {out['copies']} copies for {n_images} images, "
@@ -1582,6 +1592,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         fallbacks.reset()
         K.reset_launches()
         packing.reset_fetched()
+        ni.reset_counts()
         try:
             t0 = time.perf_counter()
             rc = stat_fish.main(config=Config(raw={"stat_fish": {"inpath": inproc, "scale": 1, "use_min_cut": True, "nuclei_size_T": STAT_FISH_T}}), device="cuda")
@@ -1597,7 +1608,11 @@ def phase_stat_fish(args, rng, dev, errors, results):
         check(launches["label"] == STAT_FISH_LABELS_PER_IMAGE * len(names), f"stat_fish: B2 launched {launches['label']} times, expected {STAT_FISH_LABELS_PER_IMAGE * len(names)}")
         check(1 <= launches["flood_border"] <= len(names), f"stat_fish: B3 launched {launches['flood_border']} times (one per watershed with markers)")
         check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border")), f"stat_fish launched other kernels: {launches}")
-        results["transfers"]["stat_fish"] = stat_fish_transfers(fetched, len(names), launches["flood_border"])
+        nuset_counts = dict(ni.COUNTS)
+        check(0 < nuset_counts["nms_candidates"] <= 6000 * len(names) and 0 < nuset_counts["markers"] <= nuset_counts["nms_kept"],
+              f"stat_fish: NuSeT's counts {nuset_counts}")
+        results["transfers"]["stat_fish"] = stat_fish_transfers(fetched, len(names), launches["flood_border"], nuset_counts["nms_kept"],
+                                                            falls.get(fallbacks.WATERSHED_HOST_RECOMPUTE, 0))
 
         ann = {d: os.path.join(d, "annotated") for d in (imgs, inproc)}
         csv = {d: read_bytes(os.path.join(a, "stat_fish_lsq.csv")) for d, a in ann.items()}
@@ -1824,7 +1839,7 @@ def phase_stat_fish(args, rng, dev, errors, results):
         results["stat_fish"] = {
             "images": len(names), "wall_s": wall, "images_per_s": len(names) / wall, "cli_s": cli_s,
             "cli_images_per_s": len(names) / cli_s, "encode_s": encode_s, "launches": {k: v for k, v in launches.items() if v},
-            "fallbacks": falls, "stages_s": {k: v for k, v in stages.items() if k.startswith("stat_fish.")},
+            "fallbacks": falls, "stages_s": {k: v for k, v in stages.items() if k.startswith(("stat_fish.", "nuset."))},
             "csv_rows": len(rows) - 1, "files_compared": n_files, "stage_checks": stage_checks, "hand_placed_watershed": cert,
             "xla_side_ms": xla_side, "profile": profile_pass, "phase_marks_s": marks,
             "host_watershed": {"wall_s": host_wall, "images_per_s": len(names) / host_wall, "watershed_s": host_stages.get("stat_fish.watershed", [])},
@@ -1835,9 +1850,9 @@ def phase_stat_fish(args, rng, dev, errors, results):
             f"in-process main {wall:.3f} s ({len(names) / wall:.3f} images/s); launches {results['stat_fish']['launches']}; "
             f"fallbacks {falls}; CSV ({len(rows) - 1} rows), .npy and TIFFs equal across the two runs; phase marks {marks}", flush=True,
         )
-        for name in STAT_FISH_STAGES:
-            ts = stages.get(f"stat_fish.{name}", [])
-            print(f"  stage stat_fish.{name:16s} n={len(ts)} total {sum(ts):.4f} s; ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts), flush=True)
+        for name in [f"stat_fish.{n}" for n in STAT_FISH_STAGES] + [f"nuset.{n}" for n in NUSET_STAGES]:
+            ts = stages.get(name, [])
+            print(f"  stage {name:26s} n={len(ts)} total {sum(ts):.4f} s; ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts), flush=True)
         ts = host_stages.get("stat_fish.watershed", [])
         print(f"  stage stat_fish.watershed (ECSEG_FAST_WATERSHED=host) n={len(ts)} total {sum(ts):.4f} s; ms: " + " ".join(f"{1e3 * t:.1f}" for t in ts), flush=True)
         for tag, sc in stage_checks.items():

@@ -187,6 +187,9 @@ def imread_rgb(path: str) -> np.ndarray:
     return img
 
 
+_RINT_U16_BY_257 = np.rint(np.arange(65536) / 257.0).astype(np.uint8)  # a 16-bit colour sample as imread_bgr8 makes it 8-bit
+
+
 def imread_bgr8(path: str) -> np.ndarray:
     """What ``cv2.imread(path)`` (IMREAD_COLOR) gives stat_fish (reference
     src/stat_fish.py:207): 8-bit, three channels, BGR.  Gray becomes three
@@ -203,7 +206,7 @@ def imread_bgr8(path: str) -> np.ndarray:
         if img.ndim == 2:
             img = (img >> 8).astype(np.uint8)
         else:
-            img = np.rint(img / 257.0).astype(np.uint8)
+            return _RINT_U16_BY_257[img[..., 2::-1]]  # BGR, one table gather a sample
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=2)
     return np.ascontiguousarray(img[..., 2::-1])

@@ -16,7 +16,10 @@ Layer names are the JAX package's parameter-tree keys, so the weight bridge
 (``models/weights.py``) maps them one to one.  Every conv adds its bias after
 the conv output is rounded (``layers.conv_same``), as the JAX layers do.  The
 forward runs under ``layers.parity_flags``: deterministic, no autotuning,
-no TF32.  Input sides must be multiples of 16.
+no TF32.  Input sides must be multiples of 16.  Under a profiler the U-Net
+opens the ranges ``nuset.forward.encoder`` (levels 1-4 and their pools),
+``.decoder`` (the bottleneck, the transpose convs, levels 4-1) and
+``.head`` (``final``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..runtime.trace import region
 from .layers import SameConv2d, TFConvTranspose2d, conv_same, max_pool_same, parity_flags
 
 ENC_WIDTHS = (64, 128, 256, 512)
@@ -87,18 +91,21 @@ class NuSeTUNet(nn.Module):
         (1, 512, H/16, W/16))."""
         with parity_flags():
             skips = []
-            for i in range(1, 5):
-                x = self._block(f"conv{i}-1", f"conv{i}-2", x)
-                skips.append(x)
-                x = max_pool_same(x)
+            with region("nuset.forward.encoder"):
+                for i in range(1, 5):
+                    x = self._block(f"conv{i}-1", f"conv{i}-2", x)
+                    skips.append(x)
+                    x = max_pool_same(x)
             feat = x
-            x = self._block("conv5-1", "conv5-2", x)
-            x = torch.relu(self._conv("deconv4", x))
-            x = self._block("conv4-3", "conv4-4", x)
-            for i in (3, 2, 1):
-                x = torch.cat([skips[i - 1], self._conv(f"deconv{i}", x)], dim=1)
-                x = self._block(f"conv{i}-3", f"conv{i}-4", x)
-            return conv_same(x, self.layers["final"].weight), feat
+            with region("nuset.forward.decoder"):
+                x = self._block("conv5-1", "conv5-2", x)
+                x = torch.relu(self._conv("deconv4", x))
+                x = self._block("conv4-3", "conv4-4", x)
+                for i in (3, 2, 1):
+                    x = torch.cat([skips[i - 1], self._conv(f"deconv{i}", x)], dim=1)
+                    x = self._block(f"conv{i}-3", f"conv{i}-4", x)
+            with region("nuset.forward.head"):
+                return conv_same(x, self.layers["final"].weight), feat
 
 
 class NuSeTRPN(nn.Module):

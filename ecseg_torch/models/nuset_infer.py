@@ -2,36 +2,50 @@
 ``nuclei_segment`` (twin of ``ecseg_tpu/models/nuset_infer.py:49-432``;
 reference src/utils.py:35-163).
 
-Per image (:func:`nuclei_segment`): on the host rescale by ``resize_scale``,
-crop to multiples of 16 and normalize the whole image
-(:func:`nuclei_segment_prepare`, run on the pipeline's reader threads); then
+Per image (:func:`nuclei_segment`): rescale by ``resize_scale``, crop to
+multiples of 16 and normalize the whole image (the prep, stage
+``nuset.prep``): on the card in float64 (:func:`prepare_device`; the
+U-Net's input never comes back), else on the host
+(:func:`nuclei_segment_prepare`, which the pipeline's reader threads run);
+:func:`prep_on_device` decides.  Then
 
-1. the mask pass: the whole-image U-Net, per-pixel argmax;
-2. foreground normalization by pass 1's mask (host);
+1. the mask pass: the whole-image U-Net, per-pixel argmax (stage
+   ``nuset.forward``, with the mask's fetch);
+2. foreground normalization by pass 1's mask (stage ``nuset.fg_norm``; on
+   the card when the prep ran there);
 3. the mask+feature pass: the foreground U-Net, its argmax mask and the RPN
-   feature; the anchor base size from the mask (host); the RPN head,
-   decode, the zero-area filter, the top 6000 by a stable descending sort,
-   NMS to 800 and the clip (:func:`proposal_pass`);
-4. the marker watershed (:func:`watershed_pass`) in the mode that
-   ``ECSEG_FAST_WATERSHED`` selects: by default the certified device
-   watershed (``ops/watershed_gpu``; kernel B3), recomputed on the host
-   when its certificate is not clean, as the JAX package does, and counted
-   in ``runtime/fallbacks``;
-5. the cleanup pass (:func:`cleanup_pass`): ``clean_image`` on kernel B2,
-   the resize back as a float32 matmul, the min-max binarize and
-   ``remove_small_objects`` (B2), or the host chain when ``device_cleanup``
-   is False (by default under ``ECSEG_DEVICE_PIPELINE=0``) or
-   ``resize_scale > 1``.
+   feature (``nuset.forward`` again); then (stage ``nuset.proposals``) the
+   anchor base size from the mask (host), the RPN head, decode, the
+   zero-area filter, the top 6000 by a stable descending sort, NMS to 800
+   and the clip (:func:`proposal_pass`);
+4. the marker watershed (:func:`watershed_pass`, stage
+   ``stat_fish.watershed``) in the mode that ``ECSEG_FAST_WATERSHED``
+   selects: by default the certified device watershed
+   (``ops/watershed_gpu``; kernel B3), recomputed on the host when its
+   certificate is not clean, as the JAX package does (the host flood
+   starts from the device pass's inputs), and counted in
+   ``runtime/fallbacks``;
+5. the cleanup pass (:func:`cleanup_pass`, stage ``stat_fish.cleanup``):
+   ``clean_image`` on kernel B2, the resize back as a float32 matmul, the
+   min-max binarize and ``remove_small_objects`` (B2), or the host chain
+   when ``device_cleanup`` is False (by default under
+   ``ECSEG_DEVICE_PIPELINE=0``) or ``resize_scale > 1``.
 
 Returns uint8 {0, 255}.  Both passes' masks and the cleanup's come back to
-the host packed 1 bit a pixel (``ops/packing``), as in the JAX package.  Its
-geometry bucketing serves XLA's compile cache and is not ported.
+the host packed 1 bit a pixel (``ops/packing``), as in the JAX package; the
+NMS's suppression matrix and the proposals with their scores cross through
+``packing.fetch`` too.  :data:`COUNTS` counts the NMS's candidates, the
+boxes it kept and the proposals over ``bbox_min_score`` (the watershed's
+markers); the tracer's exit report prints them.  Its geometry bucketing
+serves XLA's compile cache and is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Tuple
+import threading
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,19 +54,41 @@ from ..ops import boxes as box_ops
 from ..ops.morphology import remove_small_objects
 from ..ops.morphology_gpu import clean_image as clean_image_gpu
 from ..ops.morphology_gpu import remove_small_objects as remove_small_objects_gpu
-from ..ops.normalization import clean_image, foreground_norm, whole_image_norm
+from ..ops.normalization import (
+    clean_image,
+    foreground_norm,
+    foreground_norm_device,
+    whole_image_norm,
+    whole_image_norm_device,
+)
 from ..ops.packing import fetch, pack_mask_1bit, unpack_mask_1bit
-from ..ops.resize import rescale, resize_linear_matmul
+from ..ops.resize import rescale, rescale_device, resize_linear_matmul
 from ..ops.watershed import anchor_size_from_mask, nuset_marker_watershed
-from ..ops.watershed_gpu import nuset_marker_watershed_auto, nuset_marker_watershed_fast
-from ..runtime import fallbacks
+from ..ops.watershed_gpu import card_alone, nuset_marker_watershed_certified, nuset_marker_watershed_fast
+from ..runtime import fallbacks, trace
 from ..runtime.devicepath import fast_watershed_mode, use_device_path
-from ..runtime.trace import stage
+from ..runtime.trace import region, stage
 from .nuset import NuSeTRPN, NuSeTUNet, pred_mask
 
 SCALES = np.array([0.5, 1, 2])
 RATIOS = np.array([0.125, 0.25, 0.5, 1, 2, 4, 8])
 STRIDE = 16  # anchor stride (reference src/utils.py:64)
+
+COUNTS = trace.counters("nuset")  # summed over the process's images
+COUNTS.update(nms_candidates=0, nms_kept=0, markers=0)
+_counts_lock = threading.Lock()
+
+
+def _count(**add: int) -> None:
+    with _counts_lock:
+        for key, n in add.items():
+            COUNTS[key] += n
+
+
+def reset_counts() -> None:
+    with _counts_lock:
+        for key in COUNTS:
+            COUNTS[key] = 0
 
 
 @dataclasses.dataclass
@@ -76,27 +112,38 @@ def proposal_pass(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """RPN head + proposal filtering (reference rpn_proposal.py:4-187, the
     JAX package's ``_proposal_pass``): (proposals (P, 4) x1 y1 x2 y2,
-    scores (P,)), float32, P <= 800, in NMS order."""
+    scores (P,)), float32, P <= 800, in NMS order.  Two copies reach the
+    host: the packed suppression matrix with the candidates' flags, and
+    the kept boxes with their scores."""
     device = feat.device
     gh, gw = feat.shape[2], feat.shape[3]
     ref = box_ops.generate_anchors_reference(base_size, RATIOS, SCALES)
     anchors = torch.from_numpy(box_ops.generate_anchors(ref, STRIDE, (gh, gw))).to(device)
-    pred = model.rpn_fg(feat)
-    scores = pred["rpn_cls_prob"][:, 1]
-    proposals = box_ops.decode(anchors, pred["rpn_bbox_pred"])
-    x1, y1, x2, y2 = proposals.unbind(1)
-    keep = (x2 - x1).clamp(min=0.0) * (y2 - y1).clamp(min=0.0) > 0.0
-    scores = torch.where(keep, scores, -torch.inf)
-    # lax.top_k keeps the lower index first among equal scores: a stable sort
-    k = min(box_ops.PRE_NMS_TOP_N, scores.shape[0])
-    top_scores, top_idx = torch.sort(scores, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:k], top_idx[:k]
-    valid = top_scores > -torch.inf
-    tf_order = box_ops.change_order(proposals[top_idx])
-    tf_order = torch.where(valid[:, None], tf_order, 0.0)
-    sel = torch.from_numpy(box_ops.nms_sorted(tf_order, valid, box_ops.POST_NMS_TOP_N, model.nms_threshold)).to(device)
-    out = box_ops.clip_boxes(box_ops.change_order(tf_order[sel]), im_shape)
-    return out.cpu().numpy(), top_scores[sel].cpu().numpy()
+    with region("nuset.proposals.rpn"):
+        pred = model.rpn_fg(feat)
+    with region("nuset.proposals.nms"):
+        scores = pred["rpn_cls_prob"][:, 1]
+        proposals = box_ops.decode(anchors, pred["rpn_bbox_pred"])
+        x1, y1, x2, y2 = proposals.unbind(1)
+        keep = (x2 - x1).clamp(min=0.0) * (y2 - y1).clamp(min=0.0) > 0.0
+        scores = torch.where(keep, scores, -torch.inf)
+        # lax.top_k keeps the lower index first among equal scores: a stable sort
+        k = min(box_ops.PRE_NMS_TOP_N, scores.shape[0])
+        top_scores, top_idx = torch.sort(scores, descending=True, stable=True)
+        top_scores, top_idx = top_scores[:k], top_idx[:k]
+        valid = top_scores > -torch.inf
+        tf_order = box_ops.change_order(proposals[top_idx])
+        tf_order = torch.where(valid[:, None], tf_order, 0.0)
+        if k:
+            packed, valid_host = box_ops.fetch_suppression(tf_order, valid, model.nms_threshold)
+            sel_host = box_ops.greedy_walk(packed, valid_host, box_ops.POST_NMS_TOP_N)
+        else:
+            valid_host, sel_host = np.zeros(0, bool), np.zeros(0, np.int64)
+        sel = torch.from_numpy(sel_host).to(device)
+        out = box_ops.clip_boxes(box_ops.change_order(tf_order[sel]), im_shape)
+        kept = fetch(torch.cat([out, top_scores[sel][:, None]], dim=1))
+    _count(nms_candidates=int(valid_host.sum()), nms_kept=len(sel_host))
+    return np.ascontiguousarray(kept[:, :4]), np.ascontiguousarray(kept[:, 4])
 
 
 def fetch_mask(mask: torch.Tensor) -> np.ndarray:
@@ -106,13 +153,34 @@ def fetch_mask(mask: torch.Tensor) -> np.ndarray:
     return unpack_mask_1bit(fetch(pack_mask_1bit(mask)), mask.shape[1]).astype(np.float32)
 
 
-def mask_and_proposals(model: NuSeTModel, image_norm: np.ndarray):
-    """The mask+feature pass on a foreground-normalized (H, W) image: (the
-    float32 {0, 1} mask, proposals (P, 4), scores (P,))."""
-    x = torch.from_numpy(np.ascontiguousarray(image_norm, np.float32)).to(model.device)[None, None]
-    with torch.no_grad():
-        logits, feat = model.unet_fg(x)
-        mask = fetch_mask(pred_mask(logits))
+def _unet_input(image_norm: Union[np.ndarray, torch.Tensor], device) -> torch.Tensor:
+    """A normalized (H, W) image, host array or tensor, as the U-Net's
+    float32 (1, 1, H, W) input on ``device``."""
+    if isinstance(image_norm, torch.Tensor):
+        return image_norm.to(device).float().contiguous()[None, None]
+    return torch.from_numpy(np.ascontiguousarray(image_norm, np.float32)).to(device)[None, None]
+
+
+def unet_pass(unet: NuSeTUNet, image_norm: Union[np.ndarray, torch.Tensor], device):
+    """One U-Net pass (stage ``nuset.forward``): (the float32 {0, 1} mask on
+    the host, the bool mask on ``device``, the RPN feature).  On a card
+    the pass holds ``watershed_gpu.card_alone`` until its mask is on the
+    host, so that another thread's lex flood never shares the SMs with its
+    convs; the wait for it falls outside the stage."""
+    alone = card_alone(device) if torch.device(device).type == "cuda" else contextlib.nullcontext()
+    with alone, stage("nuset.forward"), torch.no_grad():
+        logits, feat = unet(_unet_input(image_norm, device))
+        dev_mask = pred_mask(logits)
+        mask = fetch_mask(dev_mask)
+    return mask, dev_mask, feat
+
+
+def mask_and_proposals(model: NuSeTModel, image_norm: Union[np.ndarray, torch.Tensor]):
+    """The mask+feature pass on a foreground-normalized (H, W) image (host
+    array or tensor): (the float32 {0, 1} mask, proposals (P, 4), scores
+    (P,))."""
+    mask, _, feat = unet_pass(model.unet_fg, image_norm, model.device)
+    with stage("nuset.proposals"), torch.no_grad():
         proposals, scores = proposal_pass(model, feat, anchor_size_from_mask(mask), mask.shape)
     return mask, proposals, scores
 
@@ -121,18 +189,20 @@ def watershed_pass(model: NuSeTModel, mask: np.ndarray, proposals: np.ndarray, s
     """The marker watershed in ``runtime/devicepath.fast_watershed_mode()``'s
     mode (the JAX package's dispatch, ``nuset_infer.py:276-319``): ``host``
     the host priority flood; ``auto`` the certified device watershed, the
-    host flood when its certificate is not clean (counted in
+    host flood of the device pass's inputs when its certificate is not
+    clean (``watershed_gpu.nuset_marker_watershed_certified``, counted in
     ``runtime/fallbacks``); ``on`` the ungated device pass; ``check`` that
     pass with its tie count recorded.  float32."""
     mode = fast_watershed_mode()
+    _count(markers=int(np.count_nonzero(np.asarray(scores) > model.bbox_min_score)))
     with stage("stat_fish.watershed"):
         if mode == "auto":
-            out, n_unc = nuset_marker_watershed_auto(scores, proposals, mask, model.bbox_min_score, model.device)
-            if out is not None:
-                return out.astype(np.float32)
-            fallbacks.record(fallbacks.WATERSHED_UNCERTAIN_PX, n_unc)
-            fallbacks.record(fallbacks.WATERSHED_HOST_RECOMPUTE)
-        elif mode == "check":
+            out, n_unc = nuset_marker_watershed_certified(scores, proposals, mask, model.bbox_min_score, model.device)
+            if n_unc:
+                fallbacks.record(fallbacks.WATERSHED_UNCERTAIN_PX, n_unc)
+                fallbacks.record(fallbacks.WATERSHED_HOST_RECOMPUTE)
+            return out.astype(np.float32)
+        if mode == "check":
             out, tie_px = nuset_marker_watershed_fast(scores, proposals, mask, model.bbox_min_score, model.device, count_ties=True)
             if tie_px:
                 fallbacks.record(fallbacks.WATERSHED_TIE_PX, tie_px)
@@ -148,10 +218,7 @@ def nuset_forward(model: NuSeTModel, image_norm: np.ndarray, pass_two: bool) -> 
     float32 {0, 1} mask; pass 2 the mask split by the marker watershed."""
     if pass_two:
         return watershed_pass(model, *mask_and_proposals(model, image_norm))
-    x = torch.from_numpy(np.ascontiguousarray(image_norm, np.float32)).to(model.device)[None, None]
-    with torch.no_grad():
-        logits, _ = model.unet_whole(x)
-    return fetch_mask(pred_mask(logits))
+    return unet_pass(model.unet_whole, image_norm, model.device)[0]
 
 
 def output_shape(shape, resize_scale: float) -> Tuple[int, int]:
@@ -207,25 +274,78 @@ def nuclei_segment_prepare(image: np.ndarray, resize_scale: float):
     return image, whole_image_norm(image)
 
 
-def nuclei_segment(
-    image: np.ndarray, model: NuSeTModel, nuclei_size_t, device_cleanup: Optional[bool] = None, pre=None
-) -> np.ndarray:
-    """reference src/utils.py:134-163: uint8 {0, 255} nuclei mask at the
-    input's resolution.  ``pre``: a :func:`nuclei_segment_prepare` result
-    made with the model's ``resize_scale``.  ``device_cleanup`` (default:
-    ``runtime/devicepath.use_device_path()``) False runs the host cleanup
-    chain, as does ``resize_scale > 1``: the host's downscale back then
-    applies a gaussian prefilter the matmul resize does not."""
+def prepare_device(image: Union[np.ndarray, torch.Tensor], resize_scale: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nuclei_segment_prepare` of a 2-D uint8 image on ``device`` in
+    float64 (``ops/resize.rescale_device``, ``whole_image_norm_device``):
+    (cropped image, normalized image), both float64 tensors there.  The
+    8-bit image crosses to the card once; ``resize_scale`` at most 1."""
+    x = torch.as_tensor(image).to(device)
+    x = rescale_device(x, resize_scale) if resize_scale != 1 else x.double()
+    h, w = x.shape
+    x = x[: h // 16 * 16, : w // 16 * 16]
+    return x, whole_image_norm_device(x)
+
+
+def prep_on_device(model: NuSeTModel, device_path: bool) -> bool:
+    """Whether the prep and the foreground norm run on the model's card:
+    a CUDA model, the device path, and a downscale (``resize_scale`` at
+    most 1; above 1 the host's upscale has no prefilter to share).
+    Otherwise the host chain, the JAX package's parity oracle."""
+    return model.device.type == "cuda" and bool(device_path) and model.resize_scale <= 1
+
+
+def nuclei_segment_front(
+    image: np.ndarray, model: NuSeTModel, device_cleanup: Optional[bool] = None, pre=None
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
+    """:func:`nuclei_segment` up to the watershed: the prep, both U-Net
+    passes and the proposals.  Returns host arrays only (pass 2's float32
+    mask, proposals, scores) and whether the cleanup runs on the card, for
+    :func:`nuclei_segment_back`."""
     if device_cleanup is None:
         device_cleanup = use_device_path()
     resize_scale = model.resize_scale
     if resize_scale > 1:
         device_cleanup = False
-    image, image_wn = pre if pre is not None else nuclei_segment_prepare(image, resize_scale)
-    masks1 = nuset_forward(model, image_wn, pass_two=False)
-    masks_watershed = nuset_forward(model, foreground_norm(image, masks1), pass_two=True)
+    if pre is None and prep_on_device(model, device_cleanup):
+        with stage("nuset.prep"):
+            image, image_wn = prepare_device(image, resize_scale, model.device)
+        _, mask1, _ = unet_pass(model.unet_whole, image_wn, model.device)
+        with stage("nuset.fg_norm"):
+            image_fg = foreground_norm_device(image, mask1)
+    else:
+        if pre is None:
+            with stage("nuset.prep"):
+                pre = nuclei_segment_prepare(image, resize_scale)
+        image, image_wn = pre
+        masks1 = nuset_forward(model, image_wn, pass_two=False)
+        with stage("nuset.fg_norm"):
+            image_fg = foreground_norm(image, masks1)
+    return mask_and_proposals(model, image_fg) + (bool(device_cleanup),)
 
+
+def nuclei_segment_back(front, model: NuSeTModel, nuclei_size_t) -> np.ndarray:
+    """:func:`nuclei_segment` from a :func:`nuclei_segment_front` result:
+    the marker watershed and the cleanup.  It reads only host arrays, so
+    it may run on another thread, on another CUDA stream, while the next
+    image's front half runs."""
+    mask, proposals, scores, device_cleanup = front
+    masks_watershed = watershed_pass(model, mask, proposals, scores)
     if device_cleanup:
         with stage("stat_fish.cleanup"):
-            return cleanup_pass(masks_watershed, output_shape(masks_watershed.shape, resize_scale), nuclei_size_t, model.device)
-    return cleanup_host(masks_watershed, resize_scale, nuclei_size_t)
+            return cleanup_pass(masks_watershed, output_shape(masks_watershed.shape, model.resize_scale), nuclei_size_t, model.device)
+    return cleanup_host(masks_watershed, model.resize_scale, nuclei_size_t)
+
+
+def nuclei_segment(
+    image: np.ndarray, model: NuSeTModel, nuclei_size_t, device_cleanup: Optional[bool] = None, pre=None
+) -> np.ndarray:
+    """reference src/utils.py:134-163: uint8 {0, 255} nuclei mask at the
+    input's resolution (:func:`nuclei_segment_front`, then
+    :func:`nuclei_segment_back`).  ``pre``: a :func:`nuclei_segment_prepare`
+    result made with the model's ``resize_scale``; without it the prep runs
+    here, on the card when :func:`prep_on_device` says so.
+    ``device_cleanup`` (default: ``runtime/devicepath.use_device_path()``)
+    False runs the host prep and cleanup chain, as does ``resize_scale >
+    1``: the host's downscale back then applies a gaussian prefilter the
+    matmul resize does not."""
+    return nuclei_segment_back(nuclei_segment_front(image, model, device_cleanup, pre), model, nuclei_size_t)

@@ -11,7 +11,8 @@ sorted by descending score, so the argmax of the live scores is always the
 first live box, and the scan is a greedy walk in index order.  The walk runs
 on the host over the IoU-suppression matrix, computed on the boxes' device
 with the scan's float32 operations in the scan's order and fetched 1-bit
-packed (6000^2 bits, 4.5 MB).
+packed (6000^2 bits, 4.5 MB) with the candidates' flags as one more row,
+in one copy through ``packing.fetch`` (so ``packing.FETCHED`` counts it).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .packing import fetch
 
 PRE_NMS_TOP_N = 6000  # reference src/model_layers/rpn_proposal.py:19
 POST_NMS_TOP_N = 800  # reference src/model_layers/rpn_proposal.py:25
@@ -105,16 +108,24 @@ def suppression_matrix(boxes: torch.Tensor, iou_threshold: float) -> torch.Tenso
     return iou > torch.tensor(iou_threshold, dtype=torch.float32)
 
 
-def nms_sorted(boxes: torch.Tensor, valid: torch.Tensor, max_output: int, iou_threshold: float) -> np.ndarray:
-    """Greedy NMS over boxes (y1, x1, y2, x2) already sorted by descending
-    score; ``valid`` (bool, a score above -inf) marks the candidates.
-    Returns the selected indices, int64, in selection order: what
-    ``nms_jax`` returns where its ``valid`` is True."""
+def fetch_suppression(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> Tuple[np.ndarray, np.ndarray]:
+    """The suppression matrix of ``boxes`` (y1, x1, y2, x2) and the
+    candidates ``valid`` marks, on the host in one copy through
+    ``packing.fetch``: (the (n, ceil(n / 8)) packed rows, bool (n,)).  The
+    valid flags ride as one more packed row."""
     n = boxes.shape[0]
-    if n == 0:
-        return np.zeros(0, np.int64)
-    packed = _pack_rows(suppression_matrix(boxes, iou_threshold)).cpu().numpy()
-    removed = ~valid.cpu().numpy().astype(bool)
+    rows = torch.cat([suppression_matrix(boxes, iou_threshold), valid.reshape(1, n).to(torch.bool)])
+    packed = fetch(_pack_rows(rows))
+    return packed[:n], np.unpackbits(packed[n], count=n, bitorder="little").astype(bool)
+
+
+def greedy_walk(packed: np.ndarray, valid: np.ndarray, max_output: int) -> np.ndarray:
+    """The greedy NMS over boxes in descending score order, on the host:
+    take the first live candidate, remove those its packed row suppresses,
+    repeat, at most ``max_output`` times.  The taken indices, int64, in
+    order."""
+    n = valid.shape[0]
+    removed = ~valid
     selected = []
     i = 0
     while len(selected) < max_output:
@@ -126,6 +137,16 @@ def nms_sorted(boxes: torch.Tensor, valid: torch.Tensor, max_output: int, iou_th
         removed |= np.unpackbits(packed[i], count=n, bitorder="little").astype(bool)
         removed[i] = True
     return np.asarray(selected, np.int64)
+
+
+def nms_sorted(boxes: torch.Tensor, valid: torch.Tensor, max_output: int, iou_threshold: float) -> np.ndarray:
+    """Greedy NMS over boxes (y1, x1, y2, x2) already sorted by descending
+    score; ``valid`` (bool, a score above -inf) marks the candidates.
+    Returns the selected indices, int64, in selection order: what
+    ``nms_jax`` returns where its ``valid`` is True."""
+    if boxes.shape[0] == 0:
+        return np.zeros(0, np.int64)
+    return greedy_walk(*fetch_suppression(boxes, valid, iou_threshold), max_output)
 
 
 def encode(bboxes, gt_boxes, variances=None) -> torch.Tensor:

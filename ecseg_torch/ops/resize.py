@@ -16,6 +16,7 @@ is not a dependency):
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -140,6 +141,66 @@ def _zoom_matrix(n_in: int, n_out: int) -> np.ndarray:
     np.add.at(W, (rows, mirror(lo)), 1.0 - frac)
     np.add.at(W, (rows, mirror(lo + 1)), frac)
     return W
+
+
+def _mirror_index(i: np.ndarray, n: int) -> np.ndarray:
+    """ndi's 'mirror' extension of indices ``i`` into ``range(n)``
+    (d c b | a b c d | c b a, repeated for any reach)."""
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.mod(i, period)
+    return np.where(i >= n, period - i, i)
+
+
+def _gaussian_matrix(n: int, sigma: float, truncate: float = 4.0) -> np.ndarray:
+    """(n, n) operator of ``ndi.gaussian_filter1d(x, sigma, mode='mirror')``
+    along one axis: scipy's kernel (radius ``int(truncate * sigma + 0.5)``,
+    weights normalized to sum 1) on mirrored indices.  The identity where
+    scipy skips the axis (sigma <= 1e-15)."""
+    if sigma <= 1e-15:
+        return np.eye(n)
+    radius = int(truncate * float(sigma) + 0.5)
+    x = np.arange(-radius, radius + 1)
+    phi = np.exp(-0.5 / (sigma * sigma) * x**2)
+    phi = phi / phi.sum()
+    G = np.zeros((n, n), np.float64)
+    rows = np.arange(n)
+    for k, wk in zip(x, phi):
+        np.add.at(G, (rows, _mirror_index(rows + k, n)), wk)
+    return G
+
+
+@functools.lru_cache(maxsize=8)
+def _rescale_operators(shape: Tuple[int, int], scale: float, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float64 (out, in) operators of :func:`rescale`'s anti-aliased
+    order-1 resize along each axis, on ``device``: the zoom after the
+    gaussian prefilter, ``_zoom_matrix(n_in, n_out) @ _gaussian_matrix``."""
+    out_shape = tuple(int(d) for d in np.maximum(np.round(np.multiply(shape, scale)), 1))
+    ops = []
+    for n_in, n_out in zip(shape, out_shape):
+        sigma = max(0.0, (n_in / n_out - 1) / 2)
+        ops.append(torch.from_numpy(_zoom_matrix(n_in, n_out) @ _gaussian_matrix(n_in, sigma)).to(device))
+    return ops[0], ops[1]
+
+
+def rescale_device(image: torch.Tensor, scale: float) -> torch.Tensor:
+    """:func:`rescale` of a 2-D uint8 image with ``anti_aliasing=True``, on
+    the image's device in float64: ``img_as_float``, the gaussian prefilter
+    (sigma ``(in / out - 1) / 2`` per axis, truncate 4.0, 'mirror'),
+    ``ndi.zoom(order=1, grid_mode=True, mode='mirror')`` and the clip to
+    the input's range.  The prefilter and the zoom are linear, so each axis
+    is one operator and the resize is ``Ay @ x @ Ax^T``; it differs from
+    scipy's sequential passes only in the order of the float64 sums.  A
+    scale above 1 (no prefilter) is left to the host."""
+    if scale > 1:
+        raise ValueError("rescale_device downscales; a scale above 1 runs on the host")
+    if image.dtype != torch.uint8:
+        raise TypeError(f"rescale_device takes a uint8 image, not {image.dtype}")
+    x = image.double() / 255.0
+    ay, ax = _rescale_operators(tuple(image.shape), float(scale), str(image.device))
+    out = (ay @ x) @ ax.T
+    return torch.minimum(torch.maximum(out, x.min()), x.max())
 
 
 def resize_linear_matmul(image: torch.Tensor, output_shape: Tuple[int, int]) -> torch.Tensor:

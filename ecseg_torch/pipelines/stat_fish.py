@@ -2,10 +2,11 @@
 card (twin of ``ecseg_tpu/pipelines/stat_fish.py:57-496``, its single-device
 path; reference src/stat_fish.py:144-317).
 
-Per image: decode (``cv2.imread`` semantics, 8-bit BGR) and the NuSeT host
-prep on two reader threads -> NuSeT nuclei segmentation on the card
-(``models/nuset_infer``: both U-Net passes, proposals, the certified
-watershed on kernel B3, the cleanup on kernel B2) -> on a pool of tail
+Per image: decode (``cv2.imread`` semantics, 8-bit BGR) on two reader
+threads -> NuSeT nuclei segmentation on the card (:func:`segment_folder`
+over ``models/nuset_infer``: the prep, both U-Net passes and the proposals
+on the main thread, then, on a worker while the next image's passes run,
+the certified watershed on kernel B3 and the cleanup on kernel B2) -> on a pool of tail
 workers (two; ``ECSEG_STAT_FISH_TAIL_WORKERS``): min-cut splitting of touching nuclei (host C++), the matched-filter
 FISH detection (device conv, packed transfers), per-nucleus statistics, and the writes --
 ``<name>__segmentation_min_cut.npy`` and five TIFFs per image in
@@ -39,6 +40,7 @@ ported (ROADMAP): geometry bucketing (it serves XLA's compile cache).
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import copy
 import dataclasses
 import datetime
@@ -51,6 +53,7 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..core import imgio
 from ..core.config import Config, default_params_path, load_config, load_stat_fish_params
@@ -103,6 +106,83 @@ def _git_commit() -> str:
     outside a repository), as the JAX package names the config copy."""
     out = sp.run("git log -1 | head -1", shell=True, capture_output=True)
     return out.stdout.decode().strip().split(" ")[-1]
+
+
+_BACK_STREAMS = {}  # device -> the CUDA stream of segment_folder's back-half worker
+_BACK_STREAMS_LOCK = threading.Lock()
+
+
+def _back_stream(device):
+    """The stream that :func:`segment_folder`'s worker runs the watershed
+    and the cleanup on: one per card, so its cached memory is reused from
+    call to call; a null context off the card.  It has the higher
+    priority: its short kernels (the EDT, the cleanup's labelling) take
+    the SMs as the passes' conv blocks finish, where at equal priority
+    they queue behind them."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    with _BACK_STREAMS_LOCK:
+        if device not in _BACK_STREAMS:
+            _BACK_STREAMS[device] = torch.cuda.Stream(device, priority=-1)
+        return torch.cuda.stream(_BACK_STREAMS[device])
+
+
+def segment_folder(model: nuset_infer.NuSeTModel, image_paths, nuclei_size_t, device_path: Optional[bool] = None):
+    """NuSeT's segmentation of a folder: yields (path, I, mask) of each
+    image in input order, ``I`` the 8-bit BGR image cut to the uint8
+    {0, 255} nuclei mask's shape.  Two reader threads decode (``cv2.imread``
+    semantics, then ``u16_to_u8``); the main thread's wait on them is the
+    stage ``stat_fish.decode_wait``.  The main thread runs each image's
+    front half (:func:`nuset_infer.nuclei_segment_front`, stage
+    ``stat_fish.nuclei_segment``: the prep, both U-Net passes, the
+    proposals) while one worker runs the previous image's back half
+    (:func:`nuset_infer.nuclei_segment_back`: the watershed and the
+    cleanup; on the card on a stream of its own), so the card's passes
+    overlap the host's share of the watershed; the main thread's wait on
+    the worker is the stage ``stat_fish.back_wait``.  A pass and the
+    worker's lex flood take turns on the card
+    (``watershed_gpu.card_alone``); a pass's wait for its turn is
+    ``stat_fish.nuclei_segment``'s self time.  NuSeT's prep runs on
+    the model's card when :func:`nuset_infer.prep_on_device` says so, else
+    on the readers, as the host chain (``device_path`` False, default
+    ``runtime/devicepath.use_device_path()``) and a CPU model have it."""
+    if device_path is None:
+        device_path = use_device_path()
+    host_prep = not nuset_infer.prep_on_device(model, device_path)
+
+    def read(path):
+        """Reader thread: BGR decode, u16 -> u8, the DAPI channel (and on
+        the host chain NuSeT's prep)."""
+        I = imgio.u16_to_u8(imgio.imread_bgr8(path))
+        dapi = np.ascontiguousarray(I[:, :, 0])
+        return I, dapi, nuset_infer.nuclei_segment_prepare(dapi, model.resize_scale) if host_prep else None
+
+    def back(front):
+        with _back_stream(model.device):
+            return nuset_infer.nuclei_segment_back(front, model, nuclei_size_t)
+
+    def done(path, I, future):
+        with stage("stat_fish.back_wait"):
+            segmented = future.result()
+        h, w = segmented.shape
+        I = I[:h, :w, :]
+        return path, I, segmented[: I.shape[0], : I.shape[1]]
+
+    it = iter(prefetch_map(read, image_paths))
+    with cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="nuset-back") as worker:
+        pending = None  # (path, I, the back half's future) of the image before
+        while True:
+            with stage("stat_fish.decode_wait"):
+                nxt = next(it, None)
+            if nxt is not None:
+                path, (I, dapi, pre) = nxt
+                with stage("stat_fish.nuclei_segment"):
+                    front = nuset_infer.nuclei_segment_front(dapi, model, device_path, pre)
+            if pending is not None:
+                yield done(*pending)
+            if nxt is None:
+                return
+            pending = (path, I, worker.submit(back, front))
 
 
 def main(
@@ -273,15 +353,9 @@ def main(
         workers = tail_workers()
         with cf.ThreadPoolExecutor(max_workers=workers) as pool:
             inflight = deque()
-            it = iter(prefetch_map(decode, image_paths))
             first = True
-            while True:
-                with stage("stat_fish.decode_wait"):
-                    nxt = next(it, None)
-                if nxt is None:
-                    break
-                path, (I, pre) = nxt
-                I, segmented = segment(path, I, pre, model)
+            for path, I, segmented in segment_folder(model, image_paths, var.nuclei_size_T, device_path):
+                print("Processing image: ", path)
                 # at most workers + 1 tails in flight bounds host memory
                 while len(inflight) > workers:
                     with stage("stat_fish.tail_wait"):

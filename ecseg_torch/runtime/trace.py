@@ -5,16 +5,19 @@ total / mean / max) at exit.  Stages nest freely, and time is attributed to
 the innermost stage: a stage records its self time, its elapsed wall time
 less that of the stages nested inside it on the same thread, so the
 report's columns sum to real wall time.  CUDA work is asynchronous, so
-while tracing is on a stage synchronises the card when it ends and its
-time includes the device work it enqueued.  When tracing is off and no
+while tracing is on a stage synchronises the calling thread's current
+CUDA stream when it ends and its time includes the device work it
+enqueued there.  When tracing is off and no
 profiler records, ``stage()`` costs two flag tests.
 
 Stages may run on several threads at once (stat_fish's tail pool, the
 fan-outs over a device list): each thread keeps its own nesting stack, so
 one thread's stages never take time from another's.  A stage synchronises
-the calling thread's current CUDA device, so a fan-out worker sets its
-device (``torch.cuda.set_device``) before its first stage, and each of its
-stages waits for its own card.
+the calling thread's current stream on its current CUDA device, so a
+fan-out worker sets its device (``torch.cuda.set_device``) before its
+first stage, and each of its stages waits for its own card; a thread on a
+stream of its own (stat_fish's watershed worker) waits for that stream
+alone, not for another thread's work on the default one.
 
 With ``ECSEG_TRACE_DIR=<dir>`` as well, a ``torch.profiler`` capture (CPU
 activity, and CUDA activity when a card is present) runs from the first
@@ -34,6 +37,9 @@ that a reader of the trace tells the program's ranges from its device
 operations (the trace copies each range onto the device's line as well)
 and gives a device's idle gap to the innermost range open on the host.
 When no profiler records, a region costs one flag test.
+
+:func:`counters` hands a module a named dict of counts (``nuset_infer.COUNTS``)
+that the exit report prints after the stage table, when tracing is on.
 """
 
 from __future__ import annotations
@@ -51,6 +57,14 @@ from torch.autograd import profiler as _autograd_profiler
 
 PREFIX = "stage:"  # of every profiler range the program opens
 _NO_RANGE = contextlib.nullcontext()
+_COUNTERS: Dict[str, Dict[str, int]] = {}
+
+
+def counters(owner: str) -> Dict[str, int]:
+    """The named dict of counts that the exit report prints as
+    ``<owner> counts: key=value ...`` (made empty on first use); the owner
+    keeps its keys and adds to them."""
+    return _COUNTERS.setdefault(owner, {})
 
 
 def region(name: str):
@@ -93,7 +107,7 @@ class Tracer:
                 yield
             finally:
                 if torch.cuda.is_initialized():
-                    torch.cuda.synchronize()
+                    torch.cuda.current_stream().synchronize()
                 elapsed = time.perf_counter() - t0
                 inner = stack.pop()
                 stack[-1] += elapsed
@@ -117,6 +131,9 @@ class Tracer:
                 f"{name:34s} {len(ts):5d} {sum(ts):9.3f} "
                 f"{1e3 * sum(ts) / len(ts):9.2f} {1e3 * max(ts):9.2f}"
             )
+        for owner, counts in sorted(_COUNTERS.items()):
+            if any(counts.values()):
+                lines.append(f"{owner} counts: " + " ".join(f"{k}={v}" for k, v in counts.items()))
         text = "\n".join(lines)
         print("\n[ecseg trace]\n" + text, file=out)
         return text

@@ -608,6 +608,26 @@ def test_stat_fish_device_stages_on_the_card_match_the_cpu(cuda, seed, h, w, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed,h,w,n", [(1, 208, 256, 30), (4, 608, 608, 120)])
+def test_certified_watershed_on_the_card_equals_the_host_chain(cuda, seed, h, w, n):
+    """The default watershed on the card (the lex flood as replays of a
+    CUDA graph, the host flood of the pass's own inputs where the
+    certificate is not clean) equals the host chain, and the graph's flood
+    equals the CPU loop, state and convergence."""
+    from ecseg_torch.ops.watershed import nuset_marker_watershed, nuset_place_markers
+    from ecseg_torch.ops.watershed_gpu import flood_inputs, lex_flood, nuset_marker_watershed_certified
+
+    pred, scores, props = _touching_nuclei(seed, h, w, n)
+    got, n_unc = nuset_marker_watershed_certified(scores, props, pred, 0.95, cuda)
+    assert np.array_equal(got, nuset_marker_watershed(scores, props, pred, 0.95))
+    m = torch.from_numpy(pred != 0)
+    img, marks = flood_inputs(m, torch.from_numpy(nuset_place_markers(scores, props, pred, 0.95).astype(np.int32)))
+    on_card = lex_flood(img.to(cuda), marks.to(cuda), m.to(cuda))
+    on_cpu = lex_flood(img, marks, m)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card[:3], on_cpu[:3])) and on_card[3] == on_cpu[3]
+
+
+@pytest.mark.cuda
 def test_nuclei_segment_on_the_card_matches_the_cpu(cuda):
     """The whole segmentation of a 200x180 image at resize_scale 1 with the
     demo NuSeT (its RPN scores raised so markers are placed) on the card
@@ -627,6 +647,41 @@ def test_nuclei_segment_on_the_card_matches_the_cpu(cuda):
     got = ni.nuclei_segment(image, models[str(cuda)], 60)
     want = ni.nuclei_segment(image, models["cpu"], 60)
     assert got.any() and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_segment_folder_on_the_card_equals_nuclei_segment_image_by_image(cuda, tmp_path):
+    """stat_fish's folder loop on the card (the prep on the card, the
+    watershed and the cleanup of image k on the worker's stream while image
+    k + 1's passes run) yields each image's ``nuclei_segment`` mask, in
+    order, at the 0.3 scale."""
+    from ecseg_torch.core import imgio
+    from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.models.demo import demo_nuset_tree
+    from ecseg_torch.models.weights import nuset_from_numpy
+    from ecseg_torch.pipelines import stat_fish
+
+    tree = demo_nuset_tree()
+    tree["fg"]["rpn"]["rpn_cls_score"]["bias"][1::2] = 6.0
+    whole, fg, rpn = (x.to(cuda).eval() for x in nuset_from_numpy(tree))
+    model = ni.NuSeTModel(whole, fg, rpn, resize_scale=0.3)
+    paths = []
+    yy, xx = np.ogrid[:640, :600]
+    for k in range(4):
+        rng = np.random.default_rng(10 + k)
+        gray = rng.random((640, 600)) * 6000
+        for _ in range(8):
+            cy, cx, r = rng.integers(80, 560), rng.integers(80, 520), rng.integers(40, 60)
+            gray[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 44000
+        path = str(tmp_path / f"im{k}.tif")
+        imgio.write_tiff_lzw(path, np.repeat(gray.astype(np.uint16)[..., None], 3, axis=2))
+        paths.append(path)
+    got = list(stat_fish.segment_folder(model, paths, 60))
+    assert [p for p, _, _ in got] == paths
+    for p, I, seg in got:
+        want = ni.nuclei_segment(imgio.u16_to_u8(imgio.imread_bgr8(p))[:, :, 0], model, 60)
+        assert seg.shape == I.shape[:2] and np.array_equal(seg, want[: seg.shape[0], : seg.shape[1]])
+    assert all(seg.any() for _, _, seg in got)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import contextlib
 import os
 import threading
 import time
+import types
 
 import cv2
 import numpy as np
@@ -76,7 +77,10 @@ def test_without_a_profiler_nothing_calls_record_function(monkeypatch, enabled):
 def test_a_region_in_a_stage_leaves_its_self_time_whole_and_never_syncs(monkeypatch, profiled):
     syncs = []
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(threading.get_ident()))
+    # a stage waits for the calling thread's current stream alone
+    stream = types.SimpleNamespace(synchronize=lambda: syncs.append(threading.get_ident()))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: stream)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail("a stage synchronised the whole card"))
     t = Tracer(enabled=True)
     with profile(activities=[ProfilerActivity.CPU]) if profiled else contextlib.nullcontext():
         with trace.region("alone"):

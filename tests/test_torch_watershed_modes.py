@@ -113,6 +113,8 @@ def test_nuclei_segment_cleanup_follows_the_device_pipeline_switch(monkeypatch):
     ``ECSEG_DEVICE_PIPELINE=0``, the device cleanup otherwise."""
     seen = []
     monkeypatch.setattr(tni, "nuset_forward", lambda model, image, pass_two: np.ones((32, 32), np.float32))
+    monkeypatch.setattr(tni, "mask_and_proposals", lambda model, image: (np.ones((32, 32), np.float32), None, None))
+    monkeypatch.setattr(tni, "watershed_pass", lambda model, mask, proposals, scores: mask)
     monkeypatch.setattr(tni, "cleanup_pass", lambda *a: seen.append("device") or np.zeros((32, 32), np.uint8))
     monkeypatch.setattr(tni, "cleanup_host", lambda *a: seen.append("host") or np.zeros((32, 32), np.uint8))
     model = types.SimpleNamespace(resize_scale=1, device=torch.device("cpu"))
