@@ -145,7 +145,14 @@ Phases (any failure raises; exit code 0 only when all pass):
    of short windows: ``runtime/devtime.py``): ``make stat_fish`` as a user runs
    it (``phase_stat_fish``): ``python3 -m ecseg_torch.pipelines.stat_fish``
    and ``stat_fish.main`` in-process (launch counters set to 0 just before,
-   read just after: four B2 an image and one B3 a watershed with markers)
+   read just after: four B2 an image, one B3 a watershed with markers and
+   ``NUSET_FORWARD_LAUNCHES``, H1 at each of the two U-Net passes' 18
+   ReLU'd 3x3 convs and 4 transpose convs; ``nuset_conv3x3_check``: image
+   0's passes on H1 against cuDNN (masks, proposal counts), a whole pass of
+   seeded Glorot weights, logits and RPN feature within ``NUSET_PASS_REL``
+   of cuDNN's, and H1 against its twin and cuDNN at NuSeT's own planes and
+   two of its transpose convs, ``NUSET_CONV3X3_SHAPES`` and
+   ``NUSET_CONVT_SHAPES``)
    on three 2048^2 RGB uint16 LZW TIFFs (``imgio.write_tiff_lzw``; half the nuclei with an
    amplified red probe, drawn from seed + 8, for interseg) with the demo
    NuSeT at its published widths (RPN scores raised so that markers are
@@ -302,6 +309,16 @@ _NOT_ON_METASEG = {"count": 0, "count_patches": 0, "fused_tail": 0, "convt": 0}
 # an image's float32 forward on the card (one model call of its patches):
 # H1 at each 3x3 conv, 18 at four levels; the CPU forward launches none
 FORWARD_LAUNCHES = {"conv3x3": 18}
+
+
+def metaseg_forward_launches(patches: int):
+    """``FORWARD_LAUNCHES`` of a float32 metaseg model call of ``patches``
+    on the card: its 4 transpose convs on H1 too at a few patches
+    (``layers.transpose_on_kernel``)."""
+    from ecseg_torch.models import layers
+
+    return {"conv3x3": FORWARD_LAUNCHES["conv3x3"] + 4 * (patches <= layers.ZERO_SPREAD_MAX_IMAGES)}
+
 PER_IMAGE_LAUNCHES = {
     "default": {"stitch": 1, "label": 3, "flood_border": 2, "flood_seeds": 2, "label_mc": 2, "flood_mc": 1, "label_flood": 0, **_NOT_ON_METASEG, **FORWARD_LAUNCHES},
     "per_class": {"stitch": 1, "label": 8, "flood_border": 2, "flood_seeds": 5, "label_mc": 0, "flood_mc": 0, "label_flood": 0, **_NOT_ON_METASEG, **FORWARD_LAUNCHES},
@@ -424,6 +441,22 @@ TAIL_AGREEMENT = 0.9999  # B10 vs its twin on random bf16: labels that must agre
 STAT_FISH_IMAGES = 3  # 2048^2 RGB uint16 LZW TIFFs
 STAT_FISH_T = 5000  # nuclei_size_T of the repository's config.yaml
 STAT_FISH_LABELS_PER_IMAGE = 4  # B2: clean_image's three labelings and remove_small_objects' one
+# an image's two NuSeT passes on the card: H1 at each ReLU'd 3x3 conv and
+# each transpose conv, 22 a pass (``final`` and the RPN's conv stay on
+# cuDNN); the CPU's launch none
+NUSET_FORWARD_LAUNCHES = {"conv3x3": 44}
+NUSET_CONV3X3_MASK_PX = CONV3X3_LABEL_PX  # NuSeT mask pixels an image's passes may differ from the cuDNN passes'
+NUSET_GLOROT_SEED = 27  # the seeded Glorot U-Net whose whole pass H1 is held to against cuDNN
+NUSET_PASS_REL = 1e-4  # its logits and RPN feature: float32 sums in two orders through 22 convs, of the largest value
+NUSET_CONV3X3_SHAPES = {  # H1 at NuSeT's 608^2 pass, one image: (h, w, skip cin, upsampled cin, cout)
+    "nuset conv1-1": (608, 608, 1, 0, 64),
+    "nuset conv2-3": (152, 152, 128, 128, 128),
+    "nuset conv5-2": (38, 38, 1024, 0, 1024),
+}
+NUSET_CONVT_SHAPES = {  # its transpose convs on H1 as 3x3 convs of the zero-spread input: (h, w, cin, cout, relu)
+    "nuset deconv4": (38, 38, 1024, 512, True),
+    "nuset deconv1": (304, 304, 128, 64, False),
+}
 STAT_FISH_SMALL = (900, 700)  # an input whose NuSeT width (208) is not a multiple of 32
 STAT_FISH_STAGES = ("nuclei_segment", "back_wait", "watershed", "cleanup", "min_cut", "matched_filter", "region_stats",
                     "tail_visuals", "tail_writes", "decode_wait", "tail_wait")
@@ -1607,7 +1640,9 @@ def phase_stat_fish(args, rng, dev, errors, results):
         check(rc == 0, f"in-process stat_fish.main returned {rc}")
         check(launches["label"] == STAT_FISH_LABELS_PER_IMAGE * len(names), f"stat_fish: B2 launched {launches['label']} times, expected {STAT_FISH_LABELS_PER_IMAGE * len(names)}")
         check(1 <= launches["flood_border"] <= len(names), f"stat_fish: B3 launched {launches['flood_border']} times (one per watershed with markers)")
-        check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border")), f"stat_fish launched other kernels: {launches}")
+        check(launches["conv3x3"] == NUSET_FORWARD_LAUNCHES["conv3x3"] * len(names), f"stat_fish: H1 launched {launches['conv3x3']} times, "
+              f"expected {NUSET_FORWARD_LAUNCHES['conv3x3'] * len(names)}")
+        check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border", "conv3x3")), f"stat_fish launched other kernels: {launches}")
         nuset_counts = dict(ni.COUNTS)
         check(0 < nuset_counts["nms_candidates"] <= 6000 * len(names) and 0 < nuset_counts["markers"] <= nuset_counts["nms_kept"],
               f"stat_fish: NuSeT's counts {nuset_counts}")
@@ -1669,8 +1704,8 @@ def phase_stat_fish(args, rng, dev, errors, results):
                 host_stages = tracer.times()
                 check(host_launches["flood_border"] == 0 and host_launches["label"] == launches["label"],
                       f"stat_fish under {tag} launched {host_launches}")
-            else:
-                check(not any(host_launches.values()), f"stat_fish under {tag} launched {host_launches}")
+            else:  # the U-Net passes stay on the card
+                check({k: v for k, v in host_launches.items() if v} == {"conv3x3": launches["conv3x3"]}, f"stat_fish under {tag} launched {host_launches}")
             host_ann = os.path.join(copy_dir, "annotated")
             check(read_bytes(os.path.join(host_ann, "stat_fish_lsq.csv")) == csv[inproc], f"{tag}: CSV bytes != the default run's")
             for name in names:
@@ -1691,6 +1726,8 @@ def phase_stat_fish(args, rng, dev, errors, results):
         model = load_nuset_model(os.path.join(work, "models"), dev, bbox_min_score=params.min_score,
                                  nms_threshold=params.nms_threshold, resize_scale=params.scale_ratio)
         I0 = imgio.u16_to_u8(imgio.imread_bgr8(os.path.join(inproc, names[0])))
+        results["nuset_conv3x3"] = nuset_conv3x3_check(model, ni.nuclei_segment_prepare(I0[:, :, 0], params.scale_ratio),
+                                                       ni.nuclei_segment_prepare(I0[: STAT_FISH_SMALL[0], : STAT_FISH_SMALL[1], 0], params.scale_ratio))
         stage_checks, kernel_inputs, geoms = {}, {}, {}
         full = f"{SIZE}x{SIZE}"
         for tag, I in ((full, I0), ("900x700", np.ascontiguousarray(I0[: STAT_FISH_SMALL[0], : STAT_FISH_SMALL[1]]))):
@@ -3035,7 +3072,8 @@ def phase_tf_models(args, dev, results):
         check(rc == 0, f"tf models: in-process stat_fish.main returned {rc}")
         check(launches["label"] == STAT_FISH_LABELS_PER_IMAGE * len(names), f"tf models: B2 launched {launches['label']} times")
         check(1 <= launches["flood_border"] <= len(names), f"tf models: B3 launched {launches['flood_border']} times")
-        check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border")), f"tf models: stat_fish launched {launches}")
+        check(launches["conv3x3"] == NUSET_FORWARD_LAUNCHES["conv3x3"] * len(names), f"tf models: H1 launched {launches['conv3x3']} times")
+        check(all(n == 0 for k, n in launches.items() if k not in ("label", "flood_border", "conv3x3")), f"tf models: stat_fish launched {launches}")
         check(read_bytes(os.path.join(work, "inproc", "annotated", "stat_fish_lsq.csv")) == read_bytes(os.path.join(ref_ann, "stat_fish_lsq.csv")),
               "tf models: the in-process stat_fish CSV != phase_stat_fish's")
         print(f"stat_fish from the converted nuset.npz: python -m ecseg_torch.pipelines.stat_fish {stat_fish_s:.2f} s on {len(names)} "
@@ -3154,6 +3192,7 @@ def phase_train(args, dev, results):
     from ecseg_torch.models.metaseg_unet import MetasegUNet, flops_per_patch
     from ecseg_torch.models.layers import parity_flags
     from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops import tiling
     from ecseg_torch.ops.meta_post import meta_inference
     from ecseg_torch.pipelines import metaseg
     from ecseg_torch.runtime import checkpoint as ckpt
@@ -3356,7 +3395,7 @@ def phase_train(args, dev, results):
             K.reset_launches()
             check(metaseg.main(config=Config(raw={"metaseg": {"inpath": os.path.join(serve, "inproc")}}), device="cuda") == 0, "served back: in-process main")
             served_launches = dict(K.LAUNCHES)
-            for key, n in PER_IMAGE_LAUNCHES["default"].items():
+            for key, n in (PER_IMAGE_LAUNCHES["default"] | metaseg_forward_launches(len(tiling.patch_positions(TRAIN_SERVE_SIZE, TRAIN_SERVE_SIZE)))).items():
                 check(served_launches[key] == n * len(names), f"served back: {key} launched {served_launches[key]} times, expected {n * len(names)}")
             for name in names:
                 npy = os.path.join("labels", name[:-4] + ".npy")
@@ -3575,7 +3614,7 @@ DEMO_SWITCHES = {"ECSEG_STAT_FISH_TAIL_WORKERS": "3", "ECSEG_TIF_LZW": "1", "ECS
 DEMO_LAUNCHES = {
     "metaseg": PER_IMAGE_LAUNCHES["default"],
     "meta_overlay": OVERLAY_LAUNCHES,
-    "stat_fish": {key: STAT_FISH_LABELS_PER_IMAGE * (key == "label") for key in ALL_KERNELS},
+    "stat_fish": {key: STAT_FISH_LABELS_PER_IMAGE * (key == "label") for key in ALL_KERNELS} | NUSET_FORWARD_LAUNCHES,
     "interseg": {key: 0 for key in ALL_KERNELS},
     "fish_distance": {key: 0 for key in ALL_KERNELS},
 }
@@ -4152,6 +4191,190 @@ def conv3x3_forward_check(model, paths):
     out = {"images": len(paths), "launches": launches, "label_px_differ": px, "ec_counts": counts}
     print(f"H1 on the main path: {out}", flush=True)
     return out
+
+
+def nuset_conv3x3_check(model, pre, pre_small):
+    """H1 in stat_fish: image 0's two NuSeT passes (the whole-image mask,
+    then the foreground pass's mask and proposals; ``pre`` from
+    ``nuclei_segment_prepare``) with the convs on the kernel (the default)
+    and on cuDNN (``NuSeTUNet._kernel_route`` off):
+    ``NUSET_FORWARD_LAUNCHES`` and no fallback, both masks within
+    ``NUSET_CONV3X3_MASK_PX`` pixels of cuDNN's, as many proposals, the same
+    bytes on a second kernel run; then the first pass on ``pre_small``, on
+    the card (half of ``NUSET_FORWARD_LAUNCHES``) and in a CPU copy of the
+    U-Net (none), masks within the same limit.  The demo NuSeT's logits
+    read level 1 alone, so a U-Net of seeded Glorot weights, whose decoder
+    reaches the logits, holds a whole pass on ``pre``'s input against the
+    cuDNN pass (:func:`nuset_glorot_pass_check`), and H1 is held against its
+    twin and cuDNN at NuSeT's own shapes (:func:`nuset_conv3x3_rows`)."""
+    from ecseg_torch.models import nuset
+    from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.ops import cc_kernels as K
+    from ecseg_torch.ops.normalization import foreground_norm
+    from ecseg_torch.runtime import fallbacks
+
+    def run():
+        K.reset_launches()
+        whole = ni.nuset_forward(model, pre[1], pass_two=False)
+        fg, props, _ = ni.mask_and_proposals(model, foreground_norm(pre[0], whole))
+        return (whole, fg), len(props), K.LAUNCHES["conv3x3"]
+
+    fallbacks.reset()
+    kern, kern_props, launches = run()
+    again, _, _ = run()
+    check(fallbacks.counts().get(fallbacks.CONV3X3_CUDNN, 0) == 0, f"NuSeT: 3x3 convs left to cuDNN: {fallbacks.summary()}")
+    route = nuset.NuSeTUNet._kernel_route
+    nuset.NuSeTUNet._kernel_route = lambda self, x, dtype: False
+    try:
+        cudnn, cudnn_props, cudnn_launches = run()
+    finally:
+        nuset.NuSeTUNet._kernel_route = route
+    check(launches == NUSET_FORWARD_LAUNCHES["conv3x3"] and cudnn_launches == 0, f"NuSeT: H1 launched {launches} times over an image's two passes (cuDNN run {cudnn_launches})")
+    px = [int((a != b).sum()) for a, b in zip(kern, cudnn)]
+    check(sum(px) <= NUSET_CONV3X3_MASK_PX, f"NuSeT: {px} mask pixels of the two passes differ from the cuDNN passes'")
+    check(kern_props == cudnn_props > 0, f"NuSeT: {kern_props} proposals on H1, {cudnn_props} on cuDNN")
+    check(all(np.array_equal(a, b) for a, b in zip(kern, again)), "NuSeT: a second run's masks differ")
+    K.reset_launches()
+    card_small = ni.unet_pass(model.unet_whole, pre_small[1], model.device)[0]
+    card_launches = K.LAUNCHES["conv3x3"]
+    K.reset_launches()
+    cpu_small = ni.unet_pass(copy.deepcopy(model.unet_whole).cpu(), pre_small[1], "cpu")[0]
+    cpu_launches = K.LAUNCHES["conv3x3"]
+    px_cpu = int((card_small != cpu_small).sum())
+    check(card_launches == NUSET_FORWARD_LAUNCHES["conv3x3"] // 2 and cpu_launches == 0,
+          f"NuSeT pass on {pre_small[1].shape}: H1 launched {card_launches} times on the card, {cpu_launches} on the CPU")
+    check(px_cpu <= NUSET_CONV3X3_MASK_PX, f"NuSeT pass on {pre_small[1].shape}: {px_cpu} mask pixels differ between the card and the CPU")
+    out = {"launches": launches, "mask_px_differ": px, "proposals": [kern_props, cudnn_props],
+           "small": {"shape": list(pre_small[1].shape), "card_launches": card_launches, "cpu_launches": cpu_launches, "mask_px_differ": px_cpu}}
+    print(f"H1 in NuSeT on image 0: {out}", flush=True)
+    out["glorot_pass"] = nuset_glorot_pass_check(pre[1], model.device)
+    out["rows"] = nuset_conv3x3_rows(model.device)
+    return out
+
+
+def nuset_glorot_pass_check(image_norm, dev):
+    """A whole NuSeT U-Net pass of seeded Glorot weights on ``image_norm``
+    (stat_fish's 608^2 input), on H1 against the cuDNN pass (the route off,
+    TF32 off): ``NUSET_FORWARD_LAUNCHES`` / 2 launches, the logits and the
+    RPN feature within ``NUSET_PASS_REL`` of each one's largest value, the
+    mask within ``NUSET_CONV3X3_MASK_PX`` pixels."""
+    from ecseg_torch.models import nuset
+    from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.ops import cc_kernels as K
+
+    unet = nuset.NuSeTUNet(torch.Generator().manual_seed(NUSET_GLOROT_SEED)).to(dev).eval()
+    x = ni._unet_input(image_norm, dev)
+    K.reset_launches()
+    with torch.no_grad():
+        got = unet(x)
+    launches = K.LAUNCHES["conv3x3"]
+    route = nuset.NuSeTUNet._kernel_route
+    nuset.NuSeTUNet._kernel_route = lambda self, x, dtype: False
+    try:
+        with torch.no_grad():
+            want = unet(x)
+    finally:
+        nuset.NuSeTUNet._kernel_route = route
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+    px = int((nuset.pred_mask(got[0]) != nuset.pred_mask(want[0])).sum())
+    out = {"launches": launches, "logits_rel": rel[0], "feature_rel": rel[1], "logits_scale": float(want[0].abs().max()),
+           "mask_px_differ": px}
+    print(f"H1 on a Glorot NuSeT pass at {tuple(x.shape)}: {out}", flush=True)
+    check(launches == NUSET_FORWARD_LAUNCHES["conv3x3"] // 2, f"Glorot NuSeT pass: H1 launched {launches} times")
+    check(max(rel) <= NUSET_PASS_REL, f"Glorot NuSeT pass: logits and feature {rel} of scale from the cuDNN pass's")
+    check(px <= NUSET_CONV3X3_MASK_PX, f"Glorot NuSeT pass: {px} mask pixels differ from the cuDNN pass's")
+    return out
+
+
+def nuset_conv3x3_rows(dev):
+    """H1 at NuSeT's own shapes, one 608^2 image's planes with their partial
+    8 x 16 tiles (``NUSET_CONV3X3_SHAPES``), and two of its transpose convs
+    as 3x3 convs of the zero-spread input (``NUSET_CONVT_SHAPES``, through
+    ``layers.kernel_conv_transpose3x3``): bit-equal to the twin on integer
+    inputs, within 1e-5 of cuDNN's largest output on normal ones (the
+    transpose convs against ``forward_bias_after``, then the ReLU where
+    the layer has one), the same bytes on a second call; ms beside cuDNN's."""
+    from ecseg_torch.models import layers
+    from ecseg_torch.ops import conv3x3
+
+    cl = torch.channels_last
+    rows = []
+
+    def compare(tag, kern, twin, library, operands):
+        integer_inputs = operands(True)
+        check(torch.equal(kern(*integer_inputs), twin(*integer_inputs)), f"H1 {tag}: != its twin on integer inputs")
+        del integer_inputs
+        normal_inputs = operands(False)
+        got, want = kern(*normal_inputs), library(*normal_inputs)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel < 1e-5, f"H1 {tag}: max relative error {rel:.3g} against cuDNN")
+        check(torch.equal(kern(*normal_inputs), got), f"H1 {tag}: a second call's bytes differ")
+        ms, library_ms = cuda_ms(lambda: kern(*normal_inputs), 5), cuda_ms(lambda: library(*normal_inputs), 5)
+        return {"max_rel_err_cudnn": rel, "ms": ms, "library_ms": library_ms}
+
+    for tag, (h, w, ca, cb, cout) in NUSET_CONV3X3_SHAPES.items():
+        cin = ca + cb
+        g = torch.Generator(device=dev).manual_seed(h * cin + cout)
+
+        def operands(integer):
+            if integer:
+                x = torch.randint(-2, 3, (1, cin, h, w), device=dev, generator=g).float()
+                k = torch.randint(-2, 3, (cout, cin, 3, 3), device=dev, generator=g).float()
+            else:
+                x = torch.randn((1, cin, h, w), device=dev, generator=g)
+                k = torch.randn((cout, cin, 3, 3), device=dev, generator=g) / (3 * cin**0.5)
+            b = torch.randint(-20, 21, (cout,), device=dev, generator=g).float()
+            return x.contiguous(memory_format=cl), k, b
+
+        def kern(x, k, b, fn=conv3x3.conv3x3_relu):
+            return fn(x[:, :ca].contiguous(memory_format=cl), k, b, x[:, ca:].contiguous(memory_format=cl) if cb else None)
+
+        def library(x, k, b):  # cuDNN under the parity flags, the bias after the float32 conv
+            with layers.parity_flags():
+                return torch.relu(layers.conv_same(x.contiguous(), k, b))
+
+        row = compare(tag, kern, lambda x, k, b: kern(x, k, b, conv3x3.conv3x3_relu_plain), library, operands)
+        row.update(input=f"{tag} {(1, h, w, ca, cb, cout)}", tflops=2 * 9 * h * w * cin * cout / row["ms"] / 1e9)
+        rows.append(row)
+    for tag, (h, w, cin, cout, relu) in NUSET_CONVT_SHAPES.items():
+        layer = layers.TFConvTranspose2d(cin, cout).to(dev)
+        g = torch.Generator(device=dev).manual_seed(h * cin + cout)
+
+        def operands(integer):
+            with torch.no_grad():
+                if integer:
+                    layer.weight.copy_(torch.randint(-2, 3, layer.weight.shape, device=dev, generator=g).float())
+                    x = torch.randint(-2, 3, (1, cin, h, w), device=dev, generator=g).float()
+                else:
+                    layer.weight.copy_(torch.randn(layer.weight.shape, device=dev, generator=g) / (3 * cin**0.5))
+                    x = torch.randn((1, cin, h, w), device=dev, generator=g)
+                layer.bias.copy_(torch.randint(-20, 21, (cout,), device=dev, generator=g).float())
+            return (x.contiguous(memory_format=cl),)
+
+        def kern(x):
+            with torch.no_grad():
+                return layers.kernel_conv_transpose3x3(layer, x, relu)
+
+        def twin(x):
+            real = conv3x3.conv3x3_relu
+            conv3x3.conv3x3_relu = conv3x3.conv3x3_relu_plain
+            try:
+                return kern(x)
+            finally:
+                conv3x3.conv3x3_relu = real
+
+        def library(x):
+            with torch.no_grad(), layers.parity_flags():
+                y = layer.forward_bias_after(x)
+            return torch.relu(y) if relu else y
+
+        row = compare(tag, kern, twin, library, operands)
+        row.update(input=f"{tag} {(1, h, w, cin, cout)} relu={relu}", tflops=2 * 9 * 4 * h * w * cin * cout / row["ms"] / 1e9)
+        rows.append(row)
+    for row in rows:
+        print(f"H1 at NuSeT's {row['input']}: {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s of the kernel's products), "
+              f"cuDNN {row['library_ms']:.3f} ms, max rel err {row['max_rel_err_cudnn']:.3g}", flush=True)
+    return rows
 
 
 def conv3x3_rows(dev, results):

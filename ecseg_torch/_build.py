@@ -1,7 +1,8 @@
 """Build the port's native code at first use: the CUDA kernels
 (``csrc/*.cu``) with ``nvcc``, the host libraries (the TIFF LZW decoder
 ``csrc/tiff_lzw.cpp``; stat_fish's min-cut and priority-flood watershed
-``csrc/cc_maxflow.cpp``) with the system C++ compiler.
+``csrc/cc_maxflow.cpp``; NuSeT's greedy NMS walk ``csrc/nms_walk.cpp``)
+with the system C++ compiler.
 
 Each source becomes its own shared library with a plain C interface, loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  All CUDA
@@ -36,7 +37,7 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
-HOST_SOURCES = ("tiff_lzw.cpp", "cc_maxflow.cpp")
+HOST_SOURCES = ("tiff_lzw.cpp", "cc_maxflow.cpp", "nms_walk.cpp")
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()

@@ -1,12 +1,14 @@
-// The float32 3x3 stride-1 'SAME' convolution of the metaseg U-Net's
-// forward, with bias and ReLU, on the CUDA cores:
+// The float32 3x3 stride-1 'SAME' convolution of the metaseg and NuSeT
+// U-Nets' forwards, with bias and an optional ReLU, on the CUDA cores:
 //
 //   y[n, p, co] = relu(bias[co] + sum_{ci, tap} x[n, p + tap, ci] w[co, ci, tap])
 //
-// with x = 0 outside the plane.  x is channels-last (NHWC); it may come in
+// (no relu where the template flag RELU is false: the linear transpose
+// convs, run as 3x3 convs of their zero-spread input), with x = 0 outside
+// the plane.  x is channels-last (NHWC); it may come in
 // two halves, a (ca channels) then b (cb channels), read in place as the
-// concat [a, b] of the decoder's dec*_1 layers.  Output (n, h, w, cout)
-// NHWC, float32.
+// concat [a, b] of a decoder's skip and upsampled halves (metaseg's dec*_1,
+// NuSeT's conv{3,2,1}-3).  Output (n, h, w, cout) NHWC, float32.
 //
 // Replaces no TPU kernel: the JAX package leaves these convs to XLA
 // (ecseg_tpu/models/metaseg_unet.py, lax.conv_general_dilated at
@@ -41,8 +43,9 @@
 //
 // Sum order, fixed: over the input channels (a's, then b's), per channel the
 // taps in row-major order (ky, kx), each an FMA into the float32 sum; then
-// the bias, then the ReLU.  No split-K, no atomics: the bytes are the same
-// from run to run and do not depend on how many images the call holds.
+// the bias, then the ReLU (where RELU).  No split-K, no atomics: the bytes
+// are the same from run to run and do not depend on how many images the
+// call holds.
 //
 // BK (input channels a chunk), by the channel counts: 16 when they are
 // multiples of 4 (16-byte copies) and a's is a multiple of 16 or b is
@@ -70,7 +73,13 @@ struct Cfg {
   static constexpr int kMinBlocks = BN == 128 ? 1 : 2;        // 8 warps an SM, up to 255 registers a thread
 };
 
-template <int BN, int BK>
+// four sums, then their biases, then the ReLU where `relu`
+__device__ __forceinline__ float4 epilogue(float a0, float a1, float a2, float a3, float4 b, bool relu) {
+  const float4 y = make_float4(a0 + b.x, a1 + b.y, a2 + b.z, a3 + b.w);
+  return relu ? make_float4(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f), fmaxf(y.z, 0.f), fmaxf(y.w, 0.f)) : y;
+}
+
+template <int BN, int BK, bool RELU>
 __global__ void __launch_bounds__(Cfg<BN, BK>::kThreads, Cfg<BN, BK>::kMinBlocks)
 conv3x3_f32(const float* __restrict__ xa, const float* __restrict__ xb,
             const float* __restrict__ wpk, const float* __restrict__ bias,
@@ -184,30 +193,34 @@ conv3x3_f32(const float* __restrict__ xa, const float* __restrict__ xb,
     const int j = j0 + half * 8 + p;
     if (j >= w) break;
     float* o = orow + static_cast<long long>(j) * cout;
-    if (co0 < cout)
-      *reinterpret_cast<float4*>(o + co0) =
-          make_float4(fmaxf(acc[p][0] + bb0.x, 0.f), fmaxf(acc[p][1] + bb0.y, 0.f),
-                      fmaxf(acc[p][2] + bb0.z, 0.f), fmaxf(acc[p][3] + bb0.w, 0.f));
-    if (co1 < cout)
-      *reinterpret_cast<float4*>(o + co1) =
-          make_float4(fmaxf(acc[p][4] + bb1.x, 0.f), fmaxf(acc[p][5] + bb1.y, 0.f),
-                      fmaxf(acc[p][6] + bb1.z, 0.f), fmaxf(acc[p][7] + bb1.w, 0.f));
+    if (co0 < cout) *reinterpret_cast<float4*>(o + co0) = epilogue(acc[p][0], acc[p][1], acc[p][2], acc[p][3], bb0, RELU);
+    if (co1 < cout) *reinterpret_cast<float4*>(o + co1) = epilogue(acc[p][4], acc[p][5], acc[p][6], acc[p][7], bb1, RELU);
   }
 }
 
-template <int BN, int BK>
+template <int BN, int BK, bool RELU>
 int launch(const void* xa, const void* xb, const void* wpk, const void* bias, void* out, int n,
            int h, int w, int ca, int cb, int cout, int vec, cudaStream_t stream) {
   using C = Cfg<BN, BK>;
-  cudaError_t e = cudaFuncSetAttribute(conv3x3_f32<BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  cudaError_t e = cudaFuncSetAttribute(conv3x3_f32<BN, BK, RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int chunks = (ca + cb + BK - 1) / BK;
   const long long mblocks = static_cast<long long>(n) * ((h + kTh - 1) / kTh) * ((w + kTw - 1) / kTw);
   dim3 grid(static_cast<unsigned>(mblocks), (cout + BN - 1) / BN);
-  conv3x3_f32<BN, BK><<<grid, C::kThreads, C::kSmem, stream>>>(
+  conv3x3_f32<BN, BK, RELU><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(xa), static_cast<const float*>(xb), static_cast<const float*>(wpk),
       static_cast<const float*>(bias), static_cast<float*>(out), h, w, ca, cb, cout, chunks, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool RELU>
+int dispatch(const void* xa, const void* xb, const void* wpk, const void* bias, void* out, int n,
+             int h, int w, int ca, int cb, int cout, int bn, int bk, int vec, cudaStream_t s) {
+  if (bn == 64 && bk == 16) return launch<64, 16, RELU>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, vec, s);
+  if (bn == 128 && bk == 16) return launch<128, 16, RELU>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, vec, s);
+  if (bn == 64 && bk == 1) return launch<64, 1, RELU>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, 0, s);
+  if (bn == 128 && bk == 1) return launch<128, 1, RELU>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -217,14 +230,11 @@ int launch(const void* xa, const void* xb, const void* wpk, const void* bias, vo
 // ops/conv3x3.pack_weights for (bn, bk); bias float32 padded to a multiple
 // of bn; out (n, h, w, cout) float32.  cout % 4 == 0; bn 64 or 128; bk 16
 // or 1; `vec` 1 when bk is 16, ca and cb are multiples of 4 and xa, xb are
-// 16-byte aligned.
+// 16-byte aligned; `relu` 1 for the ReLU, 0 for none.
 extern "C" int ecseg_conv3x3(const void* xa, const void* xb, const void* wpk, const void* bias,
                              void* out, int n, int h, int w, int ca, int cb, int cout, int bn,
-                             int bk, int vec, void* stream) {
+                             int bk, int vec, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 64 && bk == 16) return launch<64, 16>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, vec, s);
-  if (bn == 128 && bk == 16) return launch<128, 16>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, vec, s);
-  if (bn == 64 && bk == 1) return launch<64, 1>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, 0, s);
-  if (bn == 128 && bk == 1) return launch<128, 1>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, 0, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return relu ? dispatch<true>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, bn, bk, vec, s)
+              : dispatch<false>(xa, xb, wpk, bias, out, n, h, w, ca, cb, cout, bn, bk, vec, s);
 }

@@ -31,9 +31,12 @@ On the card, a float32 forward that builds no autograd graph sends its
 3x3 convs to the hand-written kernel ``ops/conv3x3.conv3x3_relu`` (float32
 FMAs in a fixed order, bias and ReLU fused, ``dec*_1``'s two halves read
 in place): ``_kernel_route`` decides per forward, from the input's device
-and dtype and whether autograd records.  Its activations are then
-channels-last (NHWC in memory) through the trunk; the pools, transpose
-convs and the head stay on cuDNN in that layout.  A shape the kernel
+and dtype and whether autograd records (``layers.KernelRouted``, which the
+NuSeT U-Net shares), and its transpose convs too where
+``layers.transpose_on_kernel`` picks the kernel for the batch (a few
+patches; 100 stay on cuDNN's dgrad).  Its activations are then
+channels-last (NHWC in memory) through the trunk; the pools, the other
+transpose convs and the head stay on cuDNN in that layout.  A shape the kernel
 refuses goes to cuDNN and is counted in ``runtime/fallbacks``
 (``conv3x3_cudnn``).  Every other forward (the CPU, autograd's, bf16,
 ``forward_cat1``) is the cuDNN path as described above.
@@ -53,10 +56,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops import conv3x3
-from ..runtime import fallbacks
 from ..runtime.trace import region
-from .layers import SameConv2d, TFConvTranspose2d, conv_same, glorot_uniform_, max_pool_same, parity_flags
+from .layers import KernelRouted, SameConv2d, TFConvTranspose2d, conv_same, glorot_uniform_, max_pool_same, parity_flags
 
 ENC_WIDTHS = (32, 64, 128, 256)
 BOTTLENECK = 512
@@ -99,7 +100,7 @@ def flops_per_patch(
     return f
 
 
-class MetasegUNet(nn.Module):
+class MetasegUNet(KernelRouted):
     """Layers are named as the JAX parameter tree's keys (``enc1_1``,
     ``bott_2``, ``up3``, ``dec1_2``, ``head``, ...)."""
 
@@ -145,30 +146,6 @@ class MetasegUNet(nn.Module):
         layer = self.layers[name]
         return layer(x) if x.dtype == torch.float32 else layer.forward_bias_after(x)
 
-    def _kernel_route(self, x: torch.Tensor, dtype: torch.dtype) -> bool:
-        """Whether this forward's 3x3 convs go to ``conv3x3_relu``: a
-        float32 forward of float32 weights on the card that builds no
-        autograd graph."""
-        if not (x.is_cuda and dtype == torch.float32 and self.dtype == torch.float32):
-            return False
-        return not torch.is_grad_enabled() or not (x.requires_grad or any(p.requires_grad for p in self.parameters()))
-
-    def _conv_relu(self, name: str, x: torch.Tensor, x2: Optional[torch.Tensor] = None, route: bool = False) -> torch.Tensor:
-        """``relu(layer(cat([x, x2])))``: through the kernel on ``route``
-        when it takes the layer's shapes, else ``_conv`` on the concat."""
-        layer = self.layers[name]
-        if route and isinstance(layer, SameConv2d) and layer.kernel_size == (3, 3):
-            if conv3x3.refusal(x, layer.weight, x2) is None:
-                cl = torch.channels_last
-                return conv3x3.conv3x3_relu(
-                    x.contiguous(memory_format=cl), layer.weight, layer.bias,
-                    None if x2 is None else x2.contiguous(memory_format=cl),
-                )
-            fallbacks.record(fallbacks.CONV3X3_CUDNN)
-        if x2 is not None:
-            x = torch.cat([x, x2], dim=1)
-        return torch.relu(self._conv(name, x))
-
     def _dec_first(self, skip: torch.Tensor, x: torch.Tensor, name: str) -> torch.Tensor:
         """``relu(conv(concat([skip, x]), K))`` as two convs over the halves
         of K's input channels, each rounded (``metaseg_unet.py:113-127``)."""
@@ -196,13 +173,13 @@ class MetasegUNet(nn.Module):
             x = self._conv_relu("bott_1", x, route=route)
             x = self._conv_relu("bott_2", x, route=route)
             for i in range(len(self.widths), 1, -1):
-                x = torch.relu(self._conv(f"up{i}", x))
+                x = self._conv_transpose(f"up{i}", x, relu=True, route=route)
                 if split:
                     x = self._dec_first(skips[i - 1], x, f"dec{i}_1")
                 else:
                     x = self._conv_relu(f"dec{i}_1", skips[i - 1], x, route=route)
                 x = self._conv_relu(f"dec{i}_2", x, route=route)
-            return skips[0], torch.relu(self._conv("up1", x))
+            return skips[0], self._conv_transpose("up1", x, relu=True, route=route)
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """(N, H, W, C) patches -> (N, H, W, num_classes) float32

@@ -16,7 +16,22 @@ Layer names are the JAX package's parameter-tree keys, so the weight bridge
 (``models/weights.py``) maps them one to one.  Every conv adds its bias after
 the conv output is rounded (``layers.conv_same``), as the JAX layers do.  The
 forward runs under ``layers.parity_flags``: deterministic, no autotuning,
-no TF32.  Input sides must be multiples of 16.  Under a profiler the U-Net
+no TF32.  Input sides must be multiples of 16.
+
+On the card, a float32 forward of float32 weights that builds no autograd
+graph (``layers.KernelRouted``, as metaseg's) sends the U-Net's 18 ReLU'd
+3x3 convs to the hand-written kernel ``ops/conv3x3.conv3x3_relu`` (float32
+FMAs in a fixed order, then the bias, then the ReLU; ``conv{3,2,1}-3`` read
+the skip and the transpose conv's output in place, with no concat), and
+its four transpose convs too, as 3x3 convs of the zero-spread input
+(``layers.transpose_on_kernel`` picks that for a pass's one image: there
+cuDNN's deterministic float32 transpose convs take FFT tiling with batched
+GEMVs, which took most of a pass).  Its activations are then
+channels-last; the pools, ``final`` and the RPN stay on cuDNN in that
+layout.  A shape the kernel
+refuses goes to cuDNN and is counted in ``runtime/fallbacks``
+(``conv3x3_cudnn``).  Every other forward keeps ``conv_same`` and the
+transpose convs' ``forward_bias_after`` throughout.  Under a profiler the U-Net
 opens the ranges ``nuset.forward.encoder`` (levels 1-4 and their pools),
 ``.decoder`` (the bottleneck, the transpose convs, levels 4-1) and
 ``.head`` (``final``).
@@ -31,7 +46,7 @@ import torch
 from torch import nn
 
 from ..runtime.trace import region
-from .layers import SameConv2d, TFConvTranspose2d, conv_same, max_pool_same, parity_flags
+from .layers import KernelRouted, SameConv2d, TFConvTranspose2d, conv_same, max_pool_same, parity_flags
 
 ENC_WIDTHS = (64, 128, 256, 512)
 BOTTLENECK = 1024
@@ -46,7 +61,7 @@ def _glorot_(weight: torch.Tensor, fan_in: int, fan_out: int, generator: Optiona
     weight.copy_(u * (2 * limit) - limit)
 
 
-class NuSeTUNet(nn.Module):
+class NuSeTUNet(KernelRouted):
     def __init__(self, generator: Optional[torch.Generator] = None):
         super().__init__()
         L: Dict[str, nn.Module] = {}
@@ -82,28 +97,29 @@ class NuSeTUNet(nn.Module):
             return layer.forward_bias_after(x)
         return conv_same(x, layer.weight, layer.bias)
 
-    def _block(self, a: str, b: str, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self._conv(a, x))
-        return torch.relu(self._conv(b, x))
+    def _block(self, a: str, b: str, x: torch.Tensor, x2: Optional[torch.Tensor] = None, route: bool = False) -> torch.Tensor:
+        return self._conv_relu(b, self._conv_relu(a, x, x2, route), route=route)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(1, 1, H, W) normalized image -> (logits (1, 2, H, W), RPN feature
-        (1, 512, H/16, W/16))."""
+        (1, 512, H/16, W/16)); both channels-last when the 3x3 convs ran on
+        the kernel."""
+        route = self._kernel_route(x, x.dtype)
         with parity_flags():
             skips = []
             with region("nuset.forward.encoder"):
                 for i in range(1, 5):
-                    x = self._block(f"conv{i}-1", f"conv{i}-2", x)
+                    x = self._block(f"conv{i}-1", f"conv{i}-2", x, route=route)
                     skips.append(x)
                     x = max_pool_same(x)
             feat = x
             with region("nuset.forward.decoder"):
-                x = self._block("conv5-1", "conv5-2", x)
-                x = torch.relu(self._conv("deconv4", x))
-                x = self._block("conv4-3", "conv4-4", x)
+                x = self._block("conv5-1", "conv5-2", x, route=route)
+                x = self._conv_transpose("deconv4", x, relu=True, route=route)
+                x = self._block("conv4-3", "conv4-4", x, route=route)
                 for i in (3, 2, 1):
-                    x = torch.cat([skips[i - 1], self._conv(f"deconv{i}", x)], dim=1)
-                    x = self._block(f"conv{i}-3", f"conv{i}-4", x)
+                    up = self._conv_transpose(f"deconv{i}", x, relu=False, route=route)
+                    x = self._block(f"conv{i}-3", f"conv{i}-4", skips[i - 1], up, route=route)
             with region("nuset.forward.head"):
                 return conv_same(x, self.layers["final"].weight), feat
 

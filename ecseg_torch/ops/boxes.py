@@ -17,6 +17,8 @@ in one copy through ``packing.fetch`` (so ``packing.FETCHED`` counts it).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -119,11 +121,36 @@ def fetch_suppression(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: f
     return packed[:n], np.unpackbits(packed[n], count=n, bitorder="little").astype(bool)
 
 
+@functools.lru_cache(maxsize=1)
+def _native_walk():
+    """``nms_greedy_walk`` of csrc/nms_walk.cpp."""
+    from .._build import host_library
+
+    fn = host_library("nms_walk.cpp").nms_greedy_walk
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    return fn
+
+
 def greedy_walk(packed: np.ndarray, valid: np.ndarray, max_output: int) -> np.ndarray:
     """The greedy NMS over boxes in descending score order, on the host:
     take the first live candidate, remove those its packed row suppresses,
     repeat, at most ``max_output`` times.  The taken indices, int64, in
-    order."""
+    order.  In C++ (``csrc/nms_walk.cpp``, without the interpreter's lock,
+    so that it does not hold up another thread); :func:`greedy_walk_py` is
+    its twin."""
+    n = valid.shape[0]
+    packed = np.ascontiguousarray(packed, np.uint8)
+    if packed.shape != (n, -(-n // 8)):
+        raise ValueError(f"greedy_walk: packed rows {packed.shape} for {n} candidates")
+    flags = np.ascontiguousarray(valid, np.uint8)
+    out = np.empty(max(max_output, 0), np.int64)
+    k = _native_walk()(packed.ctypes.data, flags.ctypes.data, n, packed.shape[1], out.shape[0], out.ctypes.data)
+    return out[:k].copy()
+
+
+def greedy_walk_py(packed: np.ndarray, valid: np.ndarray, max_output: int) -> np.ndarray:
+    """:func:`greedy_walk` in numpy, one taken candidate a step."""
     n = valid.shape[0]
     removed = ~valid
     selected = []

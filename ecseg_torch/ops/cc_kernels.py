@@ -272,7 +272,7 @@ _SIGNATURES = {
     "ecseg_fused_tail_mma": ("fused_tail.cu", [_P, _P, _P, _P, _P, _P, _P] + [_I] * 13 + [_P]),
     "ecseg_convt": ("convt.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "ecseg_convt_mma": ("convt.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "ecseg_conv3x3": ("conv3x3_f32.cu", [_P, _P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "ecseg_conv3x3": ("conv3x3_f32.cu", [_P, _P, _P, _P, _P] + [_I] * 10 + [_P]),
 }
 _cfuncs: Dict[str, ctypes._CFuncPtr] = {}
 

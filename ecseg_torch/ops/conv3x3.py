@@ -1,10 +1,11 @@
-"""The metaseg U-Net forward's float32 3x3 convolution with bias and ReLU
-(``csrc/conv3x3_f32.cu``) and its plain PyTorch twin.
+"""The float32 3x3 convolution with bias and ReLU of the metaseg and NuSeT
+U-Net forwards (``csrc/conv3x3_f32.cu``) and its plain PyTorch twin.
 
-``conv3x3_relu(x, weight, bias, x2=None)`` computes ``relu(conv2d(cat([x,
-x2], 1), weight, bias, padding 1))`` for NCHW-shaped float32 tensors:
+``conv3x3_relu(x, weight, bias, x2=None, relu=True)`` computes
+``relu(conv2d(cat([x, x2], 1), weight, bias, padding 1))`` (without the
+ReLU when ``relu`` is False) for NCHW-shaped float32 tensors:
 ``weight`` OIHW (cout, cin, 3, 3), ``bias`` (cout,), ``x2`` an optional
-second half of the input channels (the decoder's upsampled half beside its
+second half of the input channels (a decoder's upsampled half beside its
 skip), read in place.  On the card the operands are channels-last
 (``memory_format=torch.channels_last``: NHWC in memory) and so is the
 result.
@@ -12,7 +13,7 @@ result.
 The kernel replaces cuDNN, not a TPU kernel: the JAX package leaves these
 convs to XLA.  It sums every product in float32 FMAs in one fixed order:
 over the input channels (``x``'s, then ``x2``'s), per channel the nine
-taps row-major, then the bias, then the ReLU; no TF32, so it keeps the
+taps row-major, then the bias, then the ReLU if any; no TF32, so it keeps the
 float32 forward's parity with the JAX package's ``Precision.HIGHEST``.
 The twin sums in the same order (unfused multiply and add).
 
@@ -89,9 +90,9 @@ def check_layout(x: torch.Tensor, x2: Optional[torch.Tensor]) -> None:
             raise ValueError(f"conv3x3_relu: {what} must be channels-last (NHWC in memory)")
 
 
-def conv3x3_relu_plain(x, weight, bias, x2=None) -> torch.Tensor:
+def conv3x3_relu_plain(x, weight, bias, x2=None, relu: bool = True) -> torch.Tensor:
     """The twin: the kernel's sums in its order, one product at a time, in
-    float32; channels-last out."""
+    float32, then the bias and the ReLU on ``relu``; channels-last out."""
     _check_args(x, weight, bias, x2)
     xs = x if x2 is None else torch.cat([x, x2], dim=1)
     n, cin, h, w = xs.shape
@@ -101,7 +102,8 @@ def conv3x3_relu_plain(x, weight, bias, x2=None) -> torch.Tensor:
         for tap in range(9):
             dy, dx = divmod(tap, 3)
             acc = acc + xp[:, ci : ci + 1, dy : dy + h, dx : dx + w] * weight[:, ci, dy, dx][None, :, None, None]
-    return torch.relu(acc + bias[None, :, None, None]).contiguous(memory_format=torch.channels_last)
+    y = acc + bias[None, :, None, None]
+    return (torch.relu(y) if relu else y).contiguous(memory_format=torch.channels_last)
 
 
 def pack_weights(weight: torch.Tensor, bn: int, bk: int) -> torch.Tensor:
@@ -135,11 +137,12 @@ def packed_weights(weight: torch.Tensor, bn: int, bk: int) -> torch.Tensor:
     return wpk
 
 
-def conv3x3_relu(x, weight, bias, x2=None) -> torch.Tensor:
-    """``relu(conv2d(cat([x, x2], 1), weight, bias, padding=1))``, float32;
-    the kernel on the card (channels-last operands and result)."""
+def conv3x3_relu(x, weight, bias, x2=None, relu: bool = True) -> torch.Tensor:
+    """``relu(conv2d(cat([x, x2], 1), weight, bias, padding=1))``, float32,
+    the ReLU left out when ``relu`` is False; the kernel on the card
+    (channels-last operands and result)."""
     if x.device.type == "cpu":
-        return conv3x3_relu_plain(x, weight, bias, x2)
+        return conv3x3_relu_plain(x, weight, bias, x2, relu)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_relu: expected a CPU or CUDA tensor, got {x.device}")
     _check_args(x, weight, bias, x2)
@@ -158,7 +161,7 @@ def conv3x3_relu(x, weight, bias, x2=None) -> torch.Tensor:
     vec = int(bk != BK_ELEM and all(t.data_ptr() % 16 == 0 for t in (x, x2) if t is not None))
     _launch(
         "ecseg_conv3x3", x.device, x.data_ptr(), 0 if x2 is None else x2.data_ptr(), wpk.data_ptr(), bp.data_ptr(),
-        out.data_ptr(), n, h, w, ca, cb, cout, bn, bk, vec,
+        out.data_ptr(), n, h, w, ca, cb, cout, bn, bk, vec, int(relu),
     )
     count_launch("conv3x3")
     return out

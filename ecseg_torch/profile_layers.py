@@ -18,7 +18,9 @@ printed beside it).
 
 Each layer runs through the op, memory format and dtype through which
 ``MetasegUNet``'s forward runs it (:func:`record_formats`: one forward on
-two patches with each convolution's and the pool's input recorded; the
+two patches, or on 17 when N is over 16, so that its transpose convs take
+the route N's do (:func:`record_patches`), with each convolution's and the
+pool's input recorded; the
 forward feeds its first conv a permuted, channels-last view of its
 one-channel input, so no layout is assumed), with the bias as the forward
 adds it, and under ``layers.parity_flags`` as the forward runs (both
@@ -26,7 +28,8 @@ dtypes, bf16 first).  ``bf16`` is the tile-count and bench path,
 ``float32`` metaseg's.  A row's ``op`` names what it times: ``H1`` where
 the forward hands the layer to the hand-written 3x3 conv
 (``ops/conv3x3.py``: the float32 forward on the card, channels-last, its
-ReLU fused and ``dec*_1``'s two halves read apart), else ``library``
+ReLU fused and ``dec*_1``'s two halves read apart; at N <= 16 the transpose
+convs too, as 3x3 convs of the zero-spread input), else ``library``
 (cuDNN's conv or transpose conv, ATen's pool).
 
 FLOPs are what the work needs: a 3x3 conv 2*9*h^2*cin*cout*N, the 1x1 head
@@ -50,7 +53,8 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from .device import DeviceLike, resolve_device
-from .models.layers import conv_same, max_pool_same, parity_flags
+from .models import layers
+from .models.layers import conv_same, max_pool_same, parity_flags, zero_spread
 from .models import metaseg_unet
 from .models.metaseg_unet import BOTTLENECK, ENC_WIDTHS, NUM_CLASSES, PATCH, MetasegUNet
 from .ops import conv3x3
@@ -64,6 +68,14 @@ CHUNK = 800
 PEAK = {dtype: PEAKS[H100][dtype] for dtype in ("bfloat16", "float32")}  # dense, per dtype
 RECORD_PATCHES = 2
 MAX_REPS = 200  # calls a layer's split takes at most (--reps)
+
+
+def record_patches(n: int) -> int:
+    """Patches of the forward that records the layers' formats: few, on
+    the side of ``layers.ZERO_SPREAD_MAX_IMAGES`` that ``n`` is on (the
+    transpose convs of at most that many take the hand-written conv)."""
+    limit = layers.ZERO_SPREAD_MAX_IMAGES
+    return min(n, RECORD_PATCHES) if n <= limit else max(RECORD_PATCHES, limit + 1)
 
 
 def layer_table(widths: Sequence[int] = ENC_WIDTHS, bottleneck: int = BOTTLENECK) -> List[Tuple]:
@@ -140,8 +152,8 @@ class _Recorder(TorchFunctionMode):
                                         "output": layout(y), "shape": list(x.shape), "op": "library"})
         return out
 
-    def h1(self, x, weight, bias, x2=None):
-        y = self.kernel(x, weight, bias, x2)
+    def h1(self, x, weight, bias, x2=None, relu=True):
+        y = self.kernel(x, weight, bias, x2, relu)
         self.seen.setdefault(self.current, {"dtype": str(x.dtype).replace("torch.", ""), "input": layout(x), "output": layout(y),
                                             "shape": list(x.shape), "op": "H1", "split": 0 if x2 is None else x2.shape[1]})
         return y
@@ -153,7 +165,7 @@ def record_formats(model: MetasegUNet, x: torch.Tensor, dtype: torch.dtype) -> D
     forward hands its (first) convolution, and of that call's output, from
     one forward of ``x`` in ``dtype``."""
     rec = _Recorder()
-    conv, dec_first, conv_relu = model._conv, model._dec_first, model._conv_relu
+    conv, dec_first, conv_relu, conv_transpose = model._conv, model._dec_first, model._conv_relu, model._conv_transpose
 
     def named_conv(name, x):
         rec.current = name
@@ -167,14 +179,18 @@ def record_formats(model: MetasegUNet, x: torch.Tensor, dtype: torch.dtype) -> D
         rec.current = name
         return conv_relu(name, *args, **kw)
 
-    model._conv, model._dec_first, model._conv_relu = named_conv, named_dec_first, named_conv_relu
+    def named_conv_transpose(name, *args, **kw):
+        rec.current = name
+        return conv_transpose(name, *args, **kw)
+
+    model._conv, model._dec_first, model._conv_relu, model._conv_transpose = named_conv, named_dec_first, named_conv_relu, named_conv_transpose
     conv3x3.conv3x3_relu = rec.h1
     try:
         with torch.no_grad(), rec:
             model(x, dtype)
     finally:
         conv3x3.conv3x3_relu = rec.kernel
-        del model._conv, model._dec_first, model._conv_relu
+        del model._conv, model._dec_first, model._conv_relu, model._conv_transpose
     return rec.seen
 
 
@@ -189,10 +205,14 @@ def _in_layout(x_nhwc: torch.Tensor, fmt: str) -> torch.Tensor:
 
 def layer_op(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, h1_split: Optional[int] = None):
     """The layer as the forward calls it: with ``h1_split`` (the second
-    half's channels) the hand-written conv on the channels-last halves,
-    else float32 with cuDNN's fused bias
+    half's channels) the hand-written conv on the channels-last halves (a
+    transpose conv as the 3x3 conv of its zero-spread input, the spread
+    included), else float32 with cuDNN's fused bias
     (``nn.Conv2d``/``TFConvTranspose2d.forward``), bf16 with the bias added
     after the rounding (``forward_bias_after``)."""
+    if h1_split is not None and kind == "convt":
+        k = w.permute(1, 0, 2, 3).flip(2, 3).contiguous()
+        return lambda: conv3x3.conv3x3_relu(zero_spread(x), k, b)
     if h1_split is not None:
         ca = x.shape[1] - h1_split
         cl = torch.channels_last
@@ -233,7 +253,7 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> int
     for name in dtypes:
         dtype = DTYPES[name]
         m = model if dtype == torch.float32 else copy.deepcopy(model).to(dtype)
-        formats[name] = record_formats(m, patches[:RECORD_PATCHES], dtype)
+        formats[name] = record_formats(m, patches[: record_patches(n)], dtype)
         print(f"-- {name} (peak {PEAK[name] / 1e12:g} TFLOP/s dense)", flush=True)
         total = 0.0
         with torch.no_grad(), parity_flags():

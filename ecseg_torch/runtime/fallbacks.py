@@ -5,8 +5,8 @@ and a NuSeT watershed whose certificate is not clean is recomputed by the
 host priority flood; the bytes are identical either way, but a run where
 every image quietly falls back is a performance regression.  Each such
 event is counted here, as are the order-dependent contour pixels that
-``ECSEG_FAST_WATERSHED=check`` finds and the metaseg forward's 3x3 convs
-that the hand-written kernel refused, and the pipeline prints one summary
+``ECSEG_FAST_WATERSHED=check`` finds and the metaseg and NuSeT forwards' 3x3
+convs that the hand-written kernel refused, and the pipeline prints one summary
 line at the end (``fallbacks: none`` is the healthy signal).  Process-global and thread-safe.
 """
 
@@ -24,7 +24,7 @@ WATERSHED_UNCERTAIN_PX = "fast_watershed_uncertain_px"  # the uncertain pixels o
 WATERSHED_HOST_RECOMPUTE = "fast_watershed_host_recompute"  # watersheds recomputed on the host
 WATERSHED_TIE_PX = "fast_watershed_tie_px"  # ECSEG_FAST_WATERSHED=check: contour pixels that flip under permuted ids
 WATERSHED_TIE_IMAGES = "fast_watershed_tie_images"  # ... and the watersheds that had any
-CONV3X3_CUDNN = "conv3x3_cudnn"  # float32 no-grad 3x3 convs of the metaseg forward on the card left to cuDNN (a shape ops/conv3x3 refuses)
+CONV3X3_CUDNN = "conv3x3_cudnn"  # float32 no-grad 3x3 convs of the metaseg and NuSeT forwards on the card left to cuDNN (a shape ops/conv3x3 refuses)
 
 
 def record(kind: str, n: int = 1) -> None:

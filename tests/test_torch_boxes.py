@@ -103,6 +103,24 @@ def test_nms_skips_invalid_entries():
     assert tb.nms_sorted(torch.zeros((0, 4)), torch.zeros(0, dtype=torch.bool), 800, 0.01).size == 0
 
 
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 300, 6000])
+@pytest.mark.parametrize("density", [0.0, 0.002, 0.05, 0.6])
+def test_greedy_walk_matches_its_twin(n, density):
+    """The C++ walk (``csrc/nms_walk.cpp``) against ``greedy_walk_py`` on
+    random packed matrices: rows whose bits past ``n`` are set too, a tenth
+    of the candidates invalid, budgets of 0, 3 and 800."""
+    rng = np.random.default_rng(n + int(1000 * density))
+    rows = rng.random((n, -(-n // 8) * 8)) < density
+    packed = np.packbits(rows, axis=1, bitorder="little").reshape(n, -(-n // 8))
+    valid = rng.random(n) >= 0.1
+    for budget in (0, 3, 800):
+        got = tb.greedy_walk(packed, valid, budget)
+        want = tb.greedy_walk_py(packed, valid, budget)
+        assert got.dtype == np.int64 and np.array_equal(got, want), (budget, got[:10], want[:10])
+    with pytest.raises(ValueError, match="packed rows"):
+        tb.greedy_walk(packed[:, :-1] if n else np.zeros((0, 1), np.uint8), valid, 800)
+
+
 def test_stable_descending_sort_orders_ties_as_top_k():
     rng = np.random.default_rng(7)
     scores = np.round(rng.random(3000), 1).astype(np.float32)

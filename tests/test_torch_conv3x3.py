@@ -1,11 +1,13 @@
 """The metaseg forward's float32 3x3 conv (ecseg_torch/ops/conv3x3.py): its
 plain twin -- the kernel's sums in the kernel's order -- against
 ``F.conv2d`` and the JAX package's ``conv2d`` at ``Precision.HIGHEST``, the
-weight packing the kernel reads, the wrapper's refusals, and
-``MetasegUNet``'s routing: the kernel only for a float32 forward on the
-card that builds no autograd graph; the CPU, autograd's forward, bf16 and
-NuSeT keep ``F.conv2d``.  The CUDA kernel is held against cuDNN and the
-twin on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+weight packing the kernel reads, the wrapper's refusals, and the route
+that ``MetasegUNet`` and ``NuSeTUNet`` share (``layers.KernelRouted``): the
+kernel only for a float32 forward on the card that builds no autograd
+graph; the CPU, autograd's forward and bf16 keep ``F.conv2d``; the
+kernel's tile choice at each metaseg layer, and its acceptance of every
+NuSeT layer.  The CUDA kernel is held against cuDNN and the twin on the
+card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import copy
 import types
@@ -21,8 +23,9 @@ import jax.numpy as jnp
 
 from ecseg_tpu.models import layers as jl
 from ecseg_tpu.models import metaseg_unet as ju
+from ecseg_torch.models import layers, nuset
 from ecseg_torch.models.layers import SameConv2d
-from ecseg_torch.models.metaseg_unet import MetasegUNet
+from ecseg_torch.models.metaseg_unet import ENC_WIDTHS_XL, BOTTLENECK_XL, MetasegUNet
 from ecseg_torch.models.weights import params_from_numpy
 from ecseg_torch.ops import conv3x3
 from ecseg_torch.runtime import fallbacks
@@ -304,13 +307,10 @@ def test_autograd_and_bf16_forwards_keep_conv2d(monkeypatch):
         model.to(torch.bfloat16)(x)  # bf16 weights: no kernel
 
 
-def test_routed_forward_runs_18_kernel_convs_and_matches_jax(monkeypatch):
-    """The routed forward with the twin in the kernel's place (the CPU has
-    no card): 18 3x3 convs through ``conv3x3_relu``, channels-last through
-    the trunk, ``dec*_1`` reading its two halves in place; the
-    probabilities within float32 of the JAX package's forward."""
+def _routed_forward_against_jax(monkeypatch, ups_on_kernel):
     calls = _count_conv3x3(monkeypatch)
     monkeypatch.setattr(MetasegUNet, "_kernel_route", lambda self, x, dtype: True)
+    monkeypatch.setattr(layers, "ZERO_SPREAD_MAX_IMAGES", 2 if ups_on_kernel else 1)
     tree = numpy_metaseg_tree((8, 16, 16, 16), 32, seed=5)
     x = (np.random.default_rng(5).random((2, 128, 128, 1)) * 255).astype(np.uint8)
     want = np.asarray(jax.jit(ju.forward)(tree, jnp.asarray(x)))
@@ -318,8 +318,24 @@ def test_routed_forward_runs_18_kernel_convs_and_matches_jax(monkeypatch):
     fallbacks.reset()
     with torch.no_grad():
         got = model(torch.from_numpy(x))
-    assert len(calls) == 18 and fallbacks.counts() == {}
+    assert len(calls) == 18 + 4 * ups_on_kernel and fallbacks.counts() == {}
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_routed_forward_runs_18_kernel_convs_and_matches_jax(monkeypatch):
+    """The routed forward with the twin in the kernel's place (the CPU has
+    no card), at a batch over ``layers.ZERO_SPREAD_MAX_IMAGES``: 18 3x3
+    convs through ``conv3x3_relu``, channels-last through the trunk,
+    ``dec*_1`` reading its two halves in place; the probabilities within
+    float32 of the JAX package's forward."""
+    _routed_forward_against_jax(monkeypatch, ups_on_kernel=False)
+
+
+def test_routed_small_batch_runs_its_transpose_convs_on_the_kernel_and_matches_jax(monkeypatch):
+    """As above at a batch of ``layers.ZERO_SPREAD_MAX_IMAGES`` or fewer:
+    the four transpose convs take the kernel too, as 3x3 convs of the
+    zero-spread input (22 calls), within float32 of the JAX package."""
+    _routed_forward_against_jax(monkeypatch, ups_on_kernel=True)
 
 
 def test_refused_shapes_go_to_cudnn_and_are_counted(monkeypatch):
@@ -328,6 +344,7 @@ def test_refused_shapes_go_to_cudnn_and_are_counted(monkeypatch):
     ``runtime/fallbacks``."""
     calls = _count_conv3x3(monkeypatch)
     monkeypatch.setattr(MetasegUNet, "_kernel_route", lambda self, x, dtype: True)
+    monkeypatch.setattr(layers, "ZERO_SPREAD_MAX_IMAGES", 0)  # the transpose convs on cuDNN
     model = MetasegUNet((6, 8, 8, 8), 16, generator=torch.Generator().manual_seed(6)).eval()
     x = torch.from_numpy((np.random.default_rng(6).random((1, 64, 64, 1)) * 255).astype(np.uint8))
     fallbacks.reset()
@@ -343,11 +360,274 @@ def test_refused_shapes_go_to_cudnn_and_are_counted(monkeypatch):
 
 
 def test_nuset_keeps_conv2d(monkeypatch):
-    from ecseg_torch.models.nuset import NuSeTUNet
-
+    """NuSeT's forward on the CPU: every conv through ``F.conv2d``."""
     _count_conv3x3(monkeypatch, raise_on_call=True)
-    model = NuSeTUNet().eval()
+    model = nuset.NuSeTUNet().eval()
     rec = _ConvCalls()
     with torch.no_grad(), rec:
         model(torch.zeros((1, 1, 64, 64)))
     assert rec.n > 0
+
+
+# --- the tile choice at metaseg's layers ------------------------------------
+
+# (block_n, block_k) of each 3x3 conv in forward order: enc1_1 ... bott_2,
+# dec4_1 ... dec1_2; enc1_1's one channel is copied an element at a time
+METASEG_TILES = {
+    "default": [(64, 1), (64, 16), (64, 16), (64, 16), (128, 16), (128, 16), (128, 16), (128, 16), (128, 16), (128, 16),
+                (128, 16), (128, 16), (128, 16), (128, 16), (64, 16), (64, 16), (64, 16), (64, 16)],
+    "xl": [(64, 1), (64, 16), (128, 16), (128, 16), (128, 16), (128, 16), (128, 16), (128, 16), (128, 16), (128, 16),
+           (128, 16), (128, 16), (128, 16), (128, 16), (128, 16), (128, 16), (64, 16), (64, 16)],
+}
+
+
+def _record_tiles(monkeypatch):
+    """Route every forward to the kernel with the twin in its place, and
+    record each call's (block_n, block_k), as ``conv3x3_relu`` picks them
+    on the card."""
+    tiles = []
+    real = conv3x3.conv3x3_relu
+
+    def recorded(x, weight, bias, x2=None, relu=True):
+        tiles.append((conv3x3.block_n(weight.shape[0]), conv3x3.block_k(x.shape[1], 0 if x2 is None else x2.shape[1])))
+        return real(x, weight, bias, x2, relu)
+
+    monkeypatch.setattr(conv3x3, "conv3x3_relu", recorded)
+    return tiles
+
+
+@pytest.mark.parametrize("arch", sorted(METASEG_TILES))
+def test_metaseg_tiles_are_pinned(monkeypatch, arch):
+    """The shared route leaves metaseg's launches and their tiles as they
+    were at a batch over ``layers.ZERO_SPREAD_MAX_IMAGES`` (its 100-patch
+    calls; the limit lowered to 1 here, so that 2 patches do): 18 calls a
+    forward, each layer's (block_n, block_k) as pinned."""
+    tiles = _record_tiles(monkeypatch)
+    monkeypatch.setattr(MetasegUNet, "_kernel_route", lambda self, x, dtype: True)
+    monkeypatch.setattr(layers, "ZERO_SPREAD_MAX_IMAGES", 1)
+    widths = {"default": {}, "xl": {"widths": ENC_WIDTHS_XL, "bottleneck": BOTTLENECK_XL}}[arch]
+    model = MetasegUNet(**widths).eval()
+    fallbacks.reset()
+    with torch.no_grad():
+        model(torch.zeros((2, 16, 16, 1), dtype=torch.uint8))
+    assert tiles == METASEG_TILES[arch] and fallbacks.counts() == {}
+
+
+@pytest.mark.parametrize("arch", sorted(METASEG_TILES))
+def test_metaseg_small_batch_runs_its_transpose_convs_on_the_kernel(monkeypatch, arch):
+    """At ``layers.ZERO_SPREAD_MAX_IMAGES`` patches or fewer (one here)
+    the four transpose convs take the kernel too, after the layer they upsample
+    from: the 18 3x3 convs keep their pinned tiles; each transpose conv
+    runs at its own cout's block_n and 16-channel chunks."""
+    tiles = _record_tiles(monkeypatch)
+    monkeypatch.setattr(MetasegUNet, "_kernel_route", lambda self, x, dtype: True)
+    widths = {"default": {}, "xl": {"widths": ENC_WIDTHS_XL, "bottleneck": BOTTLENECK_XL}}[arch]
+    model = MetasegUNet(**widths).eval()
+    fallbacks.reset()
+    with torch.no_grad():
+        model(torch.zeros((1, 16, 16, 1), dtype=torch.uint8))
+    pinned, want = METASEG_TILES[arch], []
+    for k, w in enumerate(model.widths[::-1]):  # up4 after bott_2, up3 after dec4_2, ...: cout the level's width
+        want += pinned[: 10] if k == 0 else pinned[8 + 2 * k : 10 + 2 * k]
+        want.append((conv3x3.block_n(w), conv3x3.BK_VEC))
+    want += pinned[16:]  # dec1_1, dec1_2
+    assert tiles == want and fallbacks.counts() == {}
+
+
+def test_transpose_route_is_chosen_by_batch():
+    """One choice for every routed transpose conv, from its input's batch:
+    the kernel up to ``layers.ZERO_SPREAD_MAX_IMAGES`` images (NuSeT's
+    passes hold one), cuDNN above."""
+    limit = layers.ZERO_SPREAD_MAX_IMAGES
+    assert limit >= 1
+    for n, want in ((1, True), (limit, True), (limit + 1, False), (100, False)):
+        assert layers.transpose_on_kernel(torch.empty((n, 8, 4, 4), device="meta")) == want
+
+
+# --- NuSeT's 3x3 convs on the kernel ----------------------------------------
+
+NUSET_SIDE = 608  # NuSeT's input side at stat_fish's 0.3 scale on a 2048^2 image
+
+
+def _nuset_relu_convs():
+    """NuSeT's 18 ReLU'd 3x3 convs, in forward order: (name, plane side at
+    a 608^2 input, channels of x, of x2, cout)."""
+    rows, c = [], 1
+    for i, w in enumerate(nuset.ENC_WIDTHS, start=1):
+        side = NUSET_SIDE >> (i - 1)
+        rows += [(f"conv{i}-1", side, c, 0, w), (f"conv{i}-2", side, w, 0, w)]
+        c = w
+    side = NUSET_SIDE >> 4
+    rows += [("conv5-1", side, c, 0, nuset.BOTTLENECK), ("conv5-2", side, nuset.BOTTLENECK, 0, nuset.BOTTLENECK)]
+    for i, w in zip((4, 3, 2, 1), nuset.ENC_WIDTHS[::-1]):
+        side = NUSET_SIDE >> (i - 1)
+        first = (f"conv{i}-3", side, w, 0, w) if i == 4 else (f"conv{i}-3", side, w, w, w)  # skip first, then the upsampled half
+        rows += [first, (f"conv{i}-4", side, w, 0, w)]
+    return rows
+
+
+NUSET_CONVS = _nuset_relu_convs()
+
+
+@pytest.mark.parametrize("name,side,ca,cb,cout", NUSET_CONVS, ids=[r[0] for r in NUSET_CONVS])
+def test_kernel_takes_every_nuset_relu_conv_at_608(name, side, ca, cb, cout):
+    """No NuSeT layer is a shape the kernel refuses: ``conv{1,2,3}-3`` as
+    the skip (``x``) and the transpose conv's output (``x2``), ``conv1-1``'s
+    one channel an element at a time, every other chunk 16 channels."""
+    x = torch.empty((1, ca, side, side), device="meta")
+    x2 = torch.empty((1, cb, side, side), device="meta") if cb else None
+    weight = torch.empty((cout, ca + cb, 3, 3), device="meta")
+    assert conv3x3.refusal(x, weight, x2) is None
+    assert conv3x3.block_k(ca, cb) == (conv3x3.BK_ELEM if name == "conv1-1" else conv3x3.BK_VEC)
+    assert conv3x3.block_n(cout) == (conv3x3.BN_SMALL if cout <= 64 else conv3x3.BN_LARGE)
+
+
+def test_nuset_relu_convs_are_the_models():
+    """The table above is NuSeTUNet's: its 3x3 convs less ``final``, with
+    their input channels split where the decoder concatenates."""
+    model = nuset.NuSeTUNet()
+    convs = [name for name, layer in model.layers.items() if isinstance(layer, SameConv2d)]
+    assert [r[0] for r in NUSET_CONVS] == convs and len(convs) == 18
+    for name, _, ca, cb, cout in NUSET_CONVS:
+        assert tuple(model.layers[name].weight.shape) == (cout, ca + cb, 3, 3)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "normal"])
+@pytest.mark.parametrize("w", [64, 128, 256], ids=lambda w: f"conv_skip{w}")
+def test_twin_on_nuset_skip_first_concat(w, integer):
+    """``conv{1,2,3}-3``'s form: the twin on the skip and the upsampled half
+    against ``relu(F.conv2d(cat([skip, up])) + bias)``, the bias added
+    after the float32 conv as ``layers.conv_same`` adds it: equal on small
+    integers (every sum exact), within float32 sum-order noise otherwise."""
+    x, k, b = _operands(np.random.default_rng(w + integer), 1, 12, 10, w, w, w, integer=integer)
+    got = conv3x3.conv3x3_relu_plain(x[:, :w], k, b, x[:, w:])
+    want = torch.relu(layers.conv_same(torch.cat([x[:, :w], x[:, w:]], dim=1), k, b))
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5 * float(want.abs().max()))
+    assert (want == 0).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "normal"])
+@pytest.mark.parametrize("cb", [0, 8], ids=["one_input", "two_halves"])
+def test_twin_without_relu_is_the_conv_plus_bias(cb, integer):
+    """``relu=False``: the twin's sums and bias with the negative outputs
+    kept, equal to ``conv_same`` on small integers, within float32
+    sum-order noise otherwise; ``relu=True`` is its ReLU, bit for bit."""
+    x, k, b = _operands(np.random.default_rng(20 + cb + integer), 2, 9, 11, 8, cb, 12, integer=integer)
+    x2 = x[:, 8:] if cb else None
+    got = conv3x3.conv3x3_relu_plain(x[:, :8], k, b, x2, relu=False)
+    want = layers.conv_same(x, k, b)
+    assert got.is_contiguous(memory_format=torch.channels_last) and (got < 0).any()
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5 * float(want.abs().max()))
+    assert torch.equal(conv3x3.conv3x3_relu_plain(x[:, :8], k, b, x2), torch.relu(got))
+    assert torch.equal(conv3x3.conv3x3_relu(x[:, :8], k, b, x2, relu=False), got)  # the CPU's dispatch
+
+
+@pytest.fixture(scope="module")
+def nuset_unet():
+    return nuset.NuSeTUNet(torch.Generator().manual_seed(1)).eval()
+
+
+def test_route_says_no_to_nuset_off_the_card_under_autograd_and_off_float32(nuset_unet):
+    """The shared route on NuSeT's U-Net: the kernel only for a float32
+    forward of float32 weights on the card that builds no autograd graph."""
+    x = torch.zeros((1, 1, 32, 32))
+    with torch.no_grad():
+        assert not nuset_unet._kernel_route(x, x.dtype)  # the CPU
+        assert nuset_unet._kernel_route(_card_input(), torch.float32)
+        for dtype in (torch.float64, torch.bfloat16, torch.float16):
+            assert not nuset_unet._kernel_route(_card_input(), dtype)
+    assert torch.is_grad_enabled()
+    assert not nuset_unet._kernel_route(_card_input(), torch.float32)  # its parameters record
+    frozen = copy.deepcopy(nuset_unet).requires_grad_(False)
+    assert frozen._kernel_route(_card_input(), torch.float32)
+    assert not frozen._kernel_route(_card_input(requires_grad=True), torch.float32)
+    assert not frozen.to(torch.float64)._kernel_route(_card_input(), torch.float32)  # float64 weights
+
+
+def test_nuset_refused_shapes_go_to_conv_same_and_are_counted(monkeypatch):
+    """A routed NuSeT forward whose level-1 widths the kernel refuses (cout
+    6) runs those four convs and ``deconv1`` (6 output channels) on cuDNN
+    and counts each; the other 14 and 3 transpose convs take the kernel
+    (the twin here) and the logits stay within float32 of the unrouted
+    forward's."""
+    monkeypatch.setattr(nuset, "ENC_WIDTHS", (6, 8, 8, 8))
+    monkeypatch.setattr(nuset, "BOTTLENECK", 16)
+    model = nuset.NuSeTUNet(torch.Generator().manual_seed(6)).eval()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 1, 32, 48), np.float32))
+    with torch.no_grad():
+        want, want_feat = model(x)
+    calls = _count_conv3x3(monkeypatch)
+    monkeypatch.setattr(nuset.NuSeTUNet, "_kernel_route", lambda self, x, dtype: True)
+    fallbacks.reset()
+    try:
+        with torch.no_grad():
+            got, feat = model(x)
+        assert fallbacks.counts() == {fallbacks.CONV3X3_CUDNN: 5}  # deconv1, conv1-1, conv1-2, conv1-3, conv1-4
+        assert len(calls) == 17
+    finally:
+        fallbacks.reset()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(feat.numpy(), want_feat.numpy(), atol=1e-5, rtol=0)
+
+
+# --- a transpose conv on the kernel ----------------------------------------
+
+DECONV_CASES = [  # (cin, cout, h, w): NuSeT's levels at small planes, odd and one-pixel planes
+    (1024, 512, 3, 2), (64, 32, 7, 5), (16, 8, 1, 1), (8, 4, 6, 9), (12, 64, 4, 4),
+]
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("cin,cout,h,w", DECONV_CASES, ids=[f"{c[0]}to{c[1]}_{c[2]}x{c[3]}" for c in DECONV_CASES])
+def test_transpose_conv_on_the_kernel_equals_forward_bias_after(cin, cout, h, w, relu):
+    """``layers.kernel_conv_transpose3x3`` with the twin in the kernel's
+    place: TF's stride-2 'SAME' transpose conv (``forward_bias_after``, then
+    the ReLU on ``relu``) as the 3x3 conv of the zero-spread input; equal
+    on small integers (every sum exact), within float32 sum-order noise
+    otherwise; channels-last."""
+    layer = layers.TFConvTranspose2d(cin, cout)
+    rng = np.random.default_rng(cin + cout + h + relu)
+    for integer in (True, False):
+        with torch.no_grad():
+            if integer:
+                layer.weight.copy_(torch.from_numpy(rng.integers(-4, 5, layer.weight.shape).astype(np.float32)))
+                layer.bias.copy_(torch.from_numpy(rng.integers(-40, 41, cout).astype(np.float32)))
+                x = torch.from_numpy(rng.integers(-4, 5, (1, cin, h, w)).astype(np.float32))
+            else:
+                layer.weight.copy_(torch.from_numpy(rng.standard_normal(layer.weight.shape, np.float32) / np.sqrt(9 * cin)))
+                layer.bias.copy_(torch.from_numpy(rng.standard_normal(cout, np.float32)))
+                x = torch.from_numpy(rng.standard_normal((1, cin, h, w), np.float32))
+            want = layer.forward_bias_after(x)
+            want = torch.relu(want) if relu else want
+            got = layers.kernel_conv_transpose3x3(layer, x.contiguous(memory_format=torch.channels_last), relu)
+        assert got.shape == (1, cout, 2 * h, 2 * w) and got.is_contiguous(memory_format=torch.channels_last)
+        if integer:
+            assert torch.equal(got, want)
+            assert (want < 0).any() != relu  # the linear form keeps its negative outputs
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5 * float(want.abs().max()))
+
+
+def test_transpose_conv_weights_are_kept_until_the_layer_changes():
+    """The flipped kernel is made once per weight version, and again after
+    an in-place write; the linear form runs the kernel without its ReLU,
+    on the same weights, with no second output block."""
+    layer = layers.TFConvTranspose2d(8, 4)
+    k = layers._transpose_as_conv(layer)
+    assert k.shape == (4, 8, 3, 3) and torch.equal(k, layer.weight.detach().permute(1, 0, 2, 3).flip(2, 3))
+    assert layers._transpose_as_conv(layer) is k
+    with torch.no_grad():
+        layer.weight.mul_(2)
+    assert torch.equal(layers._transpose_as_conv(layer), 2 * k)
+
+
+def test_transpose_conv_without_a_bias_or_at_another_stride_is_left_to_its_layer():
+    x = torch.zeros((1, 8, 4, 4)).contiguous(memory_format=torch.channels_last)
+    assert layers.kernel_conv_transpose3x3(SameConv2d(8, 4, 3), x, True) is None
+    assert layers.kernel_conv_transpose3x3(layers.TFConvTranspose2d(8, 4, stride=1), x, True) is None

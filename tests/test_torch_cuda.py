@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from ecseg_torch.models import layers
 from ecseg_torch.ops import cc_kernels as K
 from ecseg_torch.ops import conv3x3, tiling
 from ecseg_torch.ops.convt import conv2d_transpose_packed, conv2d_transpose_packed_plain
@@ -447,6 +448,18 @@ def test_conv3x3_kernel_matches_twin_and_cudnn(cuda, n, h, w, ca, cb, cout):
     64/128-channel block and the 16-channel chunk, with a split input;
     within float32 sum-order noise of cuDNN (TF32 off) on integer and
     normal inputs; the same bytes on a second call and per image."""
+    _check_conv3x3_kernel(cuda, n, h, w, ca, cb, cout, relu=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,ca,cb,cout", [(2, 16, 16, 1, 0, 64), (2, 32, 32, 128, 128, 128), (1, 9, 7, 3, 5, 8), (2, 37, 23, 24, 0, 200)])
+def test_conv3x3_kernel_without_relu_matches_twin_and_cudnn(cuda, n, h, w, ca, cb, cout):
+    """As above with the ReLU left out (the template flag the linear
+    transpose convs take): the negative sums kept."""
+    _check_conv3x3_kernel(cuda, n, h, w, ca, cb, cout, relu=False)
+
+
+def _check_conv3x3_kernel(cuda, n, h, w, ca, cb, cout, relu):
     from ecseg_torch.models.layers import parity_flags
 
     rng = np.random.default_rng(n * h + ca + cb)
@@ -455,16 +468,18 @@ def test_conv3x3_kernel_matches_twin_and_cudnn(cuda, n, h, w, ca, cb, cout):
     b = torch.from_numpy(rng.integers(-40, 41, (cout,)).astype(np.float32)).to(cuda)
 
     def run(x, k, b):
-        return conv3x3.conv3x3_relu(_cl(x[:, :ca]), k, b, _cl(x[:, ca:]) if cb else None)
+        return conv3x3.conv3x3_relu(_cl(x[:, :ca]), k, b, _cl(x[:, ca:]) if cb else None, relu=relu)
 
     got = run(x, k, b)
     assert got.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(got, conv3x3.conv3x3_relu_plain(x[:, :ca].cpu(), k.cpu(), b.cpu(), x[:, ca:].cpu() if cb else None).to(cuda))
+    assert torch.equal(got, conv3x3.conv3x3_relu_plain(x[:, :ca].cpu(), k.cpu(), b.cpu(), x[:, ca:].cpu() if cb else None, relu).to(cuda))
+    assert bool((got < 0).any()) != relu
     xr, kr = torch.randn_like(x), torch.randn_like(k) / (3 * (ca + cb) ** 0.5)
     for xs, ks in ((x, k), (xr, kr)):
         got = run(xs, ks, b)
         with parity_flags():
-            want = torch.relu(torch.nn.functional.conv2d(xs, ks, b, padding=1))
+            want = torch.nn.functional.conv2d(xs, ks, b, padding=1)
+        want = torch.relu(want) if relu else want
         assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
     assert torch.equal(run(xr, kr, b), got)
     assert torch.equal(torch.cat([run(xr[i : i + 1], kr, b) for i in range(n)]), got)
@@ -490,9 +505,10 @@ def test_conv3x3_refuses_and_counts_launches(cuda):
 
 @pytest.mark.cuda
 def test_metaseg_forward_routes_its_3x3_convs_to_the_kernel(cuda):
-    """A no-grad float32 forward on the card: 18 kernel launches and the
-    labels of the cuDNN forward; a forward that builds a graph and a bf16
-    forward launch none."""
+    """A no-grad float32 forward on the card: 18 kernel launches, and 4
+    more for the transpose convs at 4 patches (``layers.transpose_on_kernel``;
+    none at 17), and the labels of the cuDNN forward; a forward that builds
+    a graph and a bf16 forward launch none."""
     from ecseg_torch.models.metaseg_unet import MetasegUNet
     from ecseg_torch.runtime import fallbacks
 
@@ -502,7 +518,12 @@ def test_metaseg_forward_routes_its_3x3_convs_to_the_kernel(cuda):
     fallbacks.reset()
     with torch.no_grad():
         probs = model(x)
-    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"conv3x3": 18} and fallbacks.counts() == {}
+    assert layers.transpose_on_kernel(x.permute(0, 3, 1, 2))
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"conv3x3": 22} and fallbacks.counts() == {}
+    K.reset_launches()
+    with torch.no_grad():
+        model(x[:1].expand(layers.ZERO_SPREAD_MAX_IMAGES + 1, -1, -1, -1))
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"conv3x3": 18}
     cpu = model.to("cpu")
     with torch.no_grad():
         want = cpu(x.cpu())
@@ -513,6 +534,79 @@ def test_metaseg_forward_routes_its_3x3_convs_to_the_kernel(cuda):
     with torch.no_grad():
         model(x, dtype=torch.bfloat16)
     assert set(K.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.cuda
+def test_nuset_pass_routes_its_convs_to_the_kernel(cuda, monkeypatch):
+    """A no-grad float32 NuSeT U-Net pass at stat_fish's 608^2 on the card:
+    22 H1 launches (18 ReLU'd 3x3 convs, 4 transpose convs) and no
+    fallback.  Against the cuDNN pass (the route off, TF32 off): with
+    seeded Glorot weights, whose decoder reaches the logits, the logits and
+    the RPN feature within float32 and the masks within 12 pixels; with the
+    demo weights (logits from level 1 alone) the same mask.  A pass that
+    builds a graph launches none."""
+    from ecseg_torch.models import nuset
+    from ecseg_torch.models.demo import demo_nuset_tree
+    from ecseg_torch.models.weights import nuset_from_numpy
+    from ecseg_torch.runtime import fallbacks
+
+    pred, _, _ = _touching_nuclei(5, 608, 608, 12)
+    img = pred * 2.0 + np.random.default_rng(5).standard_normal(pred.shape) * 0.5
+    x = torch.from_numpy(((img - img.mean()) / img.std()).astype(np.float32)).to(cuda)[None, None]
+    route = nuset.NuSeTUNet._kernel_route
+    for tag, unet in (("glorot", nuset.NuSeTUNet(torch.Generator().manual_seed(5))), ("demo", nuset_from_numpy(demo_nuset_tree())[0])):
+        unet = unet.to(cuda).eval()
+        monkeypatch.setattr(nuset.NuSeTUNet, "_kernel_route", route)
+        K.reset_launches()
+        fallbacks.reset()
+        with torch.no_grad():
+            logits, feat = unet(x)
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == {"conv3x3": 22} and fallbacks.counts() == {}
+        monkeypatch.setattr(nuset.NuSeTUNet, "_kernel_route", lambda self, x, dtype: False)
+        K.reset_launches()
+        with torch.no_grad():
+            want_logits, want_feat = unet(x)
+        assert set(K.LAUNCHES.values()) == {0}
+        for got, want in ((logits, want_logits), (feat, want_feat)):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            assert err <= 1e-4 * scale, (tag, err, scale)  # float32 sums of up to 9 * 1024 terms, in two orders, through 22 convs
+        mask, want_mask = nuset.pred_mask(logits), nuset.pred_mask(want_logits)
+        if tag == "demo":
+            assert torch.equal(mask, want_mask) and mask.any() and not mask.all()
+        else:
+            assert int((mask != want_mask).sum()) <= 12
+    monkeypatch.undo()
+    K.reset_launches()
+    unet(x)  # autograd records
+    assert set(K.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.cuda
+def test_nuclei_segment_launches_44_kernel_convs_an_image(cuda, monkeypatch):
+    """An image's segmentation runs two U-Net passes, 22 H1 launches each,
+    with no conv left to cuDNN by a refusal; its mask equals the one with
+    both passes on cuDNN."""
+    from ecseg_torch.models import nuset
+    from ecseg_torch.models import nuset_infer as ni
+    from ecseg_torch.models.demo import demo_nuset_tree
+    from ecseg_torch.models.weights import nuset_from_numpy
+    from ecseg_torch.runtime import fallbacks
+
+    tree = demo_nuset_tree()
+    tree["fg"]["rpn"]["rpn_cls_score"]["bias"][1::2] = 6.0
+    whole, fg, rpn = (x.to(cuda).eval() for x in nuset_from_numpy(tree))
+    model = ni.NuSeTModel(whole, fg, rpn, resize_scale=1)
+    pred, _, _ = _touching_nuclei(7, 320, 288, 12)
+    image = (pred * 200 + np.random.default_rng(7).random(pred.shape) * 30).astype(np.uint8)
+    K.reset_launches()
+    fallbacks.reset()
+    got = ni.nuclei_segment(image, model, 60)
+    assert K.LAUNCHES["conv3x3"] == 44 and fallbacks.CONV3X3_CUDNN not in fallbacks.counts()
+    monkeypatch.setattr(nuset.NuSeTUNet, "_kernel_route", lambda self, x, dtype: False)
+    K.reset_launches()
+    want = ni.nuclei_segment(image, model, 60)
+    assert K.LAUNCHES["conv3x3"] == 0
+    assert got.any() and np.array_equal(got, want)
 
 
 def _overlay_masks(rng, shape):
@@ -817,7 +911,10 @@ def test_logical_mesh_metaseg_equals_the_single_card_run(cuda, tmp_path, monkeyp
         # segment_folder_sharded: batches of 256 patches, each split over the 2 entries
         n_patches = sum(len(tiling.patch_positions(h, w)) for h, w in sizes)
         convs = sum(1 for layer in model.layers.values() if layer.kernel_size == (3, 3) and layer.stride == (1, 1))
-        assert {k: v for k, v in launches["mesh"].items() if v} == {"conv3x3": 2 * -(-n_patches // 256) * convs}
+        ups = sum(1 for layer in model.layers.values() if layer.stride == (2, 2))
+        per_entry = 256 // 2  # every batch padded to 256 patches: each entry's forward of 128 keeps cuDNN's transpose convs
+        per_forward = convs + ups * (per_entry <= layers.ZERO_SPREAD_MAX_IMAGES)
+        assert {k: v for k, v in launches["mesh"].items() if v} == {"conv3x3": 2 * -(-n_patches // 256) * per_forward}
         assert launches["card"]["stitch"] == 5
 
 

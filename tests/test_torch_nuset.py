@@ -1,6 +1,7 @@
 """The port's NuSeT U-Net and RPN (ecseg_torch/models/nuset.py) against
-ecseg_tpu's nuset.unet_forward / rpn_forward at the published widths, the
-weight bridge, and the demo tree against the JAX package's crafting."""
+ecseg_tpu's nuset.unet_forward / rpn_forward at the published widths (also
+with the 3x3 convs routed to the hand-written kernel's twin), the weight
+bridge, and the demo tree against the JAX package's crafting."""
 
 import functools
 
@@ -15,6 +16,8 @@ from ecseg_tpu.models import demo as jdemo
 from ecseg_tpu.models import nuset as jn
 from ecseg_tpu.models import nuset_infer as jni
 from ecseg_torch.models import nuset as tn
+from ecseg_torch.ops import conv3x3
+from ecseg_torch.runtime import fallbacks
 from ecseg_torch.models.demo import demo_nuset_tree
 from ecseg_torch.models.weights import load_npz, nuset_from_numpy, nuset_to_numpy, save_npz
 
@@ -72,6 +75,42 @@ def test_unet_and_rpn_match_jax(which, hw):
     for key in ("rpn_cls_score", "rpn_cls_prob", "rpn_bbox_pred"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(j_rpn[key]), atol=1e-6, rtol=0, err_msg=key)
     assert out["rpn_cls_prob"].shape == (hw[0] // 16 * hw[1] // 16 * jni.NUM_REF_ANCHORS, 2)
+
+
+def test_routed_unet_runs_22_kernel_convs_and_matches_jax(monkeypatch):
+    """The forward as it runs on the card, with the twin in the kernel's
+    place (the CPU has no card): the 18 ReLU'd 3x3 convs and the 4
+    transpose convs through ``conv3x3_relu`` in forward order,
+    ``conv{3,2,1}-3`` on the skip and the transpose conv's output in place,
+    ``final`` not; no fallback; channels-last logits and feature within
+    float32 of the JAX package's."""
+    calls = []
+    real = conv3x3.conv3x3_relu
+
+    def counted(x, weight, bias, x2=None, relu=True):
+        calls.append((weight.shape[0], x.shape[1], 0 if x2 is None else x2.shape[1]))
+        return real(x, weight, bias, x2, relu)
+
+    monkeypatch.setattr(conv3x3, "conv3x3_relu", counted)
+    monkeypatch.setattr(tn.NuSeTUNet, "_kernel_route", lambda self, x, dtype: True)
+    tree = _trees()["random"]
+    x = _image(32, 48, seed=4)
+    j_logits, j_feat = _jax_unet(tree, jnp.asarray(x)[None, :, :, None])
+    unet, _ = _port(tree)
+    fallbacks.reset()
+    with torch.no_grad():
+        logits, feat = unet(torch.from_numpy(x)[None, None])
+    assert fallbacks.counts() == {}
+    widths = (64, 128, 256, 512)
+    want = [(64, 1, 0), (64, 64, 0), (128, 64, 0), (128, 128, 0), (256, 128, 0), (256, 256, 0), (512, 256, 0), (512, 512, 0),
+            (1024, 512, 0), (1024, 1024, 0), (512, 1024, 0), (512, 512, 0), (512, 512, 0)]  # deconv4 with its ReLU
+    for w in widths[2::-1]:
+        want += [(w, 2 * w, 0), (w, w, w), (w, w, 0)]  # deconv{3,2,1}, linear
+    assert calls == want
+    assert logits.is_contiguous(memory_format=torch.channels_last) and feat.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(logits[0].permute(1, 2, 0).numpy(), np.asarray(j_logits)[0], atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_allclose(feat[0].permute(1, 2, 0).numpy(), np.asarray(j_feat)[0], atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_array_equal(tn.pred_mask(logits).numpy(), np.asarray(jn.pred_mask(j_logits)) == 1)
 
 
 def test_bridge_round_trip_through_npz(tmp_path):

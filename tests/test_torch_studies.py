@@ -209,16 +209,30 @@ def test_recorded_formats_name_the_hand_kernel_where_the_forward_routes(monkeypa
     """Where the forward hands its 3x3 convs to ``conv3x3_relu`` (the
     float32 forward on the card; forced here on the CPU, where the twin
     serves it), ``record_formats`` names them ``H1`` with the second
-    half's channels, and ``layer_op`` times that call on the halves."""
+    half's channels, and ``layer_op`` times that call on the halves; the
+    transpose convs too where the batch takes them to the kernel
+    (``layers.transpose_on_kernel``), and ``layer_op`` times the 3x3 conv
+    of the zero-spread input."""
+    from ecseg_torch.models import layers
+
     model = MetasegUNet((4, 8), 16, generator=torch.Generator().manual_seed(0)).eval()
     x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 256, 256, 1), dtype=np.uint8))
     monkeypatch.setattr(MetasegUNet, "_kernel_route", lambda self, x, dtype: True)
-    recorded = profile_layers.record_formats(model, x, torch.float32)
-    h1 = {name for name, r in recorded.items() if r["op"] == "H1"}
-    assert h1 == {name for name, layer in model.layers.items() if layer.kernel_size == (3, 3) and layer.stride == (1, 1)}
-    assert {name: r["split"] for name, r in recorded.items() if r["op"] == "H1" and r["split"]} == {"dec2_1": 8, "dec1_1": 4}
-    assert {r["op"] for name, r in recorded.items() if name not in h1} == {"library"}  # pools, transpose convs, head
-    assert recorded["dec1_1"]["input"] == "channels_last"
+    convs = {name for name, layer in model.layers.items() if layer.kernel_size == (3, 3) and layer.stride == (1, 1)}
+    ups = {name for name in model.layers if name.startswith("up")}
+    for limit in (0, 1):  # one patch: the transpose convs on cuDNN, then on the kernel
+        monkeypatch.setattr(layers, "ZERO_SPREAD_MAX_IMAGES", limit)
+        recorded = profile_layers.record_formats(model, x, torch.float32)
+        h1 = {name for name, r in recorded.items() if r["op"] == "H1"}
+        assert h1 == convs | (ups if limit else set())
+        assert {name: r["split"] for name, r in recorded.items() if r["op"] == "H1" and r["split"]} == {"dec2_1": 8, "dec1_1": 4}
+        assert {r["op"] for name, r in recorded.items() if name not in h1} == {"library"}  # pools, transpose convs, head
+        assert recorded["dec1_1"]["input"] == "channels_last"
+    layer = layers.TFConvTranspose2d(8, 4)
+    xt = torch.from_numpy(np.random.default_rng(4).integers(-3, 4, (1, 8, 5, 6)).astype(np.float32))
+    with torch.no_grad():
+        got = profile_layers.layer_op("convt", xt.contiguous(memory_format=torch.channels_last), layer.weight, layer.bias, h1_split=0)()
+        np.testing.assert_allclose(got.numpy(), torch.relu(layer(xt)).numpy(), atol=1e-5, rtol=0)
     xi = torch.from_numpy(np.random.default_rng(2).integers(-3, 4, (1, 8, 16, 16)).astype(np.float32))
     w = torch.from_numpy(np.random.default_rng(3).integers(-3, 4, (4, 8, 3, 3)).astype(np.float32))
     b = torch.arange(4, dtype=torch.float32)
